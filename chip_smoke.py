@@ -9,20 +9,32 @@ Phases, each reported on its own line; any failure exits nonzero:
      back to the CPU); prints the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them, and the torch / CUDA versions;
-  1. build the segmented-scan kernel from sqmc_tpu_torch/csrc/segscan.cu;
+  1. build both kernels from sqmc_tpu_torch/csrc (segscan.cu, spmv.cu),
+     one nvcc each, started together;
   2. kernel vs its plain PyTorch version on the card, at the walk's merge
      shape (720,896 rows x 6 fields), an f64 variant, one segment spanning
      everything, all segment starts, n = 1 and n = 127, with median times
      from CUDA events;
-  3. the main path on the 14-electron electron gas (3D HEG, r_s = 0.5,
-     19 plane waves): HCI at eps_var = 1e-3 against its golden (9475 dets,
-     E_var = 58.276906085), the trial wavefunction with D = the whole HCI
-     space, and the semistochastic initiator walk at the bench's knobs,
-     gated against E_var + PT = 58.275966889 Ha.
+  2b. the SpMV kernel vs its plain version: ELL and block-ELL, float32
+     and float64, m = 1 and 4 right-hand sides, at HEG-14's variational H
+     (9,475 rows), at the C2 CAS(8e,26o) shape made from a seed (88k rows,
+     ~9.7M nonzeros, row lengths mean ~110, max 1,347) and at one row;
+  3. the walk's main path on the 14-electron electron gas (3D HEG,
+     r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
+     (9475 dets, E_var = 58.276906085), the trial wavefunction with D = the
+     whole HCI space, and the semistochastic initiator walk at the bench's
+     knobs, gated against E_var + PT = 58.275966889 Ha;
+  4. the SHCI path on HEG-14: run_hci(device_davidson=True) (Davidson on
+     the SpMV kernel), deterministic PT at eps_pt 2e-7 (-0.000939196,
+     501,881 connected dets, 48.051813420 with Madelung) and do_pt
+     semistochastic (eps_pt_big 1e-5, target 1e-5, n_mc 200);
+  5. a short float64-state walk, whose D-space projection is the block-ELL
+     SpMV kernel.
 
-The last two lines are a JSON object describing the kernels (launch counts
-from the main path's run, errors and times measured here) and
-``{"ok": true, "device": {...}}``.
+Each path's kernel counts are set to 0 just before it and read just after.
+The last two lines are a JSON object describing the kernels (seg_scan's
+launches from phase 3, spmv's from phase 4; errors and times measured
+here) and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -178,6 +190,121 @@ def phase_kernel_vs_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: SpMV kernel vs plain
+# ---------------------------------------------------------------------------
+
+C2_ROWS, C2_MEAN, C2_KMAX = 88_000, 110, 1347   # C2 CAS(8e,26o) variational H
+
+
+def _layouts_from_rows(lengths, rng):
+    """ELL and block-ELL layouts of a matrix with the given row lengths,
+    uniform random columns and normal values (the row-pointer form both
+    layouts share; padding slots hold column 0, value 0)."""
+    import numpy as np
+    from sqmc_tpu_torch.ops.spmv import SLOTS
+    n = len(lengths)
+    nnz = int(lengths.sum())
+    row = np.repeat(np.arange(n), lengths)
+    rank = np.arange(nnz) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz)
+    K = int(lengths.max())
+    nb = np.maximum(1, -(-lengths // SLOTS))
+    out = {}
+    for name, ptr in (("ell", np.arange(n + 1, dtype=np.int64) * K),
+                      ("blockell", np.concatenate([[0], np.cumsum(nb)]).astype(np.int64) * SLOTS)):
+        c = np.zeros(int(ptr[-1]), np.int32)
+        v = np.zeros(int(ptr[-1]))
+        c[ptr[:-1][row] + rank] = cols
+        v[ptr[:-1][row] + rank] = vals
+        out[name] = (c, v, ptr)
+    return out, nnz
+
+
+def _spmv_shapes(dev):
+    """HEG-14's variational H (HCI at eps_var 1e-3, 9,475 rows), the
+    synthetic C2 shape (88k rows, lengths drawn from a seed: mean ~110,
+    max 1,347, about 9.7M nonzeros) and a one-row matrix."""
+    import numpy as np
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    from sqmc_tpu_torch.ops.spmv import blockell_from_coo, ell_from_coo
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    rng = np.random.default_rng(11)
+    s = make_heg_system(*HEG, device=dev)
+    res = run_hci(s, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                  verbose=False)
+    H = build_sparse_ham(s.table, res.up, res.dn, s.nup, s.ndn, s.norb)
+    args = (H.n, H.rows, H.cols, H.vals, H.diag)
+    ec, ev, _, ep = ell_from_coo(*args)
+    bc, bv, _, bp = blockell_from_coo(*args, dtype=np.float64)
+    heg = {"ell": (ec.reshape(-1), ev.reshape(-1), ep), "blockell": (bc, bv, bp)}
+    shapes = [("heg14", H.n, heg, int(H.rows.numel()) * 2 + H.n)]
+    lengths = np.clip(np.rint(rng.lognormal(np.log(C2_MEAN) - 0.5, 1.0,
+                                            C2_ROWS)), 1, C2_KMAX).astype(np.int64)
+    lengths[rng.integers(C2_ROWS)] = C2_KMAX
+    c2, nnz = _layouts_from_rows(lengths, rng)
+    shapes.append(("c2_synthetic", C2_ROWS, c2, nnz))
+    one, nnz1 = _layouts_from_rows(np.array([1]), rng)
+    shapes.append(("n1", 1, one, nnz1))
+    return shapes
+
+
+def phase_spmv_vs_plain(dev):
+    """ELL and block-ELL, float32 and float64, m = 1 and 4, at each shape:
+    every row within |err| <= rtol * sum_k |v_k x_k| of the plain version
+    (the kernel sums lane-strided partials by a shuffle tree, the plain
+    version with index_add_: other orders; rtol 1e-5 in float32, 1e-13 in
+    float64).  Returns (max_abs_err over all cases, kernel ms, plain ms)
+    of the C2-shape block-ELL float32 m = 1 case, Davidson's call."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.ops import spmv as S
+    rtol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    rng = np.random.default_rng(12)
+    summary, max_err_all = None, 0.0
+    for shape, n, layouts, nnz in _spmv_shapes(dev):
+        for layout, (c, v, ptr) in layouts.items():
+            cols = torch.as_tensor(c, device=dev)
+            ptr_t = torch.as_tensor(ptr, device=dev)
+            for dt in (torch.float32, torch.float64):
+                vals = torch.as_tensor(v, device=dev).to(dt)
+                for m in (1, 4):
+                    xs = rng.standard_normal((n, m))
+                    x = torch.as_tensor(xs[:, 0] if m == 1 else xs,
+                                        device=dev).to(dt)
+                    got = S.spmv(x, cols, vals, ptr_t)
+                    torch.cuda.synchronize()
+                    ref = S.spmv_plain(x, cols, vals, ptr_t)
+                    absum = S.spmv_plain(x.abs().double(), cols,
+                                         vals.abs().double(), ptr_t)
+                    if got.shape != ref.shape or got.dtype != dt:
+                        raise AssertionError(f"spmv {shape}/{layout}: shape "
+                                             "or dtype differs")
+                    err = (got.double() - ref.double()).abs()
+                    max_err = float(err.max())
+                    max_err_all = max(max_err_all, max_err)
+                    if bool((err > rtol[dt] * absum).any()):
+                        raise AssertionError(
+                            f"spmv {shape}/{layout}/{dt}/m={m}: max |err| "
+                            f"{max_err}")
+                    ms = _median_ms(lambda: S.spmv(x, cols, vals, ptr_t))
+                    plain_ms = _median_ms(
+                        lambda: S.spmv_plain(x, cols, vals, ptr_t),
+                        reps=5, warm=1)
+                    log(f"phase 2b spmv {shape} {layout} "
+                        f"{str(dt).split('.')[-1]} m={m}: rows={n} nnz={nnz} "
+                        f"slots={len(c)} match max_abs_err={max_err:.3e} "
+                        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                    if (shape, layout, dt, m) == ("c2_synthetic", "blockell",
+                                                  torch.float32, 1):
+                        summary = (ms, plain_ms)
+            del cols, ptr_t
+        torch.cuda.empty_cache()
+    return (max_err_all,) + summary
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -263,7 +390,132 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
     if abs(bias) >= gate:
         raise AssertionError(f"|e_mixed - oracle| = {abs(bias):.6f} >= "
                              f"{gate:.6f}")
+    return launches, system, res, trial
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: SHCI (device Davidson, deterministic and semistochastic PT)
+# ---------------------------------------------------------------------------
+
+GOLD_PT, GOLD_NCONN, GOLD_TOTAL = -0.000939196, 501_881, 48.051813420
+EPS_PT, EPS_PT_BIG, PT_TARGET, N_MC = 2e-7, 1e-5, 1e-5, 200
+
+
+def phase_shci(dev, system, res):
+    """run_hci(device_davidson=True) -> deterministic PT -> do_pt
+    semistochastic on HEG-14, against the goldens of tests/test_hci.py and
+    tests/test_pt.py; PT runs on phase 3's float64-Davidson wavefunction.
+    Returns the SpMV launches of this run."""
+    import torch
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.pt import do_pt, second_order_pt
+    from sqmc_tpu_torch.ops import segscan, spmv
+
+    spmv.reset_launches()
+    segscan.reset_launches()
+    t0 = time.time()
+    dd = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                 verbose=False, device_davidson=True)
+    torch.cuda.synchronize()
+    t_hci = time.time() - t0
+    e_dd = float(dd.energies[0])
+    same = (torch.equal(dd.up, res.up) and torch.equal(dd.dn, res.dn))
+    log(f"phase 4 hci device_davidson: ndets={len(dd.up)} e_var={e_dd:.9f} "
+        f"same_dets_as_phase3={same} seconds={t_hci:.2f} "
+        f"spmv_launches={spmv.launches}")
+    if not same or abs(e_dd - GOLD_EVAR) > 1e-6:
+        raise AssertionError(f"device-Davidson HCI missed: {len(dd.up)} "
+                             f"dets, E_var {e_dd:.10f}")
+
+    e_var = float(res.energies[0])
+    t1 = time.time()
+    pt, nconn = second_order_pt(system, res.up, res.dn, res.wts[:, 0], e_var,
+                                EPS_PT, verbose=False)
+    torch.cuda.synchronize()
+    t_pt = time.time() - t1
+    total = e_var + pt + system.extra["energy_madelung"]
+    log(f"phase 4 deterministic pt: eps_pt={EPS_PT:g} pt={pt:.12f} "
+        f"n_connected={nconn} total_with_madelung={total:.9f} "
+        f"seconds={t_pt:.2f}")
+    if abs(pt - GOLD_PT) > 1e-8 or nconn != GOLD_NCONN \
+            or abs(total - GOLD_TOTAL) > 1e-7:
+        raise AssertionError("deterministic PT golden missed")
+
+    t2 = time.time()
+    out = do_pt(system, res.up, res.dn, res.wts[:, 0], res.diag, e_var,
+                EPS_VAR, EPS_PT, eps_pt_big=EPS_PT_BIG,
+                target_error=PT_TARGET, n_mc=N_MC, verbose=False)
+    torch.cuda.synchronize()
+    t_ss = time.time() - t2
+    gate = 5 * out["pt_err"] + 1e-5
+    log(f"phase 4 semistochastic pt: eps_pt_big={EPS_PT_BIG:g} "
+        f"n_mc={N_MC} mode={out['mode']} pt={out['pt']:.9f} "
+        f"+- {out['pt_err']:.9f} pt_big={out['pt_big']:.9f} "
+        f"samples={out['n_samples']} dev_from_golden={out['pt'] - GOLD_PT:.3e} "
+        f"gate={gate:.3e} seconds={t_ss:.2f}")
+    if out["mode"] != "semistochastic" or not abs(out["pt"] - GOLD_PT) < gate:
+        raise AssertionError("semistochastic PT outside 5 sigma + 1e-5")
+    launches = spmv.launches
+    log(f"phase 4 stages: hci_seconds={t_hci:.2f} det_pt_seconds={t_pt:.2f} "
+        f"stoch_pt_seconds={t_ss:.2f} spmv_launches={launches} "
+        f"seg_scan_launches={segscan.launches}")
+    if launches <= 0:
+        raise AssertionError("the SHCI path never launched the SpMV kernel")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: float64-state walk through the block-ELL projection
+# ---------------------------------------------------------------------------
+
+def phase_f64_walk(dev, system, trial):
+    """A few blocks of the walk in float64 state on phase 3's trial: every
+    generation's D-space projection is the block-ELL SpMV kernel."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.ops import segscan, spmv
+
+    cfg = WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=system.norb,
+                     nup=system.nup, ndn=system.ndn, n_words=system.n_words,
+                     tau=2e-3, w_abs_target=W_TARGET, spawn_granularity=2.0,
+                     min_wt=0.5, r_initiator=0.5, f32_state=False,
+                     proj_bf16=False, has_singles=False)
+    spmv.reset_launches()
+    segscan.reset_launches()
+    t0 = time.time()
+    out = run_walk(system, trial, cfg, nstep=100, nblk=2, nblk_eq=2,
+                   w_abs_begin=W_TARGET, e_trial_initial=trial.e_trial,
+                   verbose=False, max_eq_extensions=0, seed=2)
+    torch.cuda.synchronize()
+    t_walk = time.time() - t0
+    launches = spmv.launches
+    pop = float(np.mean(out.w_abs_trace[-100:]))
+    log(f"phase 5 f64 walk: gens={len(out.w_abs_trace)} "
+        f"gen_per_s={out.steps_per_sec:.3f} pop={pop:.1f} "
+        f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
+        f"spmv_launches={launches} seg_scan_launches={segscan.launches} "
+        f"seconds={t_walk:.1f}")
+    if launches <= 0:
+        raise AssertionError("the f64 walk never launched the SpMV kernel")
+    if bool(out.state.overflow) or not (
+            np.all(np.isfinite(out.w_abs_trace)) and np.isfinite(out.e_mixed)):
+        raise AssertionError("non-finite or overflowing f64 walk")
+    if abs(pop - W_TARGET) > 0.1 * W_TARGET:
+        raise AssertionError(f"population {pop:.0f} not within 10% of target")
+    return launches
+
+
+def phase_build():
+    """Both kernels, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from sqmc_tpu_torch.ops import segscan, spmv
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(mod.build) for mod in (segscan, spmv)]
+        libs = [f.result() for f in futs]
+    log(f"phase 1 build: {' '.join(os.path.relpath(p, HERE) for p in libs)} "
+        f"seconds={time.time() - t0:.2f}")
 
 
 def main():
@@ -281,14 +533,12 @@ def main():
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
 
-    from sqmc_tpu_torch.ops import segscan
-    t0 = time.time()
-    lib = segscan.build()
-    log(f"phase 1 build: {os.path.relpath(lib, HERE)} "
-        f"seconds={time.time() - t0:.2f}")
-
+    phase_build()
     max_err, ms, plain_ms = phase_kernel_vs_plain(dev)
-    launches = phase_main_path(dev)
+    sp_err, sp_ms, sp_plain_ms = phase_spmv_vs_plain(dev)
+    launches, system, res, trial = phase_main_path(dev)
+    sp_launches = phase_shci(dev, system, res)
+    phase_f64_walk(dev, system, trial)
 
     log(nvidia_smi_line())
     log(json.dumps({"kernels": [{
@@ -296,7 +546,12 @@ def main():
         "source": "sqmc_tpu_torch/csrc/segscan.cu",
         "replaces": "sqmc_tpu/ops/pscan.py:163",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms}, {
+        "name": "spmv", "route": "cuda",
+        "source": "sqmc_tpu_torch/csrc/spmv.cu",
+        "replaces": "sqmc_tpu/ops/spmv_pallas.py:83",
+        "launches": sp_launches, "max_abs_err": sp_err,
+        "ms": sp_ms, "plain_ms": sp_plain_ms}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """sqmc_tpu_torch - the PyTorch/CUDA port of sqmc_tpu.
 
 Semistochastic initiator FCIQMC with heat-bath proposals, fed by an HCI
-trial wavefunction and deterministic space, written for an NVIDIA H100
-(PyTorch on the card, plus a hand CUDA kernel for the annihilation
-merge's segmented scan) and runnable on the CPU for tests.
+trial wavefunction and deterministic space, and SHCI (HCI + second-order
+PT), written for an NVIDIA H100 (PyTorch on the card, plus hand CUDA
+kernels for the annihilation merge's segmented scan and the sparse
+matvec of Davidson and the D-space projection) and runnable on the CPU
+for tests.
 
 The layout mirrors ``sqmc_tpu`` module for module (``dets``, ``ops``,
 ``systems``, ``algo``, ``utils``).  Conventions that differ from the JAX

@@ -3,8 +3,9 @@ sqmc_tpu/algo/davidson.py; ref: more_tools.f90 davidson_sparse:2018).
 
 The matvec is a float64 scatter-add over the symmetric COO on the
 Hamiltonian's device (both orientations of the stored upper triangle plus
-the diagonal); the small Rayleigh-Ritz algebra runs on the host in numpy,
-exactly as in the JAX package.
+the diagonal), or the caller's ``matvec_fn`` (device HCI passes the
+float32 block-ELL SpMV); the small Rayleigh-Ritz algebra runs on the host
+in numpy, exactly as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,19 +31,24 @@ def matvec(H: SparseHam, v: torch.Tensor) -> torch.Tensor:
 def davidson(H: SparseHam, n_states: int = 1,
              initial: np.ndarray | None = None,
              tol: float = 1e-10, max_iter: int = 200,
-             m_max: int | None = None, verbose: bool = False):
+             m_max: int | None = None, verbose: bool = False,
+             matvec_fn=None):
     """Lowest n_states eigenpairs.  Returns (evals [k], evecs [n,k]) as
-    float64 numpy arrays.  initial: optional [n, k] starting vectors."""
+    float64 numpy arrays.  initial: optional [n, k] starting vectors.
+    matvec_fn: optional replacement for the COO matvec, called on a
+    float64 [n, k] tensor on H's device - e.g. ops.spmv.BlockEllSpmv, the
+    device-Davidson matvec."""
     full_fp32_matmul()
     n = H.n
     k = n_states
-    if n <= k or n < 50:
+    if matvec_fn is None and (n <= k or n < 50):
         w, U = np.linalg.eigh(H.dense().cpu().numpy())     # tiny problems
         return w[:k], U[:, :k]
     dev = H.vals.device
+    mv = matvec_fn if matvec_fn is not None else (lambda V: matvec(H, V))
 
-    def matvec_fn(V):
-        return matvec(H, torch.as_tensor(V, device=dev)).cpu().numpy()
+    def apply(V):
+        return mv(torch.as_tensor(V, device=dev)).cpu().numpy()
 
     if m_max is None:
         m_max = max(8 * k, 48)
@@ -61,7 +67,7 @@ def davidson(H: SparseHam, n_states: int = 1,
         V = np.concatenate([V, rng.normal(size=(n, k - V.shape[1]))], axis=1)
         V, _ = np.linalg.qr(V)
 
-    W = matvec_fn(V)
+    W = apply(V)
     theta_old = np.full(k, np.inf)
     evals = None
     X = V[:, :k]
@@ -105,7 +111,7 @@ def davidson(H: SparseHam, n_states: int = 1,
             T = T[:, nrms > 1e-8] / np.maximum(nrms[nrms > 1e-8], 1e-30)
             if T.shape[1] == 0:
                 break
-        HT = matvec_fn(T)
+        HT = apply(T)
         V = np.concatenate([V, T], axis=1)
         W = np.concatenate([W, HT], axis=1)
     return np.asarray(evals), np.asarray(X)

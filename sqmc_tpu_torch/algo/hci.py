@@ -6,9 +6,14 @@ iterate { connections with |H_ij c_j| > eps_var -> union -> sparse H
 schedule, min_H_already_done window (ref: hci.f90:1014,
 chemistry.f90:7043) and exit criteria 1 (det-count growth < 1e-5) and 2
 (energy change < 1e-5).  The det list stays sorted by the (up, dn) key.
+``device_davidson`` runs Davidson on the float32 block-ELL SpMV
+(ops/spmv.py, the hand CUDA kernel on the card) with a float64 Rayleigh
+refinement; :func:`run_eps_series` and :func:`extrapolate_energy` give
+the eps_var series and its extrapolation.
 
-Not ported: the mesh, device_davidson / block-ELL Davidson, the
-wavefunction cache, the active space and the ARPACK diagonalizer.
+Not ported (each raises ValueError): the mesh (ROADMAP A7), the
+wavefunction cache, the active space and the ARPACK diagonalizer
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -19,10 +24,11 @@ import numpy as np
 import torch
 
 from ..ops import setalg
+from ..ops.spmv import BlockEllSpmv
 from ..utils.precision import full_fp32_matmul
 from .connect import generate_connections
-from .davidson import davidson
-from .sparseham import build_sparse_ham
+from .davidson import davidson, matvec
+from .sparseham import SparseHam, build_sparse_ham
 
 
 @dataclasses.dataclass
@@ -35,9 +41,72 @@ class HCIResult:
     n_iters: int
 
 
+def _rayleigh_f64(H: SparseHam, x) -> float:
+    """float64 Rayleigh quotient over the symmetric COO; refines float32
+    device-Davidson eigenvalues (error O(||r||^2) for symmetric H)."""
+    x = torch.as_tensor(np.asarray(x, np.float64), device=H.vals.device)
+    x = x / torch.linalg.norm(x)
+    return float(x @ matvec(H, x))
+
+
+def extrapolate_energy(e_var, e_pt):
+    """Linear extrapolation of E_tot = E_var + dE2 against dE2 -> 0 over
+    an eps_var series (ref: energies_for_extrapolation, hci.f90:1824).
+    Returns (e_extrapolated, slope)."""
+    e_var = np.asarray(e_var, np.float64)
+    e_pt = np.asarray(e_pt, np.float64)
+    A = np.stack([np.ones_like(e_pt), e_pt], axis=1)
+    coef, *_ = np.linalg.lstsq(A, e_var + e_pt, rcond=None)
+    return float(coef[0]), float(coef[1])
+
+
+def run_eps_series(system, eps_list, eps_pt: float, verbose: bool = False,
+                   **hci_kwargs):
+    """(E_var, dE2) over a descending eps_var series and the linear
+    extrapolation to dE2 -> 0 (ref: energies_for_extrapolation,
+    hci.f90:1824).  Returns dict(eps, e_var, e_pt, e_tot, e_extrapolated,
+    slope)."""
+    from .pt import do_pt
+
+    eps_list = sorted(set(float(e) for e in eps_list), reverse=True)
+    e_var, e_pt = [], []
+    for i, eps in enumerate(eps_list):
+        res = run_hci(system, eps_var=eps, eps_var_sched=eps_list[:i + 1],
+                      verbose=verbose, **hci_kwargs)
+        out = do_pt(system, res.up, res.dn, res.wts[:, 0], res.diag,
+                    float(res.energies[0]), eps_var=eps, eps_pt=eps_pt,
+                    verbose=verbose)
+        e_var.append(float(res.energies[0]))
+        e_pt.append(out["pt"])
+        if verbose:
+            print(f"eps_var={eps:.2e}  E_var={e_var[-1]:.9f} "
+                  f"dE2={e_pt[-1]:.9f}", flush=True)
+    e0, slope = extrapolate_energy(e_var, e_pt)
+    return dict(eps=eps_list, e_var=np.asarray(e_var), e_pt=np.asarray(e_pt),
+                e_tot=np.asarray(e_var) + np.asarray(e_pt),
+                e_extrapolated=e0, slope=slope)
+
+
 def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
-            max_iters: int = 50, verbose: bool = True) -> HCIResult:
-    """Variational HCI on `system` (its tables' device does the work)."""
+            max_iters: int = 50, verbose: bool = True,
+            device_davidson: bool = False, mesh=None,
+            wf_cache_dir: str | None = None, active_space=None,
+            diagonalizer: str = "davidson") -> HCIResult:
+    """Variational HCI on `system` (its tables' device does the work).
+
+    device_davidson: for H.n >= 2000, Davidson runs on the float32
+    block-ELL SpMV (tol 3e-6) and each converged eigenvalue is refined by
+    a float64 Rayleigh quotient, as in sqmc_tpu's run_hci."""
+    if mesh is not None:
+        raise ValueError("run_hci(mesh=...) is not ported (ROADMAP A7)")
+    if wf_cache_dir is not None:
+        raise ValueError("the wavefunction cache is not ported (ROADMAP A8)")
+    if active_space is not None:
+        raise ValueError("the variational active space is not ported "
+                         "(ROADMAP A8)")
+    if diagonalizer != "davidson":
+        raise ValueError("only the Davidson diagonalizer is ported; ARPACK "
+                         "is ROADMAP A8")
     full_fp32_matmul()
     nup, ndn, norb = system.nup, system.ndn, system.norb
     dev = system.device
@@ -114,7 +183,13 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
         for s in range(n_states):
             if np.linalg.norm(X0[:, s]) < 1e-12:
                 X0[np.argsort(diag_np)[s], s] = 1.0
-        evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
+        if device_davidson and H.n >= 2000:
+            evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
+                                    matvec_fn=BlockEllSpmv(H))
+            evals = np.array([_rayleigh_f64(H, evecs[:, s])
+                              for s in range(n_states)])
+        else:
+            evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
 
         up, dn, wts, min_H_done = up2, dn2, evecs, mhd2
         old_energies = energies

@@ -9,7 +9,8 @@ the (up, dn) key:
 
   1. exact projection 1 + tau(E_T - H) on the deterministic space D: a
      dense [n_imp, n_imp] float32 matvec (f32 state, n_imp <=
-     dense_proj_max) or the block-ELL gather / row-sum form (f64 state);
+     dense_proj_max) or the block-ELL SpMV (ops/spmv.py, the CUDA kernel
+     on the card) otherwise;
   2. spawning: per-walker child counts -> prefix sum -> fixed spawn slots,
      hierarchical heat-bath pair draw, alias in-row target draw, and the
      exact S/diff spawn-weight correction that keeps the propagator
@@ -45,7 +46,7 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import segscan, setalg
+from ..ops import segscan, setalg, spmv
 from ..ops.alias import setup_alias_np
 from ..systems.chem import slater
 from ..systems.heatbath import tri_le, tri_lt
@@ -161,9 +162,9 @@ class WalkTables(NamedTuple):
     ct_den: torch.Tensor
     imp_up: torch.Tensor         # deterministic space, sorted
     imp_dn: torch.Tensor
-    imp_ell_cols: torch.Tensor   # [P] i64, off-diagonal, 128-slot row blocks
+    imp_ell_cols: torch.Tensor   # [P] i32, off-diagonal, 128-slot row blocks
     imp_ell_vals: torch.Tensor   # [P] f32/f64
-    imp_ell_row: torch.Tensor    # [P//128] i64
+    imp_ell_ptr: torch.Tensor    # [n_imp + 1] i64 row pointers into the slots
     imp_diag: torch.Tensor       # [n_imp] f64
     imp_dense: torch.Tensor      # [n_imp, n_imp] f32 off-diagonal, or [0, 0]
 
@@ -311,40 +312,24 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
     R2 = np.block([[rs_dense, ro_dense], [ro_dense.T, rs_dense]])
 
     # projection matrix: diagonal split out, off-diagonal rows padded to
-    # 128-slot blocks (block-ELL), or dense f32 for f32-state runs
+    # 128-slot blocks (block-ELL, ops/spmv.py), or dense f32 for f32-state
+    # runs with n_imp <= dense_proj_max
     n_imp = len(trial.imp_up)
     H = trial.imp_ham
     fdt = np.float32 if cfg.f32_state else np.float64
-    r_off = np.concatenate([np_(H.rows), np_(H.cols)]).astype(np.int64)
-    c_off = np.concatenate([np_(H.cols), np_(H.rows)]).astype(np.int64)
-    v_off = np.concatenate([np_(H.vals), np_(H.vals)])
-    o = np.argsort(r_off, kind="stable")
-    r_off, c_off, v_off = r_off[o], c_off[o], v_off[o]
     imp_diag = np_(H.diag).astype(np.float64)
-    if n_imp > 0:
-        counts = np.bincount(r_off, minlength=n_imp)
-        nb_r = np.maximum(1, -(-counts // 128))
-        block_starts = np.concatenate([[0], np.cumsum(nb_r)])[:-1] * 128
-        csr_start = np.concatenate([[0], np.cumsum(counts)])
-        P = int(np.sum(nb_r)) * 128
-        ell_cols = np.zeros(P, np.int64)
-        ell_vals = np.zeros(P)
-        slot = block_starts[r_off] + (np.arange(len(r_off)) - csr_start[r_off])
-        ell_cols[slot] = c_off
-        ell_vals[slot] = v_off
-        ell_row = np.repeat(np.arange(n_imp, dtype=np.int64), nb_r)
-    else:
-        ell_cols = np.zeros(0, np.int64)
-        ell_vals = np.zeros(0)
-        ell_row = np.zeros(0, np.int64)
     use_dense = cfg.f32_state and 0 < n_imp <= cfg.dense_proj_max
     if use_dense:
+        rc = (torch.cat([H.rows, H.cols]).to(dev), torch.cat([H.cols, H.rows]).to(dev))
         imp_dense = torch.zeros((n_imp, n_imp), dtype=F32, device=dev)
-        imp_dense.index_put_(
-            (torch.as_tensor(r_off, device=dev), torch.as_tensor(c_off, device=dev)),
-            torch.as_tensor(v_off.astype(np.float32), device=dev), accumulate=True)
+        imp_dense.index_put_(rc, torch.cat([H.vals, H.vals]).to(dev, F32),
+                             accumulate=True)
+        ell_cols, ell_vals = np.zeros(0, np.int32), np.zeros(0, fdt)
+        ell_ptr = np.zeros(n_imp + 1, np.int64)
     else:
         imp_dense = torch.zeros((0, 0), dtype=F32, device=dev)
+        ell_cols, ell_vals, _, ell_ptr = spmv.blockell_from_coo(
+            n_imp, H.rows, H.cols, H.vals, dtype=fdt)
 
     t = lambda x, dt: torch.as_tensor(np.asarray(x).astype(dt), device=dev)  # noqa: E731
     ct_key = (flip(_fuse(trial.ct_up, trial.ct_dn)) if _fused_keys(cfg)
@@ -361,8 +346,8 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
         ct_up=trial.ct_up.to(dev), ct_dn=trial.ct_dn.to(dev), ct_key=ct_key.to(dev),
         ct_num=t(np_(trial.ct_num), fdt), ct_den=t(np_(trial.ct_den), fdt),
         imp_up=trial.imp_up.to(dev), imp_dn=trial.imp_dn.to(dev),
-        imp_ell_cols=t(ell_cols, np.int64), imp_ell_vals=t(ell_vals, fdt),
-        imp_ell_row=t(ell_row, np.int64), imp_diag=t(imp_diag, np.float64),
+        imp_ell_cols=t(ell_cols, np.int32), imp_ell_vals=t(ell_vals, fdt),
+        imp_ell_ptr=t(ell_ptr, np.int64), imp_diag=t(imp_diag, np.float64),
         imp_dense=imp_dense)
 
 
@@ -527,10 +512,8 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         if tables.imp_dense.numel():
             Hw_off = tables.imp_dense @ w_imp.to(F32)
         else:
-            prod = tables.imp_ell_vals * w_imp[tables.imp_ell_cols]
-            blk = prod.view(-1, 128).sum(dim=1)
-            Hw_off = torch.zeros(n_imp, dtype=blk.dtype, device=dev)
-            Hw_off.index_add_(0, tables.imp_ell_row, blk)
+            Hw_off = spmv.spmv(w_imp, tables.imp_ell_cols,
+                               tables.imp_ell_vals, tables.imp_ell_ptr)
         # difference form: both terms are O(E_corr * w), so the f32 state
         # loses nothing to cancellation
         deltaw = tau * ((e_trial - tables.imp_diag) * w_imp.to(F64)

@@ -17,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .algo.hci import HCIResult
 from .algo.semistoch import TrialWavefunction, load_trial, trial_from_arrays
+from .algo.sparseham import SparseHam
 from .algo.walk import WalkState
 from .systems.base import FermionSystem
 from .systems.chem.integrals import IntegralTable
@@ -72,6 +74,28 @@ def system_from_numpy(s, device="cpu") -> FermionSystem:
         hf_up=np.asarray(s.hf_up).view(np.int64).copy(),
         hf_dn=np.asarray(s.hf_dn).view(np.int64).copy(),
         extra=dict(s.extra))
+
+
+def sparse_ham_from_numpy(H, device="cpu") -> SparseHam:
+    """SparseHam from an object with the sqmc_tpu SparseHam fields
+    (strictly-upper COO rows/cols/vals and the diagonal)."""
+    def t(x, dt):
+        return torch.as_tensor(np.array(x, dtype=dt), device=device)
+
+    return SparseHam(n=int(H.n), rows=t(H.rows, np.int64),
+                     cols=t(H.cols, np.int64), vals=t(H.vals, np.float64),
+                     diag=t(H.diag, np.float64))
+
+
+def hci_result_from_numpy(res, device="cpu") -> HCIResult:
+    """HCIResult from an object with the sqmc_tpu HCIResult fields: the
+    dets become int64 words on `device`, the rest stays numpy."""
+    return HCIResult(up=words_to_torch(res.up, device),
+                     dn=words_to_torch(res.dn, device),
+                     wts=np.array(res.wts, np.float64),
+                     energies=np.array(res.energies, np.float64),
+                     diag=np.array(res.diag, np.float64),
+                     n_iters=int(res.n_iters))
 
 
 def trial_from_npz(src, device="cpu") -> TrialWavefunction:

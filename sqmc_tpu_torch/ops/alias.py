@@ -1,13 +1,16 @@
-"""Walker alias tables (port of the numpy Vose builder in
-sqmc_tpu/ops/alias.py; ref: more_tools.f90 setup_alias:5603).
+"""Walker alias tables (port of sqmc_tpu/ops/alias.py; ref:
+more_tools.f90 setup_alias:5603, sample_alias:5665).
 
-Host-side construction only: the walk samples the tables in
-``algo/walk.py`` (uniform slot, then accept-or-alias).
+The tables are built on the host (numpy Vose); :func:`sample_alias` draws
+from them on their device with an explicit ``torch.Generator`` (the
+semistochastic PT's reference sampler).  The walk samples its heat-bath
+tables inline in ``algo/walk.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def setup_alias_np(prob: np.ndarray):
@@ -42,3 +45,14 @@ def alias_probabilities(J: np.ndarray, q: np.ndarray) -> np.ndarray:
     p = q.copy()
     np.add.at(p, J, 1.0 - q)
     return p / K
+
+
+def sample_alias(gen: torch.Generator, J: torch.Tensor, q: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """n iid draws from alias tables J (int) and q (float64) on their
+    device: a uniform slot, kept with probability q[slot], else its alias.
+    gen must live on the tables' device.  Returns int32 [n]."""
+    K = J.shape[0]
+    idx = torch.randint(0, K, (n,), generator=gen, device=J.device)
+    u = torch.rand(n, dtype=torch.float64, generator=gen, device=J.device)
+    return torch.where(u < q[idx], idx, J[idx].to(idx.dtype)).to(torch.int32)

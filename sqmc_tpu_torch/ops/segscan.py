@@ -18,14 +18,10 @@ root) or raises.  There is no fallback from the card to the plain path.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
+
+from . import cudabuild
 
 _OPS = ("sum", "min", "max")
 _DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
@@ -33,13 +29,7 @@ _DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
 MAX_FIELDS = 8
 TILE = 2048                          # rows per block; must match segscan.cu
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "segscan.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "sqmc_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
 launches = 0                         # kernel launches since reset_launches()
-_lib = None
 
 
 def reset_launches() -> None:
@@ -95,61 +85,25 @@ def seg_ends(start: torch.Tensor) -> torch.Tensor:
 # The CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and Path(cand, "bin", "nvcc").exists():
-            return str(Path(cand, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the seg-scan kernel is built "
-                           "from csrc/segscan.cu on the machine with the card")
-    return found
+_SOURCE = "segscan.cu"
 
 
-def library_path() -> Path:
-    """Build output for the current source, keyed by its content."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libsqmc_segscan_{h.hexdigest()[:16]}.so"
+def _bind(lib):
+    fn = lib.sqmc_seg_scan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.sqmc_seg_scan_error_string.restype = ctypes.c_char_p
+    lib.sqmc_seg_scan_error_string.argtypes = [ctypes.c_int]
 
 
-def build() -> Path:
-    """Compile csrc/segscan.cu into a plain-C shared library (no torch
-    headers: seconds, not minutes) unless this source is already built."""
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)     # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.sqmc_seg_scan
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_void_p, ctypes.c_void_p]
-        lib.sqmc_seg_scan_error_string.restype = ctypes.c_char_p
-        lib.sqmc_seg_scan_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
+def build():
+    """Compile csrc/segscan.cu (see ops/cudabuild.py); returns the path."""
+    return cudabuild.build(_SOURCE)
 
 
 def seg_scan_cuda(fields, ops, start):
@@ -179,7 +133,7 @@ def seg_scan_cuda(fields, ops, start):
     # per-tile aggregates and carries: (flags i32 + nf 8-byte slots) x 2
     scratch = torch.empty(2 * n_tiles * (1 + nf) * 8, dtype=torch.uint8,
                           device=dev)
-    lib = _load()
+    lib = cudabuild.load(_SOURCE, _bind)
     ptr_arr = ctypes.c_void_p * nf
     int_arr = ctypes.c_int * nf
     with torch.cuda.device(dev):

@@ -1,0 +1,242 @@
+"""Sparse matrix times vector(s) over a row-pointer layout: the layout
+functions, the plain PyTorch version and the wrapper around the hand CUDA
+kernel (csrc/spmv.cu).
+
+Port of sqmc_tpu/ops/spmv_pallas.py.  Row i of the matrix owns the slots
+``[row_ptr[i], row_ptr[i+1])`` of flat ``cols`` (int32) / ``vals`` arrays:
+
+  * ELL (:func:`ell_from_coo`): every row owns K consecutive slots,
+    ``row_ptr[i] = i * K`` -- the layout of the TPU kernel
+    ``_spmv_pallas``;
+  * block-ELL (:func:`blockell_from_coo`): every row owns a whole number
+    of 128-slot blocks, ``row_ptr[i]`` = its first block x 128 -- the
+    layout the JAX package runs in production (Davidson under
+    ``device_davidson``, the walk's D-space projection), with padding
+    bounded by 127 slots per row instead of K_max - K_row.
+
+:func:`spmv` computes ``y[i] = sum over row i's slots of vals * x[cols]``
+for x of shape [n] or [n, m] (all m columns in one launch).  A CPU tensor
+takes :func:`spmv_plain`; a CUDA tensor launches the kernel (built from
+the source at first use, ops/cudabuild.py) or raises.  float32 inputs
+accumulate in float32, float64 inputs in float64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cudabuild
+
+BLOCK_ROWS = 512            # the ELL row count rounds up to this (JAX's n_pad)
+SLOTS = 128                 # block-ELL block width
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+_SOURCE = "spmv.cu"
+
+launches = 0                # kernel launches since reset_launches()
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Layouts (host, numpy)
+# ---------------------------------------------------------------------------
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _symmetric_sorted(n, rows, cols, vals, diag):
+    """Both orientations of the strictly-upper COO (+ the diagonal),
+    stably sorted by row, as the JAX layout functions order them."""
+    rows, cols, vals = _np(rows), _np(cols), _np(vals)
+    r_all = np.concatenate([rows, cols])
+    c_all = np.concatenate([cols, rows])
+    v_all = np.concatenate([vals, vals])
+    if diag is not None:
+        r_all = np.concatenate([r_all, np.arange(n)])
+        c_all = np.concatenate([c_all, np.arange(n)])
+        v_all = np.concatenate([v_all, _np(diag)])
+    order = np.argsort(r_all, kind="stable")
+    r_all, c_all, v_all = r_all[order], c_all[order], v_all[order]
+    counts = np.bincount(r_all, minlength=n)
+    rank = np.arange(len(r_all)) - np.concatenate([[0], np.cumsum(counts)])[r_all]
+    return r_all, c_all, v_all, counts, rank
+
+
+def ell_from_coo(n: int, rows, cols, vals, diag=None, k_max: int | None = None):
+    """Symmetric upper COO (+ diag) -> padded ELL.
+
+    Returns (ell_cols [n_pad, K] int32, ell_vals [n_pad, K] float32, K,
+    row_ptr [n + 1] int64): the first three equal sqmc_tpu's
+    ``ell_from_coo``; padding slots point at column 0 with value 0, n_pad
+    rounds n up to BLOCK_ROWS, and rows longer than k_max are cut."""
+    r_all, c_all, v_all, counts, rank = _symmetric_sorted(n, rows, cols,
+                                                          vals, diag)
+    K = int(counts.max()) if len(counts) and counts.max() > 0 else 1
+    if k_max is not None:
+        K = min(K, k_max)
+    n_pad = -(-n // BLOCK_ROWS) * BLOCK_ROWS
+    ell_cols = np.zeros((n_pad, K), np.int32)
+    ell_vals = np.zeros((n_pad, K), np.float32)
+    keep = rank < K
+    ell_cols[r_all[keep], rank[keep]] = c_all[keep]
+    ell_vals[r_all[keep], rank[keep]] = v_all[keep]
+    row_ptr = np.arange(n + 1, dtype=np.int64) * K
+    return ell_cols, ell_vals, K, row_ptr
+
+
+def blockell_from_coo(n: int, rows, cols, vals, diag=None, dtype=np.float32):
+    """Symmetric upper COO (+ diag) -> 128-slot row-block layout.
+
+    Returns (ell_cols [P] int32, ell_vals [P] dtype, ell_row [P/128] int32,
+    row_ptr [n + 1] int64): the first three equal sqmc_tpu's
+    ``blockell_from_coo`` (float32 values by default); every row owns at
+    least one block."""
+    r_all, c_all, v_all, counts, rank = _symmetric_sorted(n, rows, cols,
+                                                          vals, diag)
+    nb_r = np.maximum(1, -(-counts // SLOTS))
+    row_ptr = np.concatenate([[0], np.cumsum(nb_r)]).astype(np.int64) * SLOTS
+    P = int(row_ptr[-1])
+    ell_cols = np.zeros(P, np.int32)
+    ell_vals = np.zeros(P, dtype)
+    slot = row_ptr[:-1][r_all] + rank
+    ell_cols[slot] = c_all
+    ell_vals[slot] = v_all
+    ell_row = np.repeat(np.arange(n, dtype=np.int32), nb_r)
+    return ell_cols, ell_vals, ell_row, row_ptr
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def spmv_plain(x, cols, vals, row_ptr):
+    """Gather, multiply, sum per row (index_add_ over the slots' rows).
+    x: [n_x] or [n_x, m]; returns [n_rows] or [n_rows, m] in x's dtype."""
+    _check_types(x, cols, vals, row_ptr)
+    n_rows = row_ptr.numel() - 1
+    used = int(row_ptr[-1])
+    cols = cols.reshape(-1)[:used].to(torch.int64)
+    vals = vals.reshape(-1)[:used]
+    xs = x[:, None] if x.dim() == 1 else x
+    row_of = torch.repeat_interleave(
+        torch.arange(n_rows, device=x.device), row_ptr.diff(), output_size=used)
+    y = torch.zeros((n_rows, xs.shape[1]), dtype=x.dtype, device=x.device)
+    y.index_add_(0, row_of, vals[:, None] * xs[cols])
+    return y[:, 0] if x.dim() == 1 else y
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _bind(lib):
+    fn = lib.sqmc_spmv
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 6
+    lib.sqmc_spmv_error_string.restype = ctypes.c_char_p
+    lib.sqmc_spmv_error_string.argtypes = [ctypes.c_int]
+
+
+def build():
+    """Compile csrc/spmv.cu (see ops/cudabuild.py); returns the path."""
+    return cudabuild.build(_SOURCE)
+
+
+def _check_types(x, cols, vals, row_ptr):
+    if x.dim() not in (1, 2):
+        raise ValueError("x must be [n] or [n, m]")
+    if x.dtype not in _DTYPES or vals.dtype != x.dtype:
+        raise ValueError(f"x and vals must share float32 or float64, got "
+                         f"{x.dtype} and {vals.dtype}")
+    if cols.dtype != torch.int32 or row_ptr.dtype != torch.int64:
+        raise ValueError("cols must be int32 and row_ptr int64")
+    if row_ptr.dim() != 1 or row_ptr.numel() < 1:
+        raise ValueError("row_ptr must be [n_rows + 1]")
+    if cols.numel() != vals.numel():
+        raise ValueError("cols and vals must hold the same slots")
+    if any(t.device != x.device for t in (cols, vals, row_ptr)):
+        raise ValueError("x, cols, vals and row_ptr must share a device")
+
+
+def spmv_cuda(x, cols, vals, row_ptr):
+    """Launch the kernel on CUDA tensors (checks what it is handed; the
+    column indices are in range by construction of the layouts)."""
+    global launches
+    _check_types(x, cols, vals, row_ptr)
+    n_rows = row_ptr.numel() - 1
+    xs = (x[:, None] if x.dim() == 1 else x).contiguous()
+    m = xs.shape[1]
+    y = torch.empty((n_rows, m), dtype=x.dtype, device=x.device)
+    if n_rows > 0 and m > 0:
+        cols, vals, row_ptr = (t.contiguous() for t in (cols, vals, row_ptr))
+        lib = cudabuild.load(_SOURCE, _bind)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.sqmc_spmv(n_rows, m, _DTYPES[x.dtype], row_ptr.data_ptr(),
+                                cols.data_ptr(), vals.data_ptr(), xs.data_ptr(),
+                                y.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError("spmv kernel launch failed: "
+                               + lib.sqmc_spmv_error_string(err).decode())
+        launches += 1
+    return y[:, 0] if x.dim() == 1 else y
+
+
+def spmv(x, cols, vals, row_ptr):
+    """y = A x in a row-pointer layout; x [n_x] or [n_x, m] float32/float64,
+    cols int32 and vals (x's dtype) flat slots, row_ptr [n_rows + 1] int64.
+    The two paths sum in different orders, so they agree to rounding."""
+    if x.device.type == "cpu":
+        return spmv_plain(x, cols, vals, row_ptr)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmv has no path for device {x.device}")
+    return spmv_cuda(x, cols, vals, row_ptr)
+
+
+# ---------------------------------------------------------------------------
+# Matvec objects with the JAX package's signatures
+# ---------------------------------------------------------------------------
+
+class _RowPtrSpmv:
+    """y = H x for a SparseHam in one of the layouts, on H's device, in
+    float32; x is [n] or [n, m] and y comes back in x's dtype."""
+
+    def __call__(self, x):
+        x = torch.as_tensor(x, device=self.cols.device)
+        y = spmv(x.to(self.vals.dtype), self.cols, self.vals, self.row_ptr)
+        return y.to(x.dtype)
+
+    def _put(self, H, cols, vals, row_ptr):
+        dev = H.vals.device
+        self.n = H.n
+        self.cols = torch.as_tensor(cols, device=dev)
+        self.vals = torch.as_tensor(vals, device=dev)
+        self.row_ptr = torch.as_tensor(row_ptr, device=dev)
+
+
+class EllSpmv(_RowPtrSpmv):
+    """The ELL layout of sqmc_tpu's EllSpmv (the TPU kernel's layout)."""
+
+    def __init__(self, H):
+        cols, vals, K, row_ptr = ell_from_coo(H.n, H.rows, H.cols, H.vals,
+                                              H.diag)
+        self.K = K
+        self.n_pad = cols.shape[0]
+        self._put(H, cols.reshape(-1), vals.reshape(-1), row_ptr)
+
+
+class BlockEllSpmv(_RowPtrSpmv):
+    """The 128-slot row-block layout of sqmc_tpu's BlockEllSpmv."""
+
+    def __init__(self, H):
+        cols, vals, _, row_ptr = blockell_from_coo(H.n, H.rows, H.cols,
+                                                   H.vals, H.diag)
+        self._put(H, cols, vals, row_ptr)

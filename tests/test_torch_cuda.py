@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from sqmc_tpu_torch.ops import segscan as tseg
+from sqmc_tpu_torch.ops import spmv as tspmv
 
 OPS6 = ["min", "max", "sum", "sum", "min", "max"]
 
@@ -117,11 +118,15 @@ def test_walk_on_card_matches_cpu(which, rtol):
     """The deterministic-limit walk on the card equals the same walk on
     the CPU: to 1e-10 in f64 state; to 2e-6 in f32 state, where the two
     devices round the float32 matmuls and sums differently.  Each
-    generation's merge goes through the kernel on the card."""
+    generation's merge goes through the seg-scan kernel on the card, and
+    each f64-state projection through the SpMV kernel."""
     dev = _device()
-    before = tseg.launches
+    before, sp_before = tseg.launches, tspmv.launches
     card = _exact_walk(dev, which)
     assert tseg.launches == before + 10
+    # f64 state projects through the block-ELL SpMV kernel; f32 state with
+    # a small D space through the dense matvec
+    assert tspmv.launches == sp_before + (10 if which == "heg_f64" else 0)
     np.testing.assert_allclose(card, _exact_walk("cpu", which), rtol=rtol,
                                atol=0)
 
@@ -152,3 +157,86 @@ def test_generation_never_waits_on_the_card():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert not bool(st.overflow) and int(st.nwalk) > 0
+
+
+def _sym_coo(n, seed):
+    """Strictly-upper COO + diagonal with skewed row lengths."""
+    rng = np.random.default_rng(seed)
+    per_row = np.minimum(rng.geometric(0.02, n), 1500)
+    r = np.repeat(np.arange(n), per_row)
+    c = rng.integers(0, n, len(r))
+    lo, hi = np.minimum(r, c), np.maximum(r, c)
+    key = np.unique(lo[lo < hi] * n + hi[lo < hi])
+    return (n, key // n, key % n, rng.standard_normal(len(key)),
+            rng.standard_normal(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "blockell"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+def test_spmv_kernel_matches_plain(layout, dtype, rtol):
+    """The hand SpMV kernel against its plain version on the card, m = 1
+    and 3 right-hand sides: every row within rtol * sum_k |v_k x_k| (other
+    summation orders); the m columns of one launch equal m single
+    launches bit for bit (a fixed shuffle tree, no atomics)."""
+    dev = _device()
+    coo = _sym_coo(5000, seed=7)
+    if layout == "ell":
+        c, v, _, p = tspmv.ell_from_coo(*coo)
+        c, v = c.reshape(-1), v.reshape(-1)
+    else:
+        c, v, _, p = tspmv.blockell_from_coo(*coo, dtype=np.float64)
+    cols = torch.as_tensor(c, device=dev)
+    vals = torch.as_tensor(v, device=dev).to(dtype)
+    ptr = torch.as_tensor(p, device=dev)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((5000, 3)),
+                        device=dev).to(dtype)
+    before = tspmv.launches
+    for xs in (x[:, 0].contiguous(), x):
+        got = tspmv.spmv(xs, cols, vals, ptr)
+        torch.cuda.synchronize()
+        ref = tspmv.spmv_plain(xs, cols, vals, ptr)
+        bound = tspmv.spmv_plain(xs.abs().double(), cols, vals.abs().double(),
+                                 ptr)
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert bool(((got.double() - ref.double()).abs() <= rtol * bound).all())
+    y = tspmv.spmv(x, cols, vals, ptr)
+    for j in range(3):
+        assert torch.equal(y[:, j], tspmv.spmv(x[:, j].contiguous(), cols,
+                                               vals, ptr))
+    assert tspmv.launches == before + 6
+
+
+@pytest.mark.cuda
+def test_spmv_wrapper_raises_on_bad_input():
+    dev = _device()
+    cols = torch.zeros(128, dtype=torch.int32, device=dev)
+    vals = torch.zeros(128, device=dev)
+    ptr = torch.tensor([0, 128], device=dev)
+    x = torch.zeros(1, device=dev)
+    with pytest.raises(ValueError):
+        tspmv.spmv(x, cols.long(), vals, ptr)
+    with pytest.raises(ValueError):
+        tspmv.spmv(x.double(), cols, vals, ptr)
+    with pytest.raises(ValueError):
+        tspmv.spmv(x, cols.cpu(), vals, ptr)
+
+
+@pytest.mark.cuda
+def test_device_davidson_on_card():
+    """run_hci(device_davidson=True) on the card (HEG-14 at eps_var 2e-3,
+    3,265 dets) selects the float64 CPU run's dets, within 1e-6 in energy,
+    with its matvecs on the SpMV kernel."""
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    kw = dict(eps_var=2e-3, eps_var_sched=[2e-3] * 5, verbose=False)
+    before = tspmv.launches
+    card = run_hci(make_heg_system(3, 0.5, 14, 7, 1.49, device=dev),
+                   device_davidson=True, **kw)
+    assert tspmv.launches > before
+    cpu = run_hci(make_heg_system(3, 0.5, 14, 7, 1.49), **kw)
+    assert torch.equal(card.up.cpu(), cpu.up) and torch.equal(card.dn.cpu(),
+                                                              cpu.dn)
+    np.testing.assert_allclose(card.energies, cpu.energies, rtol=0, atol=1e-6)
