@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sqmc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase (one card)
+    python3 chip_smoke.py --kernels   # phases 0-2c only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -11,14 +12,23 @@ Phases, each reported on its own line; any failure exits nonzero:
      gives them, and the torch / CUDA versions;
   1. build both kernels from sqmc_tpu_torch/csrc (segscan.cu, spmv.cu),
      one nvcc each, started together;
-  2. kernel vs its plain PyTorch version on the card, at the walk's merge
-     shape (720,896 rows x 6 fields), an f64 variant, one segment spanning
-     everything, all segment starts, n = 1 and n = 127, with median times
-     from CUDA events;
+  2. the seg-scan kernel vs its plain PyTorch version on the card, at the
+     walk's merge shape (720,896 rows x 6 fields), an f64 variant, one
+     segment spanning everything, all segment starts, n = 1 and n = 127;
   2b. the SpMV kernel vs its plain version: ELL and block-ELL, float32
      and float64, m = 1 and 4 right-hand sides, at HEG-14's variational H
      (9,475 rows), at the C2 CAS(8e,26o) shape made from a seed (88k rows,
-     ~9.7M nonzeros, row lengths mean ~110, max 1,347) and at one row;
+     ~9.6M nonzeros, row lengths mean ~110, max 1,347) and at one row.
+     Each case of 2 and 2b prints wrapper_ms (median of CUDA events around
+     the wrapper call, its host path included), device_us (CUDA events
+     around a CUDA graph of 50 calls, per call), bound_us (the bytes the function must move
+     over 3.35 TB/s, or its operations over the peak rate, whichever is
+     larger), share = bound_us / device_us, plain_ms, and library_ms, the
+     one PyTorch call that computes the same function where there is one
+     (torch.sparse_csr_tensor(...) @ x for SpMV; torch.cumsum / cummax /
+     cummin per field for the one-segment scan), timed only here;
+  2c. the kernels' own time per call (kernel_us) at the walk and C2
+     shapes, from one torch.profiler session;
   3. the walk's main path on the 14-electron electron gas (3D HEG,
      r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
      (9475 dets, E_var = 58.276906085), the trial wavefunction with D = the
@@ -34,9 +44,11 @@ Phases, each reported on its own line; any failure exits nonzero:
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
 launches from phase 3, spmv's from phase 4; errors and times measured
-here) and ``{"ok": true, "device": {...}}``.
+here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
+m = 1 shape) and ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -120,6 +132,8 @@ def _cases():
 
 
 def _median_ms(fn, reps=20, warm=3):
+    """Median of CUDA-event times around fn(): the call's host path and its
+    device work (the wrapper time)."""
     import torch
     for _ in range(warm):
         fn()
@@ -136,17 +150,117 @@ def _median_ms(fn, reps=20, warm=3):
     return times[len(times) // 2]
 
 
+def _device_us(fn, calls=50, reps=5):
+    """Device time per call, in us: the median of CUDA events around a
+    replay of a CUDA graph that holds `calls` calls (their host path is not
+    in the graph; the gaps between its nodes are).  Events, not
+    torch.profiler: repeated profiler sessions in one process can come
+    back without device rows."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del g
+    times.sort()
+    return times[len(times) // 2] * 1e3 / calls
+
+
+PROFILED = []                          # (label, fn): phase 2c's cases
+
+
+def phase_kernel_rows(calls=20):
+    """Phase 2c: the kernels' own rows per call, from one torch.profiler
+    session over the PROFILED cases (the first session of the process:
+    later ones can come back without device rows).  Device rows are
+    bucketed by the record_function range they start in; each range ends
+    with a synchronize.  Returns {label: kernel us per call}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for _, fn in PROFILED:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in PROFILED:
+            with record_function("case:" + label):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(e.name[5:], e.time_range.start, e.time_range.end)
+              for e in events if e.name.startswith("case:")]
+    rows = {label: {} for label, _ in PROFILED}     # (name, start) -> us
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("case:"):
+            continue
+        for label, a, b in ranges:
+            if a <= e.time_range.start <= b:
+                rows[label][(e.name, e.time_range.start)] = \
+                    e.time_range.elapsed_us()
+    out = {}
+    for label, found in rows.items():
+        own = [us for (name, _), us in found.items()
+               if "k_seg_scan" in name or "k_spmv" in name]
+        other = sorted({name[:24] for name, _ in found} - {
+            name[:24] for name, _ in found
+            if "k_seg_scan" in name or "k_spmv" in name})
+        out[label] = sum(own) / calls
+        log(f"phase 2c profile {label}: kernel_us={out[label]:.1f} "
+            f"kernel_rows={len(own)} calls={calls} other_device_us="
+            f"{(sum(found.values()) - sum(own)) / calls:.1f} other_rows="
+            f"{len(found) - len(own)} {other[:3]}")
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
+FLOPS = {"float32": 67e12,             # the same, outside the tensor cores
+         "float64": 34e12}
+
+
+def _bound_us(nbytes, flops=0.0, dt="float32"):
+    """The least time for the work: the larger of bytes / HBM rate and
+    operations / peak rate (us), and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e6, flops / FLOPS[dt] * 1e6
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
 def phase_kernel_vs_plain(dev):
     """Every case must match: integers and min/max exactly; sums within
     atol + rtol * (running sum of |x| over the segment), because the
     kernel (sequential within a thread, then a tree) and the plain
-    Hillis-Steele sweep associate float sums differently.  Returns the
-    walk-shape case's (max_abs_err, kernel ms, plain ms)."""
+    Hillis-Steele sweep associate float sums differently.  The walk-shape
+    cases (a start in every tile) must give the same bits on a second call.
+    Prints each case's wrapper time (CUDA events), device time (graph),
+    bound (one read of flags and fields, one write of the fields) and, for
+    one_segment, the per-field torch.cumsum / cummax / cummin calls.
+    Returns the walk-shape case's numbers."""
     import numpy as np
     import torch
     from sqmc_tpu_torch.ops import segscan
 
     tol = {torch.float32: (1e-5, 4e-6), torch.float64: (1e-12, 1e-14)}
+    lib_fn = {"sum": lambda v: torch.cumsum(v, 0, dtype=v.dtype),
+              "max": lambda v: torch.cummax(v, 0).values,
+              "min": lambda v: torch.cummin(v, 0).values}
     summary = None
     for name, fields, ops, start in _cases():
         tf = [torch.as_tensor(x.view(np.int32) if x.dtype == np.uint32 else x,
@@ -178,14 +292,43 @@ def phase_kernel_vs_plain(dev):
                                    else r)
                 if not same:
                     raise AssertionError(f"{name} field {k} ({o}) differs")
+        if name.startswith("walk_merge"):
+            again = segscan.seg_scan(tf, ops, ts)
+            if not all(torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                                   else a, b.view(torch.int32)
+                                   if b.dtype == torch.uint32 else b)
+                       for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: a second call gave other bits")
         ms = _median_ms(lambda: segscan.seg_scan(tf, ops, ts))
+        dev_us = _device_us(lambda: segscan.seg_scan(tf, ops, ts))
         plain_ms = _median_ms(lambda: segscan.seg_scan_plain(tf, ops, ts),
                               reps=5, warm=1)
-        log(f"phase 2 {name}: n={len(start)} fields={len(fields)} "
-            f"match max_abs_err={max_err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}")
+        n = len(start)
+        nbytes = n + 2 * sum(n * t.element_size() for t in tf)
+        bound_us, bound_by = _bound_us(nbytes)
+        lib = "none"
+        if name == "one_segment":
+            # torch has no uint32 cummax / cummin: those fields go as int64
+            lf = [t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+                  if t.dtype == torch.uint32 else t for t in tf]
+            lib_ms = _median_ms(lambda: [lib_fn[o](v) for v, o in zip(lf, ops)])
+            lib_dev_us = _device_us(
+                lambda: [lib_fn[o](v) for v, o in zip(lf, ops)])
+            lib = f"{lib_ms:.4f} library_device_us={lib_dev_us:.1f}"
+        log(f"phase 2 {name}: n={n} fields={len(fields)} "
+            f"match max_abs_err={max_err:.3e} wrapper_ms={ms:.4f} "
+            f"device_us={dev_us:.1f} bound_us={bound_us:.1f} bound_MB={nbytes / 1e6:.1f} "
+            f"share={bound_us / dev_us:.3f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib}")
+        if name in ("walk_merge_6field_f32", "walk_merge_6field_f64",
+                    "one_segment", "n1"):
+            PROFILED.append((f"seg_scan {name}",
+                             lambda tf=tf, ops=ops, ts=ts:
+                             segscan.seg_scan(tf, ops, ts)))
         if name == "walk_merge_6field_f32":
-            summary = (max_err, ms, plain_ms)
+            summary = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                           device_us=dev_us, bound_us=bound_us,
+                           bound_by=bound_by, library_ms=None)
     return summary
 
 
@@ -199,7 +342,8 @@ C2_ROWS, C2_MEAN, C2_KMAX = 88_000, 110, 1347   # C2 CAS(8e,26o) variational H
 def _layouts_from_rows(lengths, rng):
     """ELL and block-ELL layouts of a matrix with the given row lengths,
     uniform random columns and normal values (the row-pointer form both
-    layouts share; padding slots hold column 0, value 0)."""
+    layouts share; padding slots hold column 0, value 0), with the row
+    counts."""
     import numpy as np
     from sqmc_tpu_torch.ops.spmv import SLOTS
     n = len(lengths)
@@ -217,14 +361,14 @@ def _layouts_from_rows(lengths, rng):
         v = np.zeros(int(ptr[-1]))
         c[ptr[:-1][row] + rank] = cols
         v[ptr[:-1][row] + rank] = vals
-        out[name] = (c, v, ptr)
+        out[name] = (c, v, ptr, lengths.astype(np.int32))
     return out, nnz
 
 
 def _spmv_shapes(dev):
     """HEG-14's variational H (HCI at eps_var 1e-3, 9,475 rows), the
     synthetic C2 shape (88k rows, lengths drawn from a seed: mean ~110,
-    max 1,347, about 9.7M nonzeros) and a one-row matrix."""
+    max 1,347, about 9.6M nonzeros) and a one-row matrix."""
     import numpy as np
     from sqmc_tpu_torch.algo.hci import run_hci
     from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
@@ -236,10 +380,11 @@ def _spmv_shapes(dev):
                   verbose=False)
     H = build_sparse_ham(s.table, res.up, res.dn, s.nup, s.ndn, s.norb)
     args = (H.n, H.rows, H.cols, H.vals, H.diag)
-    ec, ev, _, ep = ell_from_coo(*args)
-    bc, bv, _, bp = blockell_from_coo(*args, dtype=np.float64)
-    heg = {"ell": (ec.reshape(-1), ev.reshape(-1), ep), "blockell": (bc, bv, bp)}
-    shapes = [("heg14", H.n, heg, int(H.rows.numel()) * 2 + H.n)]
+    ec, ev, _, ep, en = ell_from_coo(*args)
+    bc, bv, _, bp, bn = blockell_from_coo(*args, dtype=np.float64)
+    heg = {"ell": (ec.reshape(-1), ev.reshape(-1), ep, en),
+           "blockell": (bc, bv, bp, bn)}
+    shapes = [("heg14", H.n, heg, int(bn.sum()))]
     lengths = np.clip(np.rint(rng.lognormal(np.log(C2_MEAN) - 0.5, 1.0,
                                             C2_ROWS)), 1, C2_KMAX).astype(np.int64)
     lengths[rng.integers(C2_ROWS)] = C2_KMAX
@@ -255,8 +400,13 @@ def phase_spmv_vs_plain(dev):
     every row within |err| <= rtol * sum_k |v_k x_k| of the plain version
     (the kernel sums lane-strided partials by a shuffle tree, the plain
     version with index_add_: other orders; rtol 1e-5 in float32, 1e-13 in
-    float64).  Returns (max_abs_err over all cases, kernel ms, plain ms)
-    of the C2-shape block-ELL float32 m = 1 case, Davidson's call."""
+    float64), and a second call gives the same bits.  Prints each case's
+    wrapper time (CUDA events), device time (graph), bound (each nonzero
+    read once with its column, the row pointers and counts, x and y) and
+    the yardstick: cuSPARSE through torch.sparse_csr_tensor(...) @ x on the
+    same nonzeros (the port never calls it).  Returns the C2-shape
+    block-ELL float32 m = 1 case's numbers (Davidson's call), with the
+    max |err| over all cases."""
     import numpy as np
     import torch
     from sqmc_tpu_torch.ops import spmv as S
@@ -264,20 +414,22 @@ def phase_spmv_vs_plain(dev):
     rng = np.random.default_rng(12)
     summary, max_err_all = None, 0.0
     for shape, n, layouts, nnz in _spmv_shapes(dev):
-        for layout, (c, v, ptr) in layouts.items():
+        library = {}               # (dtype, m) -> (ms, device us, max |err|)
+        for layout, (c, v, ptr, cnt) in layouts.items():
             cols = torch.as_tensor(c, device=dev)
             ptr_t = torch.as_tensor(ptr, device=dev)
+            cnt_t = torch.as_tensor(cnt, device=dev)
             for dt in (torch.float32, torch.float64):
                 vals = torch.as_tensor(v, device=dev).to(dt)
                 for m in (1, 4):
                     xs = rng.standard_normal((n, m))
                     x = torch.as_tensor(xs[:, 0] if m == 1 else xs,
                                         device=dev).to(dt)
-                    got = S.spmv(x, cols, vals, ptr_t)
+                    got = S.spmv(x, cols, vals, ptr_t, cnt_t)
                     torch.cuda.synchronize()
-                    ref = S.spmv_plain(x, cols, vals, ptr_t)
+                    ref = S.spmv_plain(x, cols, vals, ptr_t, cnt_t)
                     absum = S.spmv_plain(x.abs().double(), cols,
-                                         vals.abs().double(), ptr_t)
+                                         vals.abs().double(), ptr_t, cnt_t)
                     if got.shape != ref.shape or got.dtype != dt:
                         raise AssertionError(f"spmv {shape}/{layout}: shape "
                                              "or dtype differs")
@@ -288,20 +440,64 @@ def phase_spmv_vs_plain(dev):
                         raise AssertionError(
                             f"spmv {shape}/{layout}/{dt}/m={m}: max |err| "
                             f"{max_err}")
-                    ms = _median_ms(lambda: S.spmv(x, cols, vals, ptr_t))
+                    if not torch.equal(got, S.spmv(x, cols, vals, ptr_t, cnt_t)):
+                        raise AssertionError(f"spmv {shape}/{layout}/{dt}/"
+                                             f"m={m}: a second call gave "
+                                             "other bits")
+                    call = functools.partial(S.spmv, x, cols, vals, ptr_t,
+                                             cnt_t)
+                    ms = _median_ms(call)
+                    dev_us = _device_us(call)
                     plain_ms = _median_ms(
-                        lambda: S.spmv_plain(x, cols, vals, ptr_t),
+                        lambda: S.spmv_plain(x, cols, vals, ptr_t, cnt_t),
                         reps=5, warm=1)
-                    log(f"phase 2b spmv {shape} {layout} "
-                        f"{str(dt).split('.')[-1]} m={m}: rows={n} nnz={nnz} "
-                        f"slots={len(c)} match max_abs_err={max_err:.3e} "
-                        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                    if (dt, m) not in library:
+                        library[(dt, m)] = _library_spmv(
+                            x, cols, vals, ptr_t, cnt_t, ref)
+                    lib_ms, lib_us, lib_err = library[(dt, m)]
+                    es = torch.finfo(dt).bits // 8
+                    nbytes = nnz * (4 + es) + (n + 1) * 8 + n * 4 + 2 * n * m * es
+                    dname = str(dt).split('.')[-1]
+                    bound_us, bound_by = _bound_us(nbytes, 2.0 * nnz * m, dname)
+                    log(f"phase 2b spmv {shape} {layout} {dname} m={m}: "
+                        f"rows={n} nnz={nnz} slots={len(c)} match "
+                        f"max_abs_err={max_err:.3e} wrapper_ms={ms:.4f} "
+                        f"device_us={dev_us:.1f} bound_us={bound_us:.1f} "
+                        f"bound_MB={nbytes / 1e6:.1f} "
+                        f"share={bound_us / dev_us:.3f} plain_ms={plain_ms:.4f} "
+                        f"library_ms={lib_ms:.4f} library_device_us={lib_us:.1f} "
+                        f"library_max_abs_err={lib_err:.3e}")
+                    if shape == "c2_synthetic" and m == 1:
+                        PROFILED.append((f"spmv {shape} {layout} {dname} m=1",
+                                         call))
                     if (shape, layout, dt, m) == ("c2_synthetic", "blockell",
                                                   torch.float32, 1):
-                        summary = (ms, plain_ms)
-            del cols, ptr_t
+                        summary = dict(ms=ms, plain_ms=plain_ms,
+                                       device_us=dev_us, bound_us=bound_us,
+                                       bound_by=bound_by, library_ms=lib_ms)
+            del cols, ptr_t, cnt_t
         torch.cuda.empty_cache()
-    return (max_err_all,) + summary
+    summary["max_abs_err"] = max_err_all
+    return summary
+
+
+def _library_spmv(x, cols, vals, row_ptr, row_nnz, ref):
+    """The same product as one PyTorch call: a CSR tensor of the layout's
+    nonzeros times x (cuSPARSE).  Returns (wrapper ms, device us, max |err|
+    against the plain version)."""
+    import torch
+    from sqmc_tpu_torch.ops.spmv import entry_slots
+    n = row_nnz.numel()
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(row_nnz, 0)
+    _, slot = entry_slots(row_ptr, row_nnz)
+    A = torch.sparse_csr_tensor(crow, cols[slot].to(torch.int64), vals[slot],
+                                size=(n, x.shape[0]))
+    call = lambda: A @ x                                  # noqa: E731
+    y = call()
+    torch.cuda.synchronize()
+    return (_median_ms(call), _device_us(call),
+            float((y.double() - ref.double()).abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -534,24 +730,34 @@ def main():
         f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
 
     phase_build()
-    max_err, ms, plain_ms = phase_kernel_vs_plain(dev)
-    sp_err, sp_ms, sp_plain_ms = phase_spmv_vs_plain(dev)
+    seg = phase_kernel_vs_plain(dev)
+    sp = phase_spmv_vs_plain(dev)
+    kernel_us = phase_kernel_rows()
+    seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
+    sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
+    PROFILED.clear()
+    if "--kernels" in sys.argv[1:]:
+        raise SystemExit("chip_smoke: --kernels ran phases 0-2c only; no "
+                         "result")
     launches, system, res, trial = phase_main_path(dev)
     sp_launches = phase_shci(dev, system, res)
     phase_f64_walk(dev, system, trial)
 
+    def entry(name, source, replaces, n_launches, m):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_us"] / 1e3,
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                "device_us": m["device_us"], "kernel_us": m["kernel_us"],
+                "bound_us": m["bound_us"]}
+
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [{
-        "name": "seg_scan", "route": "cuda",
-        "source": "sqmc_tpu_torch/csrc/segscan.cu",
-        "replaces": "sqmc_tpu/ops/pscan.py:163",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "spmv", "route": "cuda",
-        "source": "sqmc_tpu_torch/csrc/spmv.cu",
-        "replaces": "sqmc_tpu/ops/spmv_pallas.py:83",
-        "launches": sp_launches, "max_abs_err": sp_err,
-        "ms": sp_ms, "plain_ms": sp_plain_ms}]}))
+    log(json.dumps({"kernels": [
+        entry("seg_scan", "sqmc_tpu_torch/csrc/segscan.cu",
+              "sqmc_tpu/ops/pscan.py:163", launches, seg),
+        entry("spmv", "sqmc_tpu_torch/csrc/spmv.cu",
+              "sqmc_tpu/ops/spmv_pallas.py:83", sp_launches, sp)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -105,7 +105,7 @@ def save_trial(trial: TrialWavefunction, path: str):
         h_vals=ham.vals.cpu().numpy(), h_diag=ham.diag.cpu().numpy())
 
 
-def trial_from_arrays(z, device="cpu") -> TrialWavefunction:
+def trial_from_arrays(z, device="cuda") -> TrialWavefunction:
     """TrialWavefunction from a mapping holding the save_trial keys."""
     def words(k):
         return torch.as_tensor(np.asarray(z[k]).view(np.int64).copy(),
@@ -127,6 +127,6 @@ def trial_from_arrays(z, device="cpu") -> TrialWavefunction:
         imp_ham=ham)
 
 
-def load_trial(path: str, device="cpu") -> TrialWavefunction:
+def load_trial(path: str, device="cuda") -> TrialWavefunction:
     with np.load(path) as z:
         return trial_from_arrays(z, device=device)

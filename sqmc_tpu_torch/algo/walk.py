@@ -165,6 +165,7 @@ class WalkTables(NamedTuple):
     imp_ell_cols: torch.Tensor   # [P] i32, off-diagonal, 128-slot row blocks
     imp_ell_vals: torch.Tensor   # [P] f32/f64
     imp_ell_ptr: torch.Tensor    # [n_imp + 1] i64 row pointers into the slots
+    imp_ell_nnz: torch.Tensor    # [n_imp] i32 entries per row
     imp_diag: torch.Tensor       # [n_imp] f64
     imp_dense: torch.Tensor      # [n_imp, n_imp] f32 off-diagonal, or [0, 0]
 
@@ -326,9 +327,10 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
                              accumulate=True)
         ell_cols, ell_vals = np.zeros(0, np.int32), np.zeros(0, fdt)
         ell_ptr = np.zeros(n_imp + 1, np.int64)
+        ell_nnz = np.zeros(n_imp, np.int32)
     else:
         imp_dense = torch.zeros((0, 0), dtype=F32, device=dev)
-        ell_cols, ell_vals, _, ell_ptr = spmv.blockell_from_coo(
+        ell_cols, ell_vals, _, ell_ptr, ell_nnz = spmv.blockell_from_coo(
             n_imp, H.rows, H.cols, H.vals, dtype=fdt)
 
     t = lambda x, dt: torch.as_tensor(np.asarray(x).astype(dt), device=dev)  # noqa: E731
@@ -347,7 +349,8 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
         ct_num=t(np_(trial.ct_num), fdt), ct_den=t(np_(trial.ct_den), fdt),
         imp_up=trial.imp_up.to(dev), imp_dn=trial.imp_dn.to(dev),
         imp_ell_cols=t(ell_cols, np.int32), imp_ell_vals=t(ell_vals, fdt),
-        imp_ell_ptr=t(ell_ptr, np.int64), imp_diag=t(imp_diag, np.float64),
+        imp_ell_ptr=t(ell_ptr, np.int64), imp_ell_nnz=t(ell_nnz, np.int32),
+        imp_diag=t(imp_diag, np.float64),
         imp_dense=imp_dense)
 
 
@@ -513,7 +516,8 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
             Hw_off = tables.imp_dense @ w_imp.to(F32)
         else:
             Hw_off = spmv.spmv(w_imp, tables.imp_ell_cols,
-                               tables.imp_ell_vals, tables.imp_ell_ptr)
+                               tables.imp_ell_vals, tables.imp_ell_ptr,
+                               tables.imp_ell_nnz)
         # difference form: both terms are O(E_corr * w), so the f32 state
         # loses nothing to cancellation
         deltaw = tau * ((e_trial - tables.imp_diag) * w_imp.to(F64)

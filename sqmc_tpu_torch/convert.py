@@ -26,7 +26,7 @@ from .systems.chem.integrals import IntegralTable
 from .systems.heatbath import heatbath_from_arrays
 
 
-def words_to_torch(words, device="cpu") -> torch.Tensor:
+def words_to_torch(words, device="cuda") -> torch.Tensor:
     """uint64 (or int64) packed words -> int64 tensor with the same bits."""
     return torch.as_tensor(np.array(words).view(np.int64), device=device)
 
@@ -37,7 +37,7 @@ def _opt(x, dtype, device):
     return torch.as_tensor(np.array(x, dtype=dtype), device=device)
 
 
-def table_from_numpy(t, device="cpu") -> IntegralTable:
+def table_from_numpy(t, device="cuda") -> IntegralTable:
     """IntegralTable from an object with the sqmc_tpu IntegralTable fields."""
     if getattr(t, "heg_mod", None) is not None:
         raise ValueError("modular momentum conservation (Hubbard-k) is not "
@@ -55,7 +55,7 @@ def table_from_numpy(t, device="cpu") -> IntegralTable:
         heg_rel=_opt(t.heg_rel, np.int64, device))
 
 
-def system_from_numpy(s, device="cpu") -> FermionSystem:
+def system_from_numpy(s, device="cuda") -> FermionSystem:
     """FermionSystem from an object with the sqmc_tpu FermionSystem fields:
     the integral arrays and the heat-bath tables are copied, not rebuilt."""
     if getattr(s, "time_sym", False):
@@ -76,7 +76,7 @@ def system_from_numpy(s, device="cpu") -> FermionSystem:
         extra=dict(s.extra))
 
 
-def sparse_ham_from_numpy(H, device="cpu") -> SparseHam:
+def sparse_ham_from_numpy(H, device="cuda") -> SparseHam:
     """SparseHam from an object with the sqmc_tpu SparseHam fields
     (strictly-upper COO rows/cols/vals and the diagonal)."""
     def t(x, dt):
@@ -87,7 +87,7 @@ def sparse_ham_from_numpy(H, device="cpu") -> SparseHam:
                      diag=t(H.diag, np.float64))
 
 
-def hci_result_from_numpy(res, device="cpu") -> HCIResult:
+def hci_result_from_numpy(res, device="cuda") -> HCIResult:
     """HCIResult from an object with the sqmc_tpu HCIResult fields: the
     dets become int64 words on `device`, the rest stays numpy."""
     return HCIResult(up=words_to_torch(res.up, device),
@@ -98,7 +98,7 @@ def hci_result_from_numpy(res, device="cpu") -> HCIResult:
                      n_iters=int(res.n_iters))
 
 
-def trial_from_npz(src, device="cpu") -> TrialWavefunction:
+def trial_from_npz(src, device="cuda") -> TrialWavefunction:
     """TrialWavefunction from a save_trial npz file (either package's), or
     from a mapping / object holding the save_trial keys or the
     TrialWavefunction fields."""
@@ -116,7 +116,7 @@ def trial_from_npz(src, device="cpu") -> TrialWavefunction:
 
 
 def walk_state_from_numpy(st, f32_state: bool = False,
-                          device="cpu") -> WalkState:
+                          device="cuda") -> WalkState:
     """WalkState from an object with the sqmc_tpu WalkState fields (the
     PRNG key is dropped: the port draws from a torch.Generator)."""
     sdt = torch.float32 if f32_state else torch.float64

@@ -23,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict = {}                     # source name -> bound ctypes.CDLL
+_ready: set = set()                  # (source name, device index) set up
 
 
 def nvcc() -> str:
@@ -65,12 +66,41 @@ def build(source: str) -> Path:
     return out
 
 
-def load(source: str, bind) -> ctypes.CDLL:
-    """The built library of csrc/<source>, once per process; ``bind(lib)``
-    declares its functions' argtypes and restypes."""
+def aligned(t):
+    """t contiguous at a 16-byte boundary, as the kernels' vector loads
+    need it: a misaligned view is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def load(source: str, prefix: str, bind, device: int) -> ctypes.CDLL:
+    """The built library of csrc/<source>, loaded once per process.
+
+    ``bind(lib)`` declares its launch entries' argtypes and restypes; load
+    binds ``<prefix>_error_string`` (the name of a CUDA error code) and
+    runs ``<prefix>_init`` -- which sets the kernels' launch attributes on
+    the current device -- once per device.  Call it with ``device``
+    current."""
     lib = _libs.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build(source)))
         bind(lib)
+        err_str = getattr(lib, f"{prefix}_error_string")
+        err_str.restype = ctypes.c_char_p
+        err_str.argtypes = [ctypes.c_int]
+        init = getattr(lib, f"{prefix}_init")
+        init.restype = ctypes.c_int
+        init.argtypes = []
         _libs[source] = lib
+    if (source, device) not in _ready:
+        err = getattr(lib, f"{prefix}_init")()
+        if err != 0:
+            raise RuntimeError(f"{prefix}_init failed on device {device}: "
+                               + error_string(lib, prefix, err))
+        _ready.add((source, device))
     return lib
+
+
+def error_string(lib, prefix: str, err: int) -> str:
+    """The CUDA name of error code ``err`` from a loaded library."""
+    return getattr(lib, f"{prefix}_error_string")(err).decode()

@@ -27,7 +27,6 @@ _OPS = ("sum", "min", "max")
 _DTYPES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
            torch.float64: 3}
 MAX_FIELDS = 8
-TILE = 2048                          # rows per block; must match segscan.cu
 
 launches = 0                         # kernel launches since reset_launches()
 
@@ -86,6 +85,7 @@ def seg_ends(start: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _SOURCE = "segscan.cu"
+_PREFIX = "sqmc_seg_scan"
 
 
 def _bind(lib):
@@ -97,8 +97,8 @@ def _bind(lib):
                    ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_int),
                    ctypes.c_void_p, ctypes.c_void_p]
-    lib.sqmc_seg_scan_error_string.restype = ctypes.c_char_p
-    lib.sqmc_seg_scan_error_string.argtypes = [ctypes.c_int]
+    lib.sqmc_seg_scan_scratch_bytes.restype = ctypes.c_longlong
+    lib.sqmc_seg_scan_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int]
 
 
 def build():
@@ -123,20 +123,19 @@ def seg_scan_cuda(fields, ops, start):
             raise ValueError(f"unsupported field dtype {v.dtype}")
         if v.device != dev or v.shape != (n,):
             raise ValueError("fields must be [N] tensors on start's device")
-    start = start.contiguous()
-    fields = [v.contiguous() for v in fields]
+    start = cudabuild.aligned(start)
+    fields = [cudabuild.aligned(v) for v in fields]
     outs = [torch.empty_like(v) for v in fields]
     if n == 0:
         return outs
     nf = len(fields)
-    n_tiles = -(-n // TILE)
-    # per-tile aggregates and carries: (flags i32 + nf 8-byte slots) x 2
-    scratch = torch.empty(2 * n_tiles * (1 + nf) * 8, dtype=torch.uint8,
-                          device=dev)
-    lib = cudabuild.load(_SOURCE, _bind)
     ptr_arr = ctypes.c_void_p * nf
     int_arr = ctypes.c_int * nf
     with torch.cuda.device(dev):
+        lib = cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
+        # the look-back's tile status words, aggregates and inclusive prefixes
+        scratch = torch.empty(lib.sqmc_seg_scan_scratch_bytes(n, nf),
+                              dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sqmc_seg_scan(
             n, nf, start.data_ptr(),
@@ -147,7 +146,7 @@ def seg_scan_cuda(fields, ops, start):
             scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("seg_scan kernel launch failed: "
-                           + lib.sqmc_seg_scan_error_string(err).decode())
+                           + cudabuild.error_string(lib, _PREFIX, err))
     launches += 1
     return outs
 

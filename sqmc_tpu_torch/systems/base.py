@@ -50,7 +50,7 @@ class FermionSystem:
 
 
 def make_system_from_arrays(h, eri_compact, core, nup, ndn, orb_sym=None,
-                            name="chem", device="cpu") -> FermionSystem:
+                            name="chem", device="cuda") -> FermionSystem:
     """Molecular-type system from dense integrals (the form
     tests/test_walk.py builds for sqmc_tpu), HF det = lowest orbitals."""
     norb = np.asarray(h).shape[0]
@@ -71,7 +71,7 @@ def make_chem_system(fcidump_path: str, nup: int | None = None,
                      with_heatbath: bool = True, time_sym: bool = False,
                      point_group: str | None = None,
                      hf_symmetry: int | None = None, hf_up_occ_in=None,
-                     hf_dn_occ_in=None, device="cpu") -> FermionSystem:
+                     hf_dn_occ_in=None, device="cuda") -> FermionSystem:
     """Molecular system from an FCIDUMP (ref workload: chemistry.f90), on
     `device`.  hf_up_occ_in / hf_dn_occ_in: explicit starting-det
     occupations in 1-based ORIGINAL orbital labels (the reference's

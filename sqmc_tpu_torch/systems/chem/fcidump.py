@@ -159,7 +159,7 @@ def reorder_orbitals(data: FCIDumpData, hf_up_occ, hf_dn_occ):
 
 def load_fcidump_system(path: str, nup: int | None = None,
                         ndn: int | None = None, reorder: bool = True,
-                        device="cpu"):
+                        device="cuda"):
     """Read an FCIDUMP: (IntegralTable on `device`, hf_up_occ, hf_dn_occ,
     info).  HF occupations default to the first nup / ndn orbitals, or
     the header's hf_up / hf_dn lines; reordering then puts them first."""

@@ -65,7 +65,7 @@ class IntegralTable:
 
     @staticmethod
     def from_dense_arrays(h: np.ndarray, eri_compact: np.ndarray, core: float,
-                          orb_sym: np.ndarray, device="cpu") -> "IntegralTable":
+                          orb_sym: np.ndarray, device="cuda") -> "IntegralTable":
         norb = h.shape[0]
         eri_compact = np.asarray(eri_compact, np.float64)
         p = np.arange(norb)
@@ -86,7 +86,7 @@ class IntegralTable:
 
     @staticmethod
     def from_heg(h: np.ndarray, V: np.ndarray, k_rel: np.ndarray,
-                 device="cpu") -> "IntegralTable":
+                 device="cuda") -> "IntegralTable":
         """Momentum-space system with (pq|rs) = V[p,q] under exact momentum
         conservation: D[p,q] = V[p,p], X[p,q] = V[p,q]."""
         norb = h.shape[0]

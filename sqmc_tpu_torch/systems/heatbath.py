@@ -58,7 +58,7 @@ class HeatbathTable:
 
 def heatbath_from_arrays(norb, same_rs, same_val, same_start, same_count,
                          opp_rs, opp_val, opp_start, opp_count, max_double,
-                         device="cpu") -> HeatbathTable:
+                         device="cuda") -> HeatbathTable:
     """HeatbathTable from the flat numpy arrays (typed as documented)."""
     def t(x, dt):
         return torch.as_tensor(np.asarray(x).astype(dt), device=device)

@@ -66,7 +66,7 @@ def madelung_energy(n_dim: int, length_cell: float, nelec: int) -> float:
 
 
 def make_heg_system(n_dim: int, r_s: float, nelec: int, nup: int,
-                    cutoff_radius: float, device="cpu") -> FermionSystem:
+                    cutoff_radius: float, device="cuda") -> FermionSystem:
     """The HEG as a FermionSystem with analytic integrals on `device`."""
     ndn = nelec - nup
     density = (1.0 / (np.pi * r_s**2) if n_dim == 2

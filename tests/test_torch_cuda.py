@@ -183,28 +183,29 @@ def test_spmv_kernel_matches_plain(layout, dtype, rtol):
     dev = _device()
     coo = _sym_coo(5000, seed=7)
     if layout == "ell":
-        c, v, _, p = tspmv.ell_from_coo(*coo)
+        c, v, _, p, k = tspmv.ell_from_coo(*coo)
         c, v = c.reshape(-1), v.reshape(-1)
     else:
-        c, v, _, p = tspmv.blockell_from_coo(*coo, dtype=np.float64)
+        c, v, _, p, k = tspmv.blockell_from_coo(*coo, dtype=np.float64)
     cols = torch.as_tensor(c, device=dev)
     vals = torch.as_tensor(v, device=dev).to(dtype)
     ptr = torch.as_tensor(p, device=dev)
+    cnt = torch.as_tensor(k, device=dev)
     x = torch.as_tensor(np.random.default_rng(8).standard_normal((5000, 3)),
                         device=dev).to(dtype)
     before = tspmv.launches
     for xs in (x[:, 0].contiguous(), x):
-        got = tspmv.spmv(xs, cols, vals, ptr)
+        got = tspmv.spmv(xs, cols, vals, ptr, cnt)
         torch.cuda.synchronize()
-        ref = tspmv.spmv_plain(xs, cols, vals, ptr)
+        ref = tspmv.spmv_plain(xs, cols, vals, ptr, cnt)
         bound = tspmv.spmv_plain(xs.abs().double(), cols, vals.abs().double(),
-                                 ptr)
+                                 ptr, cnt)
         assert got.dtype == dtype and got.shape == ref.shape
         assert bool(((got.double() - ref.double()).abs() <= rtol * bound).all())
-    y = tspmv.spmv(x, cols, vals, ptr)
+    y = tspmv.spmv(x, cols, vals, ptr, cnt)
     for j in range(3):
         assert torch.equal(y[:, j], tspmv.spmv(x[:, j].contiguous(), cols,
-                                               vals, ptr))
+                                               vals, ptr, cnt))
     assert tspmv.launches == before + 6
 
 
@@ -214,13 +215,16 @@ def test_spmv_wrapper_raises_on_bad_input():
     cols = torch.zeros(128, dtype=torch.int32, device=dev)
     vals = torch.zeros(128, device=dev)
     ptr = torch.tensor([0, 128], device=dev)
+    cnt = torch.tensor([128], dtype=torch.int32, device=dev)
     x = torch.zeros(1, device=dev)
     with pytest.raises(ValueError):
-        tspmv.spmv(x, cols.long(), vals, ptr)
+        tspmv.spmv(x, cols.long(), vals, ptr, cnt)
     with pytest.raises(ValueError):
-        tspmv.spmv(x.double(), cols, vals, ptr)
+        tspmv.spmv(x.double(), cols, vals, ptr, cnt)
     with pytest.raises(ValueError):
-        tspmv.spmv(x, cols.cpu(), vals, ptr)
+        tspmv.spmv(x, cols.cpu(), vals, ptr, cnt)
+    with pytest.raises(ValueError):
+        tspmv.spmv(x, cols, vals, ptr, cnt.cpu())
 
 
 @pytest.mark.cuda
@@ -236,7 +240,229 @@ def test_device_davidson_on_card():
     card = run_hci(make_heg_system(3, 0.5, 14, 7, 1.49, device=dev),
                    device_davidson=True, **kw)
     assert tspmv.launches > before
-    cpu = run_hci(make_heg_system(3, 0.5, 14, 7, 1.49), **kw)
+    cpu = run_hci(make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu"), **kw)
     assert torch.equal(card.up.cpu(), cpu.up) and torch.equal(card.dn.cpu(),
                                                               cpu.dn)
     np.testing.assert_allclose(card.energies, cpu.energies, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The single-pass seg-scan kernel: look-back across tiles, dtypes, alignment
+# ---------------------------------------------------------------------------
+
+_NP = {torch.int32: np.int32, torch.uint32: np.uint32,
+       torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _field(rng, n, dtype, dev):
+    npdt = _NP[dtype]
+    if dtype == torch.uint32:
+        a = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        return torch.as_tensor(a.view(np.int32), device=dev).view(torch.uint32)
+    if dtype == torch.int32:
+        return torch.as_tensor(rng.integers(-1000, 1000, n).astype(npdt),
+                               device=dev)
+    return torch.as_tensor(rng.standard_normal(n).astype(npdt), device=dev)
+
+
+def _check_scan(fields, ops, start, got):
+    """Integers and min/max exactly; float sums within atol + rtol x the
+    segment's running sum of |x| (other association orders)."""
+    ref = tseg.seg_scan_plain(fields, ops, start)
+    tol = {torch.float32: (1e-5, 4e-6), torch.float64: (1e-12, 1e-14)}
+    for f, g, r, o in zip(fields, got, ref, ops):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if o == "sum" and g.dtype.is_floating_point:
+            atol, rtol = tol[g.dtype]
+            bound = atol + rtol * tseg.seg_scan_plain([f.abs().double()],
+                                                      ["sum"], start)[0]
+            assert bool(((g.double() - r.double()).abs() <= bound).all())
+        elif g.dtype == torch.uint32:
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        else:
+            assert torch.equal(g, r)
+
+
+def _starts(rng, n, p, dev):
+    s = rng.random(n) < p
+    s[0] = True
+    return torch.as_tensor(s, device=dev)
+
+
+@pytest.mark.cuda
+def test_seg_scan_many_tiles_segments_cross_borders():
+    """Over 300 tiles, segments of ~1,000 rows crossing tile borders and a
+    stretch of 20,000 rows with no start (whole tiles inside one segment,
+    so the look-back walks past several tiles)."""
+    dev = _device()
+    rng = np.random.default_rng(3)
+    n = 300 * 2048 + 1234
+    s = rng.random(n) < 1e-3
+    s[0] = True
+    s[100_000:120_000] = False
+    start = torch.as_tensor(s, device=dev)
+    fields = [_field(rng, n, dt, dev) for dt in
+              (torch.float32, torch.int32, torch.float64, torch.uint32)]
+    ops = ["sum", "max", "sum", "min"]
+    _check_scan(fields, ops, start, tseg.seg_scan(fields, ops, start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["all_starts", "single_start"])
+def test_seg_scan_all_starts_and_one_segment(which):
+    dev = _device()
+    rng = np.random.default_rng(4)
+    n = 50 * 2048 + 17
+    s = np.ones(n, bool) if which == "all_starts" else np.eye(1, n, 0, bool)[0]
+    start = torch.as_tensor(s, device=dev)
+    fields = [_field(rng, n, torch.float32, dev),
+              _field(rng, n, torch.int32, dev)]
+    ops = ["sum", "min"]
+    got = tseg.seg_scan(fields, ops, start)
+    _check_scan(fields, ops, start, got)
+    if which == "all_starts":                 # every row its own segment
+        for f, g in zip(fields, got):
+            assert torch.equal(f, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_seg_scan_every_dtype_and_op(dtype, op):
+    dev = _device()
+    rng = np.random.default_rng(5)
+    n = 40 * 2048 + 999
+    start = _starts(rng, n, 2e-4, dev)
+    f = [_field(rng, n, dtype, dev)]
+    _check_scan(f, [op], start, tseg.seg_scan(f, [op], start))
+
+
+@pytest.mark.cuda
+def test_seg_scan_eight_fields():
+    dev = _device()
+    rng = np.random.default_rng(6)
+    n = 20 * 2048 + 5
+    start = _starts(rng, n, 0.01, dev)
+    dts = [torch.int32, torch.uint32, torch.float32, torch.float64] * 2
+    ops = ["sum", "min", "max", "sum", "max", "max", "min", "min"]
+    fields = [_field(rng, n, dt, dev) for dt in dts]
+    _check_scan(fields, ops, start, tseg.seg_scan(fields, ops, start))
+
+
+@pytest.mark.cuda
+def test_seg_scan_misaligned_views():
+    """Views that start 4 bytes (fields) or 1 byte (flags) past a 16-byte
+    boundary, as big[1:n+1], give the result of their aligned copies."""
+    dev = _device()
+    rng = np.random.default_rng(7)
+    n = 9 * 2048 + 3
+    big_s = _starts(rng, n + 1, 0.05, dev)
+    big_f = _field(rng, n + 1, torch.float32, dev)
+    big_i = _field(rng, n + 1, torch.int32, dev)
+    views = [big_f[1:n + 1], big_i[1:n + 1]]
+    start = big_s[1:n + 1].clone()
+    start[0] = True
+    start_v = torch.cat([big_s[:1], start])[1:]      # a misaligned flag view
+    assert views[0].data_ptr() % 16 and start_v.data_ptr() % 16
+    ops = ["sum", "max"]
+    got = tseg.seg_scan(views, ops, start_v)
+    _check_scan([v.clone() for v in views], ops, start, got)
+
+
+@pytest.mark.cuda
+def test_seg_scan_two_calls_same_bits():
+    """Two back-to-back calls on the walk merge's shape (a start in every
+    tile) give the same bits: the status words are reset per call and the
+    look-back's association cannot reach the values."""
+    dev = _device()
+    n = 458_752 + 262_144
+    rng = np.random.default_rng(8)
+    start = _starts(rng, n, 0.4, dev)
+    fields = [torch.as_tensor(x, device=dev)
+              for x in _six_fields(n, np.float32, seed=9)]
+    a = tseg.seg_scan(fields, OPS6, start)
+    b = tseg.seg_scan(fields, OPS6, start)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _check_scan(fields, OPS6, start, a)
+
+
+# ---------------------------------------------------------------------------
+# The SpMV kernel: row counts, vector loads, heads and tails, many columns
+# ---------------------------------------------------------------------------
+
+def _rows_layout(lengths, layout, dtype, dev, seed=0):
+    """A row-pointer layout with the given row lengths (row_nnz), padding
+    after each row's entries: ELL with K = max length, or 128-slot
+    blocks."""
+    rng = np.random.default_rng(seed)
+    n = len(lengths)
+    nnz = int(lengths.sum())
+    if layout == "ell":
+        ptr = np.arange(n + 1, dtype=np.int64) * int(lengths.max())
+    else:
+        nb = np.maximum(1, -(-lengths // 128))
+        ptr = np.concatenate([[0], np.cumsum(nb)]).astype(np.int64) * 128
+    rank = np.arange(nnz) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    slot = np.repeat(ptr[:-1], lengths) + rank
+    c = np.zeros(int(ptr[-1]), np.int32)
+    v = np.zeros(int(ptr[-1]))
+    c[slot] = rng.integers(0, n, nnz)
+    v[slot] = rng.standard_normal(nnz)
+    return (torch.as_tensor(c, device=dev),
+            torch.as_tensor(v, device=dev).to(dtype),
+            torch.as_tensor(ptr, device=dev),
+            torch.as_tensor(lengths.astype(np.int32), device=dev))
+
+
+_LENGTHS = np.array([1, 2, 3, 5, 0, 7, 127, 128, 129, 1347, 250, 0, 6, 4]
+                    + list(np.random.default_rng(1).integers(1, 300, 400)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "blockell"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+def test_spmv_row_counts_heads_tails_and_columns(layout, dtype, rtol):
+    """Rows whose count is not a multiple of 4, padding-only rows (count
+    0), an 11-step row (1,347 entries) and ELL with K = 1,347 (K % 4 = 3:
+    rows start off the 16-byte grid), for m in {1, 2, 3, 4, 5, 8, 9}: every
+    row within rtol x sum_k |v_k x_k| of the plain version; each column of
+    one launch equal to its single launch bit for bit; a second run equal
+    bit for bit; padding-only rows exactly 0."""
+    dev = _device()
+    cols, vals, ptr, cnt = _rows_layout(_LENGTHS, layout, dtype, dev)
+    n = len(_LENGTHS)
+    rng = np.random.default_rng(2)
+    for m in (1, 2, 3, 4, 5, 8, 9):
+        x = torch.as_tensor(rng.standard_normal((n, m)), device=dev).to(dtype)
+        y = tspmv.spmv(x, cols, vals, ptr, cnt)
+        ref = tspmv.spmv_plain(x, cols, vals, ptr, cnt)
+        bound = tspmv.spmv_plain(x.abs().double(), cols, vals.abs().double(),
+                                 ptr, cnt)
+        assert y.dtype == dtype and y.shape == (n, m)
+        assert bool(((y.double() - ref.double()).abs() <= rtol * bound).all())
+        assert torch.equal(y, tspmv.spmv(x, cols, vals, ptr, cnt))
+        assert not bool(y[torch.as_tensor(_LENGTHS == 0, device=dev)].any())
+        for j in range(m):
+            assert torch.equal(y[:, j], tspmv.spmv(x[:, j].contiguous(), cols,
+                                                   vals, ptr, cnt))
+
+
+@pytest.mark.cuda
+def test_spmv_misaligned_x():
+    """A misaligned x view (big[1:n+1]) gives its aligned copy's result,
+    within rtol x sum_k |v_k x_k| of the plain version."""
+    dev = _device()
+    cols, vals, ptr, cnt = _rows_layout(_LENGTHS, "ell", torch.float32, dev)
+    n = len(_LENGTHS)
+    big = torch.as_tensor(np.random.default_rng(3).standard_normal(n + 1),
+                          device=dev).float()
+    x = big[1:n + 1]
+    assert x.data_ptr() % 16
+    y = tspmv.spmv(x, cols, vals, ptr, cnt)
+    assert torch.equal(y, tspmv.spmv(x.clone(), cols, vals, ptr, cnt))
+    ref = tspmv.spmv_plain(x, cols, vals, ptr, cnt)
+    bound = tspmv.spmv_plain(x.abs().double(), cols, vals.abs().double(),
+                             ptr, cnt)
+    assert bool(((y.double() - ref.double()).abs() <= 1e-5 * bound).all())

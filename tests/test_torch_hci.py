@@ -41,7 +41,7 @@ def pair(request):
     """(jax system, port system) built independently from the same input."""
     from sqmc_tpu.systems.heg.system import make_heg_system as j_heg
     if request.param == "heg":
-        return request.param, j_heg(3, 1.0, 4, 2, 1.6), t_heg(3, 1.0, 4, 2, 1.6)
+        return request.param, j_heg(3, 1.0, 4, 2, 1.6), t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     import jax.numpy as jnp
     from sqmc_tpu import dets as jd
     from sqmc_tpu.systems.base import FermionSystem
@@ -54,7 +54,7 @@ def pair(request):
                        orb_sym_arr=jnp.ones(6, jnp.int32), has_singles=True,
                        hf_up=jd.det_from_orbs(range(3), 6),
                        hf_dn=jd.det_from_orbs(range(2), 6), extra={})
-    return request.param, js, make_system_from_arrays(h, eri, core, 3, 2)
+    return request.param, js, make_system_from_arrays(h, eri, core, 3, 2, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +122,7 @@ def test_run_hci_same_dets_and_energy(hci_pair):
 
 def test_heg14_golden():
     """The in-repo HEG golden (tests/test_hci.py:28-31), built by the port."""
-    res = t_hci(t_heg(3, 0.5, 14, 7, 1.49), eps_var=1e-3,
+    res = t_hci(t_heg(3, 0.5, 14, 7, 1.49, device="cpu"), eps_var=1e-3,
                 eps_var_sched=[1e-3] * 10, verbose=False)
     assert len(res.up) == 9475
     assert abs(res.energies[0] - 58.276906085) < 1e-7
@@ -146,8 +146,8 @@ def test_trial_wavefunction_matches_jax(pair, tmp_path):
     # either package's npz loads into the port, with the same keys
     J_st.save_trial(jt, str(tmp_path / "j.npz"))
     T_st.save_trial(tt, str(tmp_path / "t.npz"))
-    a = convert.trial_from_npz(str(tmp_path / "j.npz"))
-    b = T_st.load_trial(str(tmp_path / "t.npz"))
+    a = convert.trial_from_npz(str(tmp_path / "j.npz"), device="cpu")
+    b = T_st.load_trial(str(tmp_path / "t.npz"), device="cpu")
     with np.load(tmp_path / "j.npz") as zj, np.load(tmp_path / "t.npz") as zt:
         assert sorted(zj.files) == sorted(zt.files)
         for k in zj.files:

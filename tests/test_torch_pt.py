@@ -36,9 +36,9 @@ CASES = {                      # name: (eps_var, eps_pt, eps_pt_big)
 def _systems(name):
     from sqmc_tpu.systems.heg.system import make_heg_system as j_heg
     if name == "heg":
-        return j_heg(3, 1.0, 4, 2, 1.6), t_heg(3, 1.0, 4, 2, 1.6)
+        return j_heg(3, 1.0, 4, 2, 1.6), t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     if name == "heg14":
-        return j_heg(3, 0.5, 14, 7, 1.49), t_heg(3, 0.5, 14, 7, 1.49)
+        return j_heg(3, 0.5, 14, 7, 1.49), t_heg(3, 0.5, 14, 7, 1.49, device="cpu")
     import jax.numpy as jnp
     from sqmc_tpu import dets as jd
     from sqmc_tpu.systems.base import FermionSystem
@@ -55,7 +55,7 @@ def _systems(name):
                        orb_sym_arr=jnp.ones(8, jnp.int32), has_singles=True,
                        hf_up=jd.det_from_orbs(range(2), 8),
                        hf_dn=jd.det_from_orbs(range(2), 8), extra={})
-    return js, make_system_from_arrays(h, eri, core, 2, 2)
+    return js, make_system_from_arrays(h, eri, core, 2, 2, device="cpu")
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -67,7 +67,7 @@ def case(request):
     eps_var = CASES[name][0]
     jr = j_hci(js, eps_var=eps_var, eps_var_sched=[eps_var] * 5,
                verbose=False)
-    return name, js, ts, jr, convert.hci_result_from_numpy(jr)
+    return name, js, ts, jr, convert.hci_result_from_numpy(jr, device="cpu")
 
 
 def test_deterministic_pt_matches_jax(case):
@@ -160,7 +160,7 @@ def test_sample_alias_frequencies():
 
 
 def test_unported_options_raise():
-    s = t_heg(3, 1.0, 4, 2, 1.6)
+    s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     up = torch.as_tensor(s.hf_up[None])
     dn = torch.as_tensor(s.hf_dn[None])
     w = np.ones(1)

@@ -30,7 +30,7 @@ def test_device_davidson_hci_matches_jax(monkeypatch):
     kw = dict(eps_var=2e-3, eps_var_sched=[2e-3] * 5, verbose=False,
               device_davidson=True)
     jr = JH.run_hci(j_heg(3, 0.5, 14, 7, 1.49), **kw)
-    ts = t_heg(3, 0.5, 14, 7, 1.49)
+    ts = t_heg(3, 0.5, 14, 7, 1.49, device="cpu")
     calls = []
     plain = spmv.spmv_plain
     monkeypatch.setattr(spmv, "spmv_plain",
@@ -60,7 +60,7 @@ def test_rayleigh_f64_matches_jax():
                   vals=rng.standard_normal(keep.sum()),
                   diag=rng.standard_normal(n))
     x = rng.standard_normal(n)
-    assert TH._rayleigh_f64(convert.sparse_ham_from_numpy(H), x) == \
+    assert TH._rayleigh_f64(convert.sparse_ham_from_numpy(H, device="cpu"), x) == \
         pytest.approx(JH._rayleigh_f64(H, x), abs=1e-12)
 
 
@@ -68,7 +68,7 @@ def test_eps_series_and_extrapolation_match_jax():
     from sqmc_tpu.systems.heg.system import make_heg_system as j_heg
     eps = [1e-2, 3e-3, 1e-3]
     j = JH.run_eps_series(j_heg(3, 1.0, 4, 2, 1.6), eps, eps_pt=1e-6)
-    t = TH.run_eps_series(t_heg(3, 1.0, 4, 2, 1.6), eps, eps_pt=1e-6)
+    t = TH.run_eps_series(t_heg(3, 1.0, 4, 2, 1.6, device="cpu"), eps, eps_pt=1e-6)
     assert t["eps"] == j["eps"]
     for k in ("e_var", "e_pt", "e_tot"):
         np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-10, err_msg=k)
@@ -100,7 +100,7 @@ def test_fcidump_system_matches_jax(fcidump, occ):
     from sqmc_tpu.systems.base import make_chem_system as j_chem
     kw = {} if occ is None else dict(hf_up_occ_in=occ[0], hf_dn_occ_in=occ[1])
     js = j_chem(fcidump, **kw)
-    ts = t_chem(fcidump, **kw)
+    ts = t_chem(fcidump, device="cpu", **kw)
     assert (ts.norb, ts.nup, ts.ndn) == (js.norb, js.nup, js.ndn) == (7, 2, 2)
     np.testing.assert_array_equal(ts.hf_up.view(np.uint64), js.hf_up)
     np.testing.assert_array_equal(ts.hf_dn.view(np.uint64), js.hf_dn)
@@ -124,7 +124,7 @@ def test_fcidump_system_matches_jax(fcidump, occ):
 
 def test_fcidump_hci_and_pt_match_jax(fcidump):
     from sqmc_tpu.systems.base import make_chem_system as j_chem
-    js, ts = j_chem(fcidump), t_chem(fcidump)
+    js, ts = j_chem(fcidump), t_chem(fcidump, device="cpu")
     kw = dict(eps_var=1e-2, eps_var_sched=[1e-2] * 5, verbose=False)
     jr, tr = JH.run_hci(js, **kw), TH.run_hci(ts, **kw)
     assert 30 < len(tr.up) < 441               # a part of the 21 x 21 space
@@ -140,7 +140,7 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 
 def test_unported_options_raise(fcidump):
-    s = t_heg(3, 1.0, 4, 2, 1.6)
+    s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     for kw in (dict(mesh=object()), dict(wf_cache_dir="wf"),
                dict(active_space=(1, 1, 4)), dict(diagonalizer="arpack")):
         with pytest.raises(ValueError):
@@ -148,4 +148,4 @@ def test_unported_options_raise(fcidump):
     for kw in (dict(time_sym=True), dict(point_group="d2h"),
                dict(hf_symmetry=1)):
         with pytest.raises(ValueError):
-            t_chem(fcidump, **kw)
+            t_chem(fcidump, device="cpu", **kw)

@@ -30,13 +30,13 @@ TOL = 1e-12
 def _chem_pair():
     h, eri, core, _ = random_integrals(6, seed=3)
     jt = JTable.from_dense_arrays(h, eri, core, np.ones(6, np.int32))
-    ts = make_system_from_arrays(h, eri, core, nup=3, ndn=2)
+    ts = make_system_from_arrays(h, eri, core, nup=3, ndn=2, device="cpu")
     return jt, ts.table, 6, 3, 2
 
 
 def _heg_pair():
     js = j_heg(3, 1.0, 4, 2, 1.6)
-    return js.table, t_heg(3, 1.0, 4, 2, 1.6).table, js.norb, 2, 2
+    return js.table, t_heg(3, 1.0, 4, 2, 1.6, device="cpu").table, js.norb, 2, 2
 
 
 def _random_det_pairs(norb, nup, ndn, n, seed):
@@ -114,7 +114,7 @@ def test_heatbath_tables_equal(which):
 
 
 def test_heg_system_matches_jax():
-    js, ts = j_heg(3, 0.5, 14, 7, 1.49), t_heg(3, 0.5, 14, 7, 1.49)
+    js, ts = j_heg(3, 0.5, 14, 7, 1.49), t_heg(3, 0.5, 14, 7, 1.49, device="cpu")
     assert ts.norb == js.norb == 19 and not ts.has_singles
     assert ts.extra["energy_hf"] == pytest.approx(js.extra["energy_hf"], abs=TOL)
     assert ts.extra["energy_madelung"] == pytest.approx(
@@ -134,3 +134,29 @@ def test_alias_tables_imply_same_probabilities(K):
     np.testing.assert_allclose(alias_probabilities(Jt, qt), p, rtol=0, atol=TOL)
     np.testing.assert_allclose(alias_probabilities(Jt, qt),
                                alias_probabilities(Jj, qj), rtol=0, atol=TOL)
+
+
+def _default_device_calls():
+    from sqmc_tpu_torch import convert
+    h, eri, core, _ = random_integrals(4, seed=1)
+    return {
+        "make_heg_system": lambda: t_heg(3, 1.0, 4, 2, 1.6).table.h,
+        "make_system_from_arrays":
+            lambda: make_system_from_arrays(h, eri, core, 2, 2).table.h,
+        "words_to_torch": lambda: convert.words_to_torch(
+            np.arange(4, dtype=np.uint64)),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_heg_system", "make_system_from_arrays",
+                                  "words_to_torch"])
+def test_entry_points_default_to_the_card(name):
+    """Called without `device`, a constructor or loader builds on the card:
+    with a card its tensors lie there; without one it raises instead of
+    building on the CPU."""
+    call = _default_device_calls()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

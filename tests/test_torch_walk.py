@@ -32,14 +32,14 @@ def exact():
     res = j_hci(js, eps_var=1e-9, eps_var_sched=[1e-9] * 30, max_iters=60,
                 verbose=False)
     jt = j_trial(js, eps_var=1e-9, n_psi_t=len(res.up), n_imp=len(res.up))
-    return js, res, jt, convert.system_from_numpy(js), convert.trial_from_npz(jt)
+    return js, res, jt, convert.system_from_numpy(js, device="cpu"), convert.trial_from_npz(jt, device="cpu")
 
 
 def _port_trace(ts, tt, jst, f32, nsteps=10, cap_fresh=0):
     cfg = TW.WalkConfig(norb=ts.norb, nup=2, ndn=2, f32_state=f32,
                         cap_fresh=cap_fresh, **KW)
     tables = TW.build_walk_tables(ts, tt, cfg)
-    st = convert.walk_state_from_numpy(jst, f32_state=f32)
+    st = convert.walk_state_from_numpy(jst, f32_state=f32, device="cpu")
     gen = torch.Generator().manual_seed(0)
     out = []
     for _ in range(nsteps):
@@ -57,7 +57,7 @@ def test_deterministic_trace_matches_jax(exact):
     jtab = JW.build_walk_tables(js, jt, cfg=jcfg)
     jst = JW.init_walk_state(jcfg, jt, 500.0, float(res.energies[0]),
                              tables=jtab)
-    conv = convert.walk_state_from_numpy(jst)   # walk_step donates jst
+    conv = convert.walk_state_from_numpy(jst, device="cpu")   # walk_step donates jst
     got, tables = _port_trace(ts, tt, jst, f32=False)
     assert tables.imp_dense.numel() == 0 and tables.imp_ell_ptr.numel() > 1
     ref = []
@@ -92,11 +92,11 @@ def test_deterministic_trace_general_keys(cutoff):
     jtab = JW.build_walk_tables(js, jt, cfg=jcfg)
     jst = JW.init_walk_state(jcfg, jt, 500.0, float(res.energies[0]),
                              tables=jtab)
-    ts, tt = convert.system_from_numpy(js), convert.trial_from_npz(jt)
+    ts, tt = convert.system_from_numpy(js, device="cpu"), convert.trial_from_npz(jt, device="cpu")
     cfg = TW.WalkConfig(norb=ts.norb, nup=1, ndn=1, cap_fresh=1024, **kw)
     tables = TW.build_walk_tables(ts, tt, cfg)
     assert tables.ct_key.numel() == 0            # not the fused-key path
-    st = convert.walk_state_from_numpy(jst)
+    st = convert.walk_state_from_numpy(jst, device="cpu")
     gen = torch.Generator().manual_seed(0)
     got, ref = [], []
     for _ in range(5):

@@ -20,7 +20,7 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def tiny():
-    s = make_heg_system(3, 1.0, 4, 2, 1.6)
+    s = make_heg_system(3, 1.0, 4, 2, 1.6, device="cpu")
     res = run_hci(s, eps_var=1e-9, eps_var_sched=[1e-9] * 30, max_iters=60,
                   verbose=False)
     trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=30, n_imp=1)
@@ -46,7 +46,7 @@ def test_chem_singles_unbiased(f32_state):
     integral table, f32 state the packed float32 row."""
     norb, nup, ndn = 5, 2, 2
     h, eri, core, _ = random_integrals(norb, seed=5)
-    s = make_system_from_arrays(h, eri, core, nup, ndn)
+    s = make_system_from_arrays(h, eri, core, nup, ndn, device="cpu")
     e0 = float(run_hci(s, eps_var=1e-9, eps_var_sched=[1e-9] * 30,
                        max_iters=60, verbose=False).energies[0])
     trial = build_trial_wavefunction(s, eps_var=1e-4, n_psi_t=10, n_imp=1)
