@@ -39,7 +39,23 @@ Phases, each reported on its own line; any failure exits nonzero:
      501,881 connected dets, 48.051813420 with Madelung) and do_pt
      semistochastic (eps_pt_big 1e-5, target 1e-5, n_mc 200);
   5. a short float64-state walk, whose D-space projection is the block-ELL
-     SpMV kernel.
+     SpMV kernel;
+  6. the card-input entry point, ``python -m sqmc_tpu_torch -i deck`` in a
+     subprocess on the card (its exit code becomes the smoke's): 6a the
+     HEG-14 HCI+PT deck against the goldens of tests/test_cli.py:16-28;
+     6b a synthetic FCIDUMP at C2 CAS(8e,26o)'s shape (26 orbitals with
+     the C2 decks' d2h irreps, 8 electrons, made from a seed) run as a
+     C2-curve deck (time_sym z = +1, hf_symmetry 1, two states, eps_var
+     2e-3, 2e-3 -> 1e-3, deterministic PT at eps_pt 1e-7), then in this
+     process run_hci(device_davidson=True) on the same system (K2 with
+     m = 2) within 1e-6 of the CLI's E_var and K2 against its plain
+     version on the symmetrized H, then a time-symmetrized walk deck at
+     the bench's population (2e5, min_wt 0.5, f64 state, auto MWALK, 4 + 4
+     blocks of 100 generations) gated on capacity, population and
+     e_mixed within max(5 sigma, 2 mHa) of E_var + PT; 6c the 6-orbital
+     time-symmetrized oracle (D = the whole space) at the exact e0 to
+     1e-8 for z = +1 and, from an open-shell start, z = -1.  Decks, logs
+     and the FCIDUMP go to build/smoke_phase6/.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
@@ -702,6 +718,347 @@ def phase_f64_walk(dev, system, trial):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the card-input entry point, python -m sqmc_tpu_torch
+# ---------------------------------------------------------------------------
+
+HEG_DECK = """\
+1 1                                irand_seed
+hci                                run_type
+1e-3 2e-7 1e-5 1                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+'heg' 0                            hamiltonian_type,ipr
+3                                  n_dim
+0.5                                r_s
+14 7                               nelec, nup
+1.49                               cutoff_radius
+"""
+
+# The C2_v2z_curve decks' orbital irreps (d2h, 26 orbitals), schedule and
+# sector; the integrals are synthetic (the C2 FCIDUMP is not in the repo).
+C2_SYMS = [1, 5, 3, 2, 1, 7, 6, 5, 1, 2, 3, 1, 6, 7, 5, 4, 1, 5, 3, 2, 8, 5,
+           1, 7, 6, 5]
+C2_SCALE, C2_SEED, C2_CORE = 0.02, 26, -75.0
+C2_SYM_CARD = ",".join(map(str, C2_SYMS)) + ","
+C2_CHEM_CARDS = f"""\
+'chem' 0                           hamiltonian_type,ipr
+8 4                                nelec, nup
+d2h                                point_group
+t                                  time_sym
+1                                  z
+26                                 norb
+"""
+C2_HCI_DECK = f"""\
+1 1                                irand_seed
+hci                                run_type
+1e-3 1e-7 1e-4 2                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+{C2_CHEM_CARDS}{C2_SYM_CARD} orbital_symmetries(1:norb)
+1                                  spatial_symmetry_wf
+&selected_ci eps_var_sched=2*2e-3 /
+&hf_det hf_symmetry=1 /
+"""
+C2_W_TARGET = 200_000.0
+C2_WALK_DECK = f"""\
+11 7                               irand_seed
+100 4 4 0                          nstep,nblk,nblk_eq,ipr
+140000 {C2_W_TARGET:.0f} 0                w_abs_gen_begin, w_abs_gen_target, MWALK
+0.1 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+heat_bath2 0 0.5 0 1.              proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+none                               run_type
+.true. f                           semistochastic, use_exponential_projector
+f                                  diff_from_psi_t
+2000                               size_deterministic
+f f 0.5                            hf_to_psit, c_t_initiator, always_spawn_cutoff
+{C2_CHEM_CARDS}0                                  n_core_spatial_orb
+2                                  trial_wf_iterations
+26 26                              norb_trial_wf
+1 20                               trial_wf_initiators
+50 80                              n_sym_uniq_det_trial_wf
+{C2_SYM_CARD} orbital_symmetries(1:norb)
+1                                  spatial_symmetry_wf
+0                                  diagonalize_ham
+&hf_det hf_symmetry=1 /
+"""
+
+
+def _sym_mask(syms, norb):
+    """Bool over the compact 8-fold two-body array: the irrep product of
+    the four orbitals is not totally symmetric (d2h labels, XOR product)."""
+    import numpy as np
+    from sqmc_tpu_torch.systems.chem.integrals import pair_index, quad_index
+    s0 = np.asarray(syms) - 1
+    npair = norb * (norb + 1) // 2
+    hi, lo = np.tril_indices(norb)
+    ph, pl = np.empty(npair, int), np.empty(npair, int)
+    ph[pair_index(hi, lo)], pl[pair_index(hi, lo)] = hi, lo
+    qa, qb = np.tril_indices(npair)
+    bad = np.zeros(npair * (npair + 1) // 2, bool)
+    bad[quad_index(qa, qb)] = (s0[ph[qa]] ^ s0[pl[qa]] ^ s0[ph[qb]]
+                               ^ s0[pl[qb]]) != 0
+    return bad
+
+
+def write_c2_fcidump(path, scale=C2_SCALE, seed=C2_SEED):
+    """A synthetic FCIDUMP at C2 CAS(8e,26o)'s shape from a seed: 26
+    orbitals with the C2 decks' d2h irreps, 8 electrons (MS2 0); every
+    integral whose irrep product is not totally symmetric is zero; the
+    diagonal h ascends (4 occupied orbitals in [-2.5, -0.8], 22 virtual in
+    [0, 3]); direct integrals (ii|jj) in [0.4, 0.5]; every other one-
+    and two-body integral normal with standard deviation `scale`, so the
+    HF det dominates."""
+    import numpy as np
+    from sqmc_tpu_torch.systems.chem.fcidump import n_eri, write_fcidump
+    from sqmc_tpu_torch.systems.chem.integrals import pair_index, quad_index
+    rng = np.random.default_rng(seed)
+    norb = len(C2_SYMS)
+    s0 = np.asarray(C2_SYMS) - 1
+    h = rng.normal(size=(norb, norb)) * scale
+    h = 0.5 * (h + h.T)
+    h[s0[:, None] != s0[None, :]] = 0.0
+    h[np.diag_indices(norb)] = np.sort(np.concatenate(
+        [rng.uniform(-2.5, -0.8, 4), rng.uniform(0.0, 3.0, norb - 4)]))
+    eri = rng.normal(size=n_eri(norb)) * scale
+    eri[_sym_mask(C2_SYMS, norb)] = 0.0
+    d = pair_index(np.arange(norb), np.arange(norb))
+    J = 0.4 + 0.1 * rng.random((norb, norb))
+    eri[quad_index(d[:, None], d[None, :])] = 0.5 * (J + J.T)
+    write_fcidump(path, h, eri, C2_CORE, C2_SYMS, nelec=8, ms2=0)
+    return h, eri
+
+
+def _run_cli(tag, deck, workdir, *extra):
+    """python -m sqmc_tpu_torch -i deck on the card, in a subprocess whose
+    exit code becomes the smoke's.  The whole output goes to
+    <workdir>/<tag>.log; returns (stdout, seconds, {kernel: launches})."""
+    import re
+    deck_path = os.path.join(workdir, f"{tag}.deck")
+    with open(deck_path, "w") as f:
+        f.write(deck)
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "sqmc_tpu_torch", "-i",
+                          deck_path, *extra], capture_output=True, text=True,
+                         cwd=workdir, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=HERE))
+    sec = time.time() - t0
+    with open(os.path.join(workdir, f"{tag}.log"), "w") as f:
+        f.write(out.stdout + out.stderr)
+    if out.returncode != 0:
+        log(out.stdout[-3000:] + out.stderr[-3000:])
+        log(f"phase 6 {tag}: python -m sqmc_tpu_torch exited "
+            f"{out.returncode}")
+        sys.exit(out.returncode)
+    m = re.search(r"Kernel launches: seg_scan=(\d+) spmv=(\d+)", out.stdout)
+    counts = dict(seg_scan=int(m.group(1)), spmv=int(m.group(2)))
+    log(f"phase 6 {tag}: seconds={sec:.2f} seg_scan_launches="
+        f"{counts['seg_scan']} spmv_launches={counts['spmv']}")
+    return out.stdout, sec, counts
+
+
+def _grab(text, pattern, every=False):
+    import re
+    found = [float(x) for x in re.findall(pattern + r"\s*([-+0-9.eE]+)", text)]
+    if not found:
+        raise AssertionError(f"no line matching {pattern!r}")
+    return found if every else found[0]
+
+
+def phase_cli_heg(workdir):
+    """6a: the HEG-14 HCI+PT deck through the CLI, against the goldens of
+    tests/test_cli.py:16-28."""
+    text, sec, counts = _run_cli("6a_heg14", HEG_DECK, workdir)
+    e_var = _grab(text, r"Variational energy=")
+    pt = _grab(text, r"Second-order PT energy lowering=")
+    tot = _grab(text, r"Total energy \(includ. Madelung\)=")
+    log(f"phase 6a heg14 cli: e_var={e_var:.9f} pt={pt:.9f} "
+        f"total_with_madelung={tot:.9f} seconds={sec:.2f}")
+    if abs(e_var - GOLD_EVAR) > 1e-6 or abs(pt - GOLD_PT) > 1e-8 \
+            or abs(tot - GOLD_TOTAL) > 1e-7:
+        raise AssertionError("the HEG-14 deck missed its goldens")
+    return counts
+
+
+def phase_cli_c2(dev, workdir):
+    """6b: the C2-shaped time-symmetrized decks.  HCI + PT through the CLI
+    (z = +1, d2h, hf_symmetry 1, two states, deterministic PT at eps_pt
+    1e-7); run_hci(device_davidson=True) in this process on the same
+    system (K2 with m = 2) within 1e-6 of the CLI's E_var, and K2 against
+    its plain version on the final symmetrized H at m = 2; then a walk
+    deck at the bench's population through the CLI (f64 state, so each
+    generation projects through K2 and merges through K1)."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    from sqmc_tpu_torch.ops import spmv as S
+    from sqmc_tpu_torch.systems.base import make_chem_system
+
+    fcidump = os.path.join(workdir, "FCIDUMP_c2_synthetic")
+    t0 = time.time()
+    write_c2_fcidump(fcidump)
+    t_write = time.time() - t0
+    text, sec_hci, c_hci = _run_cli("6b_c2_hci", C2_HCI_DECK, workdir, "-f",
+                                    fcidump)
+    e_var = _grab(text, r"Variational energy=")
+    e_states = _grab(text, r"State \d: variational energy=", every=True)
+    pts = _grab(text, r"Second-order PT energy lowering=", every=True)
+    tots = _grab(text, r"Total energy\(\d\)=", every=True)
+    ndet = int(_grab(text, r"Final Iteration\s+\d+"))
+    log(f"phase 6b c2 hci cli: ndets={ndet} e_var={e_states} pt={pts} "
+        f"e_tot={tots} fcidump_seconds={t_write:.2f} seconds={sec_hci:.2f}")
+    if not 5_000 <= ndet <= 50_000 or len(pts) != 2 or not (
+            e_states[1] > e_states[0] and all(p < 0 for p in pts)):
+        raise AssertionError("the C2-shaped HCI deck is off its shape")
+
+    S.reset_launches()
+    t1 = time.time()
+    system = make_chem_system(fcidump, time_sym=True, z=1, point_group="d2h",
+                              hf_symmetry=1, device=dev)
+    dd = run_hci(system, eps_var=1e-3, eps_var_sched=[2e-3, 2e-3, 1e-3],
+                 n_states=2, verbose=False, device_davidson=True)
+    torch.cuda.synchronize()
+    t_dd = time.time() - t1
+    dd_launches = S.launches
+    log(f"phase 6b c2 device_davidson: ndets={len(dd.up)} "
+        f"e_var={dd.energies.tolist()} dev_from_cli={dd.energies[0] - e_var:.3e} "
+        f"spmv_launches={dd_launches} seconds={t_dd:.2f}")
+    if len(dd.up) != ndet or abs(dd.energies[0] - e_var) > 1e-6 \
+            or dd_launches <= 0:
+        raise AssertionError("device-Davidson HCI disagrees with the CLI")
+
+    H = build_sparse_ham(system.table, dd.up, dd.dn, system.nup, system.ndn,
+                         system.norb, time_sym=True, z=1)
+    c, v, _, p, k = S.blockell_from_coo(H.n, H.rows, H.cols, H.vals, H.diag,
+                                        dtype=np.float64)
+    cols, ptr, cnt = (torch.as_tensor(a, device=dev) for a in (c, p, k))
+    rng = np.random.default_rng(13)
+    for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        vals = torch.as_tensor(v, device=dev).to(dt)
+        x = torch.as_tensor(rng.standard_normal((H.n, 2)), device=dev).to(dt)
+        got = S.spmv(x, cols, vals, ptr, cnt)
+        torch.cuda.synchronize()
+        ref = S.spmv_plain(x, cols, vals, ptr, cnt)
+        bound = S.spmv_plain(x.abs().double(), cols, vals.abs().double(), ptr,
+                             cnt)
+        err = (got.double() - ref.double()).abs()
+        log(f"phase 6b spmv on the symmetrized H: rows={H.n} nnz="
+            f"{int(cnt.sum())} {str(dt).split('.')[-1]} m=2 match "
+            f"max_abs_err={float(err.max()):.3e}")
+        if bool((err > rtol * bound).any()):
+            raise AssertionError("K2 disagrees with its plain version on the "
+                                 "time-symmetrized H")
+
+    text, sec_walk, c_walk = _run_cli("6b_c2_walk", C2_WALK_DECK, workdir,
+                                      "-f", fcidump)
+    e_mix = _grab(text, r"e_mixed=")
+    e_err = _grab(text, r"e_mixed=\s*[-+0-9.eE]+\s*\+-")
+    w_blocks = _grab(text, r"w_abs=", every=True)
+    rates = _grab(text, r"steps/s=", every=True)
+    gens = _grab(text, r"gen_per_s=")
+    mwalk = int(_grab(text, r"Setting MWALK=[^=]*="))
+    oracle = tots[0]
+    gate = max(5 * e_err, 2e-3)
+    log(f"phase 6b c2 walk cli: mwalk={mwalk} w_abs_blocks="
+        f"{[round(w, 1) for w in w_blocks]} block_steps_per_s="
+        f"{[round(r, 1) for r in rates]} gen_per_s={gens:.3f} "
+        f"e_mixed={e_mix:.9f} +- {e_err:.9f} vs_e_var_plus_pt_mHa="
+        f"{1e3 * (e_mix - oracle):.4f} gate_mHa={1e3 * gate:.4f} "
+        f"seconds={sec_walk:.2f}")
+    if "capacity overflow" in text:
+        raise AssertionError("the walk overflowed its capacity")
+    if abs(w_blocks[-1] - C2_W_TARGET) > 0.1 * C2_W_TARGET:
+        raise AssertionError(f"population {w_blocks[-1]:.0f} missed the "
+                             "target")
+    if not (np.isfinite(e_mix) and np.isfinite(e_err)) \
+            or abs(e_mix - oracle) > gate:
+        raise AssertionError("e_mixed is not within max(5 sigma, 2 mHa) of "
+                             "E_var + PT")
+    if c_walk["seg_scan"] <= 0 or c_walk["spmv"] <= 0:
+        raise AssertionError("the walk deck did not run both kernels")
+    log(f"phase 6b stages: fcidump={t_write:.2f} cli_hci_pt={sec_hci:.2f} "
+        f"device_davidson={t_dd:.2f} cli_walk={sec_walk:.2f}")
+    return dict(hci=c_hci, device_davidson=dd_launches, walk=c_walk)
+
+
+def phase_ts_oracle(dev):
+    """6c: the small time-symmetrized oracle (the random 6-orbital chem
+    system of tests/test_time_sym_walk.py, 2 + 2 electrons, integrals made
+    here with numpy) on the card with D = the whole symmetrized space: the
+    deterministic-limit walk in f64 state reaches the exact e0 of the
+    sector (dense symmetrized H) to 1e-8, for z = +1 and for z = -1 from
+    an open-shell start."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.ops import segscan, spmv
+    from sqmc_tpu_torch.systems.base import make_system_from_arrays
+    from sqmc_tpu_torch.systems.chem import slater
+    from sqmc_tpu_torch.systems.chem.fcidump import n_eri
+
+    rng = np.random.default_rng(3)
+    h = rng.normal(size=(6, 6))
+    h = 0.5 * (h + h.T)
+    eri = rng.normal(size=n_eri(6))
+    core = float(rng.normal())
+    counts = {}
+    for z in (1, -1):
+        t0 = time.time()
+        s = make_system_from_arrays(h, eri, core, 2, 2, device=dev)
+        s.time_sym, s.z = True, z
+        if z < 0:
+            s.hf_dn = dets.det_from_orbs((0, 2), 6)
+        trial = build_trial_wavefunction(s, eps_var=1e-9, n_psi_t=400,
+                                         n_imp=400)
+        bu, bd = (dets.to_bits(w, 6) for w in (trial.imp_up, trial.imp_dn))
+        n = len(bu)
+        i, j = (a.reshape(-1) for a in torch.meshgrid(
+            torch.arange(n, device=dev), torch.arange(n, device=dev),
+            indexing="ij"))
+        e0 = float(torch.linalg.eigvalsh(slater.pair_matrix_elements_time_sym(
+            s.table, bu[i], bd[i], bu[j], bd[j], z).reshape(n, n))[0])
+        cfg = WalkConfig(mwalk=1024, cap_spawn=4096, norb=6, nup=2, ndn=2,
+                         n_words=1, tau=5e-3, w_abs_target=500.0,
+                         has_singles=True, time_sym=True, z=z, cap_fresh=512)
+        segscan.reset_launches()
+        spmv.reset_launches()
+        out = run_walk(s, trial, cfg, nstep=30, nblk=2, nblk_eq=1,
+                       w_abs_begin=500.0, e_trial_initial=e0, verbose=False)
+        torch.cuda.synchronize()
+        counts[z] = dict(seg_scan=segscan.launches, spmv=spmv.launches)
+        err = out.e_mixed - e0
+        log(f"phase 6c ts oracle z={z:+d}: dim={n} e0={e0:.12f} "
+            f"e_mixed={out.e_mixed:.12f} err={err:.3e} "
+            f"seg_scan_launches={segscan.launches} "
+            f"spmv_launches={spmv.launches} seconds={time.time() - t0:.2f}")
+        if abs(err) > 1e-8 or segscan.launches <= 0 or spmv.launches <= 0:
+            raise AssertionError(f"the z={z} oracle missed e0 by {err:.3e}")
+    return counts
+
+
+def phase_cli(dev):
+    """Phase 6: 6a, 6b and 6c, each path's kernel counts set to 0 just
+    before it (in the CLI's process or this one) and read just after."""
+    workdir = os.path.join(HERE, "build", "smoke_phase6")
+    os.makedirs(workdir, exist_ok=True)
+    for name in os.listdir(workdir):
+        os.remove(os.path.join(workdir, name))
+    t0 = time.time()
+    heg = phase_cli_heg(workdir)
+    t1 = time.time()
+    c2 = phase_cli_c2(dev, workdir)
+    t2 = time.time()
+    oracle = phase_ts_oracle(dev)
+    log(f"phase 6 launches: 6a_heg14_cli={heg} 6b_c2_hci_cli={c2['hci']} "
+        f"6b_c2_device_davidson_spmv={c2['device_davidson']} "
+        f"6b_c2_walk_cli={c2['walk']} 6c_oracle={oracle}")
+    log(f"phase 6 stages: 6a={t1 - t0:.2f} 6b={t2 - t1:.2f} "
+        f"6c={time.time() - t2:.2f} seconds")
+
+
 def phase_build():
     """Both kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -742,6 +1099,7 @@ def main():
     launches, system, res, trial = phase_main_path(dev)
     sp_launches = phase_shci(dev, system, res)
     phase_f64_walk(dev, system, trial)
+    phase_cli(dev)
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,

@@ -12,7 +12,9 @@ index, so the same code serves HCI selection and the C(T) cache.
 
 The emission order (batch, then doubles before singles, then reference,
 pair and rank) equals the JAX package's, so the unmerged outputs match
-row for row.  Time-reversal symmetrization is not ported.
+row for row.  For a time-symmetrized system the candidates are mapped to
+representatives with the sqrt2 norms and z signs
+(:func:`_time_sym_postprocess`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from .. import dets
+from ..ops import setalg
+from ..systems.chem.slater import SQRT2, SQRT2INV
 from ..systems.heatbath import rank_of_eps, tri_le, tri_lt
 
 
@@ -246,4 +250,31 @@ def generate_connections(system, ref_up: torch.Tensor, ref_dn: torch.Tensor,
     cd = torch.cat([o["new_dn"][o["valid"]] for _, o in outs])
     h = torch.cat([o["helem"][o["valid"]] for _, o in outs])
     ref = torch.cat([o["ref"][o["valid"]] + beg for beg, o in outs])
+    if system.time_sym:
+        return _time_sym_postprocess(system, ref_up, ref_dn, cu, cd, h, ref)
     return cu, cd, h, ref
+
+
+def _time_sym_postprocess(system, ref_up, ref_dn, cu, cd, h, ref):
+    """Map det-basis candidates of representative references to
+    time-reversal representatives (ref: chemistry.f90:6957-6992,
+    7100-7140): drop self-symmetric candidates when z < 0 and candidates
+    equal to their reference's reverse (a diagonal move in the
+    symmetrized basis); h *= 1/sqrt2 when only the reference is
+    self-symmetric, h *= sqrt2 when only the candidate is; swap (up, dn)
+    to the representative orientation, with h *= z on a swap."""
+    z = system.z
+    ru, rd = ref_up[ref], ref_dn[ref]
+    sym_ref = (ru == rd).all(dim=1)
+    sym_cand = (cu == cd).all(dim=1)
+    keep = ~((cu == rd).all(dim=1) & (cd == ru).all(dim=1))
+    if z < 0:
+        keep &= ~sym_cand
+    one = torch.ones_like(h)
+    h = h * torch.where(sym_ref & ~sym_cand, SQRT2INV * one, one)
+    h = h * torch.where(sym_cand & ~sym_ref, SQRT2 * one, one)
+    swap = setalg.keys_less(cd, cu, cu, cd)
+    cu2 = torch.where(swap[:, None], cd, cu)
+    cd2 = torch.where(swap[:, None], cu, cd)
+    h = torch.where(swap, z * h, h)
+    return cu2[keep], cd2[keep], h[keep], ref[keep]

@@ -26,6 +26,7 @@ import torch
 from ..ops import setalg
 from ..ops.spmv import BlockEllSpmv
 from ..utils.precision import full_fp32_matmul
+from ..utils.timers import phase
 from .connect import generate_connections
 from .davidson import davidson, matvec
 from .sparseham import SparseHam, build_sparse_ham
@@ -116,7 +117,8 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     wts[0, 0] = 1.0
     min_H_done = np.full(1, 1e99)
 
-    H = build_sparse_ham(system.table, up, dn, nup, ndn, norb)
+    ts = dict(time_sym=system.time_sym, z=system.z)
+    H = build_sparse_ham(system.table, up, dn, nup, ndn, norb, **ts)
     energies = np.full(n_states, float(H.diag[0]))
     if verbose:
         print(f"Iteration   0 eps1={eps_var:8.1e} ndets={1:9d} energy="
@@ -134,15 +136,16 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
 
         gen_mask = coeffs * min_H_done > eps
         eps_per_ref = eps / coeffs
-        if gen_mask.any():
-            gm = torch.as_tensor(gen_mask, device=dev)
-            cu, cd, _, _ = generate_connections(
-                system, up[gm], dn[gm],
-                torch.as_tensor(eps_per_ref[gen_mask], device=dev),
-                torch.as_tensor(min_H_done[gen_mask], device=dev))
-        else:
-            cu = up[:0]
-            cd = dn[:0]
+        with phase("get_next_det_list", enabled=verbose):
+            if gen_mask.any():
+                gm = torch.as_tensor(gen_mask, device=dev)
+                cu, cd, _, _ = generate_connections(
+                    system, up[gm], dn[gm],
+                    torch.as_tensor(eps_per_ref[gen_mask], device=dev),
+                    torch.as_tensor(min_H_done[gen_mask], device=dev))
+            else:
+                cu = up[:0]
+                cd = dn[:0]
         min_H_done = np.minimum(min_H_done, eps_per_ref)
 
         if len(cu):
@@ -176,20 +179,22 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
         mhd2 = np.full(n_total, 1e99)
         mhd2[pm] = min_H_done
 
-        H = build_sparse_ham(system.table, up2, dn2, nup, ndn, norb,
-                             prev=H, prev_map=prev_map)
+        with phase("generate_sparse_ham", enabled=verbose):
+            H = build_sparse_ham(system.table, up2, dn2, nup, ndn, norb,
+                                 prev=H, prev_map=prev_map, **ts)
         X0 = wts2.copy()
         diag_np = H.diag.cpu().numpy()
         for s in range(n_states):
             if np.linalg.norm(X0[:, s]) < 1e-12:
                 X0[np.argsort(diag_np)[s], s] = 1.0
-        if device_davidson and H.n >= 2000:
-            evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
-                                    matvec_fn=BlockEllSpmv(H))
-            evals = np.array([_rayleigh_f64(H, evecs[:, s])
-                              for s in range(n_states)])
-        else:
-            evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
+        with phase("davidson", enabled=verbose):
+            if device_davidson and H.n >= 2000:
+                evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
+                                        matvec_fn=BlockEllSpmv(H))
+                evals = np.array([_rayleigh_f64(H, evecs[:, s])
+                                  for s in range(n_states)])
+            else:
+                evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
 
         up, dn, wts, min_H_done = up2, dn2, evecs, mhd2
         old_energies = energies
@@ -209,5 +214,7 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     if verbose:
         print(f"Final Iteration{n_iter_done:4d} {len(up):9d} dets, energy="
               + " ".join(f"{e:16.9f}" for e in energies), flush=True)
+        print("Variational energy=" + f"{energies[0]:26.9f}".rjust(15),
+              flush=True)
     return HCIResult(up=up, dn=dn, wts=wts, energies=np.asarray(energies),
                      diag=H.diag.cpu().numpy(), n_iters=n_iter_done)

@@ -27,13 +27,22 @@ import torch
 from ..ops import setalg
 from ..ops.alias import sample_alias, setup_alias_np
 from .connect import count_doubles, generate_connections
-from .sparseham import diag_elements_batched
+from .sparseham import diag_elements_batched, ts_diag_elements
+from ..utils.timers import phase
 
 
 def _f64(x, dev) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=torch.float64)
     return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+
+
+def _diag(system, up, dn) -> torch.Tensor:
+    """Diagonal elements of external dets (time-symmetrized when the
+    system is)."""
+    if system.time_sym:
+        return ts_diag_elements(system.table, up, dn, system.norb, system.z)
+    return diag_elements_batched(system.table, up, dn, system.norb)
 
 
 def _no_mesh(mesh):
@@ -52,18 +61,19 @@ def second_order_pt(system, up, dn, wts, var_energy: float, eps_pt: float,
     wts = _f64(wts, dev)
     coeffs = wts.abs()
     coeffs = torch.where(coeffs == 0.0, 1e-300, coeffs)
-    cu, cd, h, ref = generate_connections(system, up, dn, eps_pt / coeffs,
-                                          batch=batch)
-    cu_u, cd_u, (num,), _ = setalg.unique_dets(cu, cd, [h * wts[ref]])
-    # connections counted as the reference does: unique candidates plus
-    # the references themselves (ref: find_important_connected_dets)
-    uu, _, _, _ = setalg.unique_dets(torch.cat([cu_u, up]),
-                                     torch.cat([cd_u, dn]))
-    n_connected = len(uu)
-    ext = setalg.setdiff_dets(cu_u, cd_u, up, dn)
-    diag_e = diag_elements_batched(system.table, cu_u[ext], cd_u[ext],
-                                   system.norb)
-    delta_e2 = float(torch.sum(num[ext] ** 2 / (var_energy - diag_e)))
+    with phase("Deterministic 2nd-order PT correction", enabled=verbose):
+        cu, cd, h, ref = generate_connections(system, up, dn, eps_pt / coeffs,
+                                              batch=batch)
+        cu_u, cd_u, (num,), _ = setalg.unique_dets(cu, cd, [h * wts[ref]])
+        # connections counted as the reference does: unique candidates
+        # plus the references themselves (ref:
+        # find_important_connected_dets)
+        uu, _, _, _ = setalg.unique_dets(torch.cat([cu_u, up]),
+                                         torch.cat([cd_u, dn]))
+        n_connected = len(uu)
+        ext = setalg.setdiff_dets(cu_u, cd_u, up, dn)
+        diag_e = _diag(system, cu_u[ext], cd_u[ext])
+        delta_e2 = float(torch.sum(num[ext] ** 2 / (var_energy - diag_e)))
     if verbose:
         print(f"Number of connected dets={n_connected}", flush=True)
         print(f"2nd-order PT energy lowering={delta_e2:26.9f}", flush=True)
@@ -126,8 +136,7 @@ def second_order_pt_alias(system, up, dn, wts, var_energy: float,
         cu_u, cd_u, (T1, T2, T1b, T2b), _ = setalg.unique_dets(
             cu, cd, [t1, t2, t1b, t2b])
         ext = setalg.setdiff_dets(cu_u, cd_u, up, dn)
-        dex = diag_elements_batched(system.table, cu_u[ext], cd_u[ext],
-                                    system.norb)
+        dex = _diag(system, cu_u[ext], cd_u[ext])
         contrib = (T1[ext] ** 2 + T2[ext] - T1b[ext] ** 2 - T2b[ext]) \
             / (var_energy - dex)
         e_sample = float(torch.sum(contrib)) / (n_mc * (n_mc - 1))

@@ -1,12 +1,16 @@
 """Trial wavefunction, deterministic space and C(T) (port of
-build_trial_wavefunction / _assemble_trial / save_trial / load_trial in
 sqmc_tpu/algo/semistoch.py; ref: semistoch.f90 generate_space_iterate:145,
 generate_psi_t_connected_e_loc:27).
 
-  * Psi_T   = top n_psi_t dets of an HCI wavefunction by |coef|
+  * Psi_T   = top n_psi_t dets of an HCI wavefunction by |coef|, or of the
+    reference's iterated construction from the deck's trial_wf cards
+    (:func:`build_trial_from_cards`, :func:`build_trial_iterate`)
   * D space = top n_imp dets of the same wavefunction, with its sparse H
   * C(T)    = all dets connected to Psi_T, with e_loc_num(j) = sum_i H_ji c_i
     and e_loc_den(j) = c_j
+
+Every H is built in the system's basis (time-symmetrized when it is).
+Not ported: ``load_trial_from_reference`` (reference binaries; ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -47,16 +51,22 @@ def _top_by_coef(up, dn, coef, n_keep):
     return u[s], d[s], c[s]
 
 
+def _ham(system, up, dn, **kw) -> SparseHam:
+    """Sparse H over a det list in the system's basis."""
+    return build_sparse_ham(system.table, up, dn, system.nup, system.ndn,
+                            system.norb, time_sym=system.time_sym,
+                            z=system.z, **kw)
+
+
 def _assemble_trial(system, up, dn, wts, n_psi_t: int, imp_up,
                     imp_dn) -> TrialWavefunction:
     """Pick Psi_T, build its C(T) local-energy cache and the D-space H."""
-    nup, ndn, norb = system.nup, system.ndn, system.norb
     pu, pd, pc = _top_by_coef(up, dn, wts, n_psi_t)
     pc = pc / torch.linalg.norm(pc)
-    Hp = build_sparse_ham(system.table, pu, pd, nup, ndn, norb)
+    Hp = _ham(system, pu, pd)
     pc_np = pc.cpu().numpy()
     e_trial = float(pc_np @ Hp.dense().cpu().numpy() @ pc_np)
-    imp_ham = build_sparse_ham(system.table, imp_up, imp_dn, nup, ndn, norb)
+    imp_ham = _ham(system, imp_up, imp_dn)
 
     # C(T): every nonzero connection of Psi_T (eps -> 0+), with summed H*c
     eps_tiny = torch.full((len(pu),), 1e-300, dtype=torch.float64,
@@ -84,6 +94,135 @@ def build_trial_wavefunction(system, eps_var: float = 2e-3,
     wts = torch.as_tensor(res.wts[:, 0], device=res.up.device)
     iu, idn, _ = _top_by_coef(res.up, res.dn, wts, n_imp)
     return _assemble_trial(system, res.up, res.dn, wts, n_psi_t, iu, idn)
+
+
+def generate_space_iterate(system, n_iters: int, n_initiators, n_truncate,
+                           norb_active=None, verbose: bool = False):
+    """Iterated deterministic-space / trial-wavefunction construction
+    (ref: semistoch.f90 generate_space_iterate:145).  Starting from the
+    HF det, each iteration
+      1. expands by every connection of the top-|c| n_initiators[it]
+         dets, restricted to the lowest norb_active[it] orbitals,
+      2. keeps the top max(10 n_truncate[it], 100) new candidates by the
+         first-order coefficient |sum_i H_ai c_i| / (H_aa - E),
+      3. diagonalizes the expanded space,
+      4. truncates to the n_truncate[it] largest |c|;
+    the truncated space is rediagonalized at the end.  Per-iteration
+    lists are indexed by iteration (the last entry repeats).  Returns
+    (up, dn, coefs, energy) with coefs a float64 tensor."""
+    from .davidson import davidson
+    from .. import dets as dets_mod
+    from .sparseham import diag_elements_batched
+
+    def per_it(x, it):
+        if x is None or np.isscalar(x):
+            return x
+        return x[min(it, len(x) - 1)]
+
+    dev = system.device
+    up = torch.as_tensor(system.hf_up[None, :], device=dev)
+    dn = torch.as_tensor(system.hf_dn[None, :], device=dev)
+    wts = torch.ones(1, dtype=torch.float64, device=dev)
+    H = _ham(system, up, dn)
+    energy = float(H.diag[0])
+
+    def evec(vecs):
+        return torch.as_tensor(vecs[:, 0], dtype=torch.float64, device=dev)
+
+    for it in range(n_iters):
+        n_init = int(per_it(n_initiators, it))
+        n_trunc = int(per_it(n_truncate, it))
+        norb_a = per_it(norb_active, it)
+        iu, idn, ic = _top_by_coef(up, dn, wts, n_init)
+        coeffs = torch.where(ic.abs() == 0.0, 1e-300, ic.abs())
+        cu, cd, h, ref = generate_connections(system, iu, idn, 1e-300 / coeffs)
+        if norb_a is not None and int(norb_a) < system.norb:
+            mask = torch.as_tensor(dets_mod.det_from_orbs(
+                range(int(norb_a), system.norb), system.norb), device=dev)
+            ok = (((cu & mask) == 0) & ((cd & mask) == 0)).all(dim=1)
+            cu, cd, h, ref = cu[ok], cd[ok], h[ok], ref[ok]
+        cu_u, cd_u, (num_u,), _ = setalg.unique_dets(cu, cd, [h * ic[ref]])
+        new = setalg.setdiff_dets(cu_u, cd_u, up, dn)
+        cu_u, cd_u, num_u = cu_u[new], cd_u[new], num_u[new]
+        if len(cu_u):
+            # the screen uses the plain det diagonal, as the JAX package does
+            dg = diag_elements_batched(system.table, cu_u, cd_u, system.norb)
+            pt_c = num_u.abs() / (dg - energy).clamp(min=1e-10)
+            keep_n = min(len(cu_u), max(10 * n_trunc, 100))
+            top = torch.argsort(-pt_c, stable=True)[:keep_n]
+            cu_u, cd_u = cu_u[top], cd_u[top]
+        up2, dn2 = torch.cat([up, cu_u]), torch.cat([dn, cd_u])
+        order = setalg.lexsort_dets(up2, dn2)
+        up2, dn2 = up2[order], dn2[order]
+        evals, evecs = davidson(_ham(system, up2, dn2), 1)
+        energy = float(evals[0])
+        up, dn, wts = _top_by_coef(up2, dn2, evec(evecs), n_trunc)
+        if verbose:
+            print(f"space_iterate {it + 1}: expanded={len(up2)} "
+                  f"kept={len(up)} E={energy:.8f}", flush=True)
+
+    evals, evecs = davidson(_ham(system, up, dn), 1)
+    return up, dn, evec(evecs), float(evals[0])
+
+
+def build_trial_iterate(system, n_iters: int, n_initiators, n_truncate,
+                        norb_active=None, n_psi_t: int = 200,
+                        verbose: bool = False) -> TrialWavefunction:
+    """TrialWavefunction from the iterated construction (the
+    diff_from_psi_t cards; ref do_walk.f90:954-960): the final space is D
+    and Psi_T is its top-|c| slice."""
+    up, dn, coefs, _ = generate_space_iterate(
+        system, n_iters, n_initiators, n_truncate, norb_active,
+        verbose=verbose)
+    return _assemble_trial(system, up, dn, coefs, n_psi_t, up, dn)
+
+
+def build_trial_from_cards(system, trial_wf_iters: int, norb_trial_wf,
+                           n_initiators_trial_wf, n_truncate_trial_wf,
+                           size_deterministic: int,
+                           verbose: bool = False) -> TrialWavefunction:
+    """Psi_T and D for a walk-mode card deck, as the reference builds them
+    (Psi_T by generate_space_iterate with the trial_wf cards,
+    hamiltonian_mod.f90:113-115; D = the top size_deterministic dets of
+    the same final expansion, semistoch.f90:263,403-420).  The last
+    iteration keeps at least size_deterministic dets; trial_wf_iters == 0
+    leaves Psi_T = HF."""
+    size_det = max(int(size_deterministic), 1)
+    n_psi_t = int(n_truncate_trial_wf[-1]) if trial_wf_iters > 0 else 1
+    n_trunc = [int(x) for x in n_truncate_trial_wf]
+    if n_trunc:
+        n_trunc[-1] = max(n_trunc[-1], size_det)
+    up, dn, coefs, _ = generate_space_iterate(
+        system, max(trial_wf_iters, 0), list(n_initiators_trial_wf) or [1],
+        n_trunc or [1], norb_active=list(norb_trial_wf) or None,
+        verbose=verbose)
+    iu, idn, _ = _top_by_coef(up, dn, coefs, size_det)
+    return _assemble_trial(system, up, dn, coefs, n_psi_t, iu, idn)
+
+
+def ensure_psit_in_imp(system, trial: TrialWavefunction,
+                       verbose: bool = False) -> TrialWavefunction:
+    """Force Psi_T into the deterministic space D (the semantics of the
+    reference's hf_to_psit card, do_walk.f90:2281-2296: walkers on Psi_T
+    dets propagate to their connections exactly, which the D-space
+    projection does once Psi_T is a subset of D).  Returns the trial
+    itself when nothing is missing."""
+    pos = setalg.search_dets(trial.imp_up, trial.imp_dn, trial.psit_up,
+                             trial.psit_dn)
+    missing = pos < 0
+    if not bool(missing.any()):
+        return trial
+    iu, idn, _, _ = setalg.unique_dets(
+        torch.cat([trial.imp_up, trial.psit_up[missing]]),
+        torch.cat([trial.imp_dn, trial.psit_dn[missing]]))
+    if verbose:
+        print(f"hf_to_psit: forcing Psi_T into the deterministic space "
+              f"({int(missing.sum())} Psi_T dets added, n_imp "
+              f"{len(trial.imp_up)} -> {len(iu)}); the exact D-space "
+              "projection subsumes the reference's Psi_T-column move "
+              "(do_walk.f90:2281-2296)")
+    return dataclasses.replace(trial, imp_up=iu, imp_dn=idn,
+                               imp_ham=_ham(system, iu, idn))
 
 
 def _u64(words: torch.Tensor) -> np.ndarray:

@@ -9,7 +9,10 @@ within equal-key groups:
   F5: (up minus 1, dn minus 1).
 Pairs among old determinants are remapped from the previous COO; only
 pairs touching new determinants are joined and evaluated.  Runs on the
-device of the det tensors; the time-symmetrized basis is not ported.
+device of the det tensors.  In the time-reversal symmetrized basis the
+dets are representatives, pairs are found by joining the doubled list
+[dets; reversed] and elements use the symmetrized formula
+(``slater.pair_matrix_elements_time_sym``).
 """
 
 from __future__ import annotations
@@ -128,9 +131,21 @@ def connected_pairs(up, dn, nup: int, ndn: int, norb: int,
     return key // n, key % n
 
 
-def eval_pairs(table, up, dn, a, b, norb: int, batch: int = 1 << 20):
+def eval_pairs(table, up, dn, a, b, norb: int, batch: int = 1 << 20,
+               time_sym: bool = False, z: int = 1):
     """Signed H elements for det pairs (a, b): pairs are split by
-    excitation class and each class runs its word-level kernel."""
+    excitation class and each class runs its word-level kernel; the
+    time-symmetrized basis uses the generic symmetrized element."""
+    if time_sym:
+        out = torch.empty(len(a), dtype=torch.float64, device=up.device)
+        bs = batch // 4      # two generic elements a pair on full bit rows
+        for beg in range(0, len(a), bs):
+            ia, ib = a[beg:beg + bs], b[beg:beg + bs]
+            out[beg:beg + bs] = slater.pair_matrix_elements_time_sym(
+                table, dets_mod.to_bits(up[ia], norb),
+                dets_mod.to_bits(dn[ia], norb), dets_mod.to_bits(up[ib], norb),
+                dets_mod.to_bits(dn[ib], norb), z)
+        return out
     ui, uj, di, dj = up[a], up[b], dn[a], dn[b]
     n_up = dets_mod.popcount(ui & ~uj)
     n_dn = dets_mod.popcount(di & ~dj)
@@ -165,24 +180,59 @@ def diag_elements_batched(table, up, dn, norb: int, batch: int = 1 << 17):
     return out
 
 
+def ts_diag_elements(table, up, dn, norb: int, z: int,
+                     batch: int = 1 << 17) -> torch.Tensor:
+    """Diagonal elements of time-symmetrized basis states, float64 [n]:
+    the det diagonal plus z <i|H|rev i> for non-self-symmetric ones."""
+    out = torch.empty(len(up), dtype=torch.float64, device=up.device)
+    for beg in range(0, len(up), batch):
+        end = min(beg + batch, len(up))
+        bu = dets_mod.to_bits(up[beg:end], norb)
+        bd = dets_mod.to_bits(dn[beg:end], norb)
+        out[beg:end] = slater.pair_matrix_elements_time_sym(table, bu, bd,
+                                                            bu, bd, z)
+    return out
+
+
 def build_sparse_ham(table, up, dn, nup: int, ndn: int, norb: int,
                      prev: SparseHam | None = None,
-                     prev_map: torch.Tensor | None = None) -> SparseHam:
+                     prev_map: torch.Tensor | None = None,
+                     time_sym: bool = False, z: int = 1) -> SparseHam:
     """Full sparse H over a det list, with incremental reuse: prev is the
     SparseHam of a previous (smaller) list and prev_map [prev.n] maps its
-    rows to rows of the current list."""
+    rows to rows of the current list.
+
+    time_sym: the dets are time-reversal representatives; elements use
+    the symmetrized formula, and pairs connected only through the
+    reversed orientation are found by joining [dets; reversed]."""
     n = len(up)
-    diag = diag_elements_batched(table, up, dn, norb)
+    if time_sym:
+        diag = ts_diag_elements(table, up, dn, norb, z)
+    else:
+        diag = diag_elements_batched(table, up, dn, norb)
+
+    def find_pairs(u, d, new_start):
+        if not time_sym:
+            return connected_pairs(u, d, nup, ndn, norb, new_start=new_start)
+        m = len(u)
+        a2, b2 = connected_pairs(torch.cat([u, d]), torch.cat([d, u]), nup,
+                                 ndn, norb, new_start=0)
+        a, b = a2 % m, b2 % m
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        keep = (lo != hi) & ((lo >= new_start) | (hi >= new_start))
+        key = torch.unique(lo[keep] * m + hi[keep])
+        return key // m, key % m
+
+    ts = dict(time_sym=time_sym, z=z)
     if prev is not None and prev_map is not None and prev.n > 0:
         is_old = torch.zeros(n, dtype=torch.bool, device=up.device)
         is_old[prev_map] = True
         old_rows = torch.nonzero(is_old).reshape(-1)
         new_rows = torch.nonzero(~is_old).reshape(-1)
         perm = torch.cat([old_rows, new_rows])     # position -> current row
-        a_p, b_p = connected_pairs(up[perm], dn[perm], nup, ndn, norb,
-                                   new_start=len(old_rows))
+        a_p, b_p = find_pairs(up[perm], dn[perm], len(old_rows))
         a, b = perm[a_p], perm[b_p]
-        vals = eval_pairs(table, up, dn, a, b, norb)
+        vals = eval_pairs(table, up, dn, a, b, norb, **ts)
         keep = vals != 0.0
         a, b, vals = a[keep], b[keep], vals[keep]
         pa, pb = prev_map[prev.rows], prev_map[prev.cols]
@@ -190,8 +240,8 @@ def build_sparse_ham(table, up, dn, nup: int, ndn: int, norb: int,
         cols = torch.cat([torch.maximum(pa, pb), b])
         v = torch.cat([prev.vals, vals])
     else:
-        a, b = connected_pairs(up, dn, nup, ndn, norb, 0)
-        vals = eval_pairs(table, up, dn, a, b, norb)
+        a, b = find_pairs(up, dn, 0)
+        vals = eval_pairs(table, up, dn, a, b, norb, **ts)
         keep = vals != 0.0
         rows, cols, v = a[keep], b[keep], vals[keep]
     order = torch.argsort(rows * n + cols, stable=True)

@@ -31,8 +31,11 @@ JAX package's random stream, so only the deterministic limit matches it
 value by value.
 
 Ported configuration: run_type "none", proposal "fast_heatbath", singles
-on or off, full-sort merge, "group_max" initiators, f32 or f64 state.
-Every other WalkConfig option raises ValueError.
+on or off, full-sort merge, "group_max" initiators, f32 or f64 state, the
+plain or the time-reversal symmetrized basis (``time_sym``, z = +1 or -1:
+walkers are representatives, spawns map to them with the sqrt2 norms and
+z signs, and the diagonal carries z <i|H|rev i>).  Every other
+WalkConfig option raises ValueError.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..dets import flip
 from ..ops import segscan, setalg, spmv
 from ..ops.alias import setup_alias_np
 from ..systems.chem import slater
+from ..systems.chem.slater import SQRT2, SQRT2INV
 from ..systems.heatbath import tri_le, tri_lt
 from ..utils.precision import full_fp32_matmul
 
@@ -89,13 +93,16 @@ class WalkConfig:
     cap_fresh: int = 0          # fresh-det buffer (0 = max(cap_spawn//8, 8192))
     dense_proj_max: int = 16384
     f32_state: bool = False
+    # time-reversal symmetrized basis (ref hamiltonian_chem_time_sym,
+    # chemistry.f90:1323), sector z = +1 or -1
+    time_sym: bool = False
+    z: int = 1
     # --- not ported: must keep these values ---
     proposal: str = "fast_heatbath"
     full_sort_merge: bool = True
     initiator_rule: str = "group_max"
     run_type: str = "none"
     guiding: str = "none"
-    time_sym: bool = False
     use_exponential_projector: bool = False
     axis_name: str | None = None
     n_dev: int = 1
@@ -108,15 +115,17 @@ class WalkConfig:
     def __post_init__(self):
         fixed = dict(proposal="fast_heatbath", full_sort_merge=True,
                      initiator_rule="group_max", run_type="none",
-                     guiding="none", time_sym=False,
-                     use_exponential_projector=False, axis_name=None,
-                     n_dev=1, ct_in_d=False, cap_compact=0, cap_single=0,
-                     cap_new=0, proj_bf16=False)
+                     guiding="none", use_exponential_projector=False,
+                     axis_name=None, n_dev=1, ct_in_d=False, cap_compact=0,
+                     cap_single=0, cap_new=0, proj_bf16=False)
         for name, want in fixed.items():
             if getattr(self, name) != want:
                 raise ValueError(
                     f"WalkConfig.{name}={getattr(self, name)!r} is not "
                     f"ported to sqmc_tpu_torch (only {want!r})")
+        if self.z not in (1, -1):
+            raise ValueError(f"WalkConfig.z={self.z!r}: the time-symmetrized "
+                             "sector is +1 or -1")
 
     @property
     def nelec(self):
@@ -203,6 +212,19 @@ def _fuse(up, dn):
     return (up[:, 0] << 32) | dn[:, 0]
 
 
+def _walk_diag(cfg, table, up, dn, dtype=F64):
+    """Diagonal elements of walker dets [n, W]; in the time-symmetrized
+    basis plus z <i|H|rev i> for non-self-symmetric representatives (ref
+    hamiltonian_chem_time_sym, diagonal branch)."""
+    bu, bd = dets.to_bits(up, cfg.norb), dets.to_bits(dn, cfg.norb)
+    dg = slater.diag_elements(table, bu, bd, dtype=dtype)
+    if cfg.time_sym:
+        cross = slater.pair_matrix_elements(table, bu, bd, bd, bu)
+        selfs = (up == dn).all(dim=1)
+        dg = dg + torch.where(selfs, torch.zeros_like(cross), cfg.z * cross)
+    return dg
+
+
 # ---------------------------------------------------------------------------
 # Tables and initial state (host)
 # ---------------------------------------------------------------------------
@@ -248,6 +270,10 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
     """Assemble the walk's device tables from a FermionSystem and a
     TrialWavefunction, on the system's device."""
     full_fp32_matmul()
+    if cfg.time_sym != system.time_sym or (cfg.time_sym
+                                           and cfg.z != system.z):
+        raise ValueError("WalkConfig time_sym / z must match the system's "
+                         "(the trial's H is built in the system's basis)")
     dev = system.device
     hb = system.heatbath
     table = system.table
@@ -392,8 +418,7 @@ def init_walk_state(cfg: WalkConfig, trial, w_abs_begin: float,
     ct = torch.full((M,), -1, dtype=I64, device=dev)
     ct[:n0] = setalg.search_dets(tables.ct_up, tables.ct_dn, u, d)
     diag = torch.full((M,), DIAG_UNKNOWN, dtype=sdt, device=dev)
-    diag[:n0] = slater.diag_elements(tables.table, dets.to_bits(u, cfg.norb),
-                                     dets.to_bits(d, cfg.norb)).to(sdt)
+    diag[:n0] = _walk_diag(cfg, tables.table, u, d).to(sdt)
     tau0 = cfg.tau * (1 + np.log(max(cfg.w_abs_target / max(w_abs_begin, 1.0), 1.0)))
     f = lambda x: _scalar(x, F64, dev)  # noqa: E731
     return WalkState(
@@ -452,9 +477,8 @@ def _fill_fresh(cfg, tables, up, dn, diag, ct, need):
     fidx = _compact_index(need, F, M)
     fi = fidx.clamp(max=M - 1)
     f_up, f_dn = up[fi], dn[fi]
-    f_diag = slater.diag_elements(tables.table, dets.to_bits(f_up, cfg.norb),
-                                  dets.to_bits(f_dn, cfg.norb), dtype=diag.dtype)
-    diag = _set_drop(diag, fidx, f_diag)
+    f_diag = _walk_diag(cfg, tables.table, f_up, f_dn, dtype=diag.dtype)
+    diag = _set_drop(diag, fidx, f_diag.to(diag.dtype))
     ct = _set_drop(ct, fidx, _search_ct(tables, cfg, f_up, f_dn))
     return diag, ct, overflow
 
@@ -716,6 +740,28 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         spawn_wt = w_dbl * wtc_b
     spawn_wt = torch.where(spawn_ok, spawn_wt, torch.zeros((), dtype=spawn_wt.dtype,
                                                            device=dev))
+
+    if cfg.time_sym:
+        # map det-basis targets to representatives, as
+        # connect._time_sym_postprocess does (ref chemistry.f90:6957-6992):
+        # kill targets equal to the parent's reverse (a diagonal move, in
+        # the cross term) and, for z < 0, self-symmetric targets; sqrt2
+        # norms; swap to the representative orientation with a factor z
+        sym_par = (up_w == dn_w).all(dim=1)
+        sym_cand = (spawn_up == spawn_dn).all(dim=1)
+        kill_ts = ((spawn_up == dn_w).all(dim=1) & (spawn_dn == up_w).all(dim=1)
+                   & ~sym_par)
+        if cfg.z < 0:
+            kill_ts = kill_ts | sym_cand
+        one = torch.ones_like(spawn_wt)
+        fac = (torch.where(sym_par & ~sym_cand, SQRT2INV * one, one)
+               * torch.where(sym_cand & ~sym_par, SQRT2 * one, one))
+        swap_ts = setalg.keys_less(spawn_dn, spawn_up, spawn_up, spawn_dn)
+        fac = torch.where(swap_ts, cfg.z * fac, fac)
+        spawn_up, spawn_dn = (torch.where(swap_ts[:, None], spawn_dn, spawn_up),
+                              torch.where(swap_ts[:, None], spawn_up, spawn_dn))
+        spawn_ok = spawn_ok & ~kill_ts
+        spawn_wt = torch.where(spawn_ok, spawn_wt * fac, torch.zeros_like(spawn_wt))
 
     # child flags (ref: do_walk.f90:3700-3730)
     par_imp = state.imp[b]

@@ -1,0 +1,314 @@
+"""Command-line entry point: ``python -m sqmc_tpu_torch -i input [-f FCIDUMP]
+[--cpu] [--profile DIR]`` (port of sqmc_tpu/cli.py).
+
+Runs reference card-format inputs unchanged (ref: sqmc_main.f90) and
+prints the grep-able result lines of the JAX package's CLI, digit format
+included ("Variational energy=", "Second-order PT energy lowering=",
+"Total energy=", "Total energy (includ. Madelung)=", "e_mixed=... +-...").
+The work runs on the card; ``--cpu`` runs it on the CPU instead.
+
+Ported: hamiltonian_type ``chem`` (FCIDUMP, &hf_det, point groups,
+hf_symmetry, time-reversal symmetry) and ``heg``, with run_type ``hci``
+(HCI + PT per state) or a walk (``none`` and every name outside the
+fixed-node family): Psi_T and D from the deck's trial_wf or
+diff_from_psi_t cards, hf_to_psit, tau from tau_multiplier, MWALK and
+spawn capacity sized from the population.  Every other card raises
+ValueError naming its ROADMAP item.  The last line is the kernels' launch
+counts (``Kernel launches: seg_scan=... spmv=...``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from .config import parse_input
+from .utils.timers import my_second
+
+_FIXED_NODE = ("fixed_node1", "fixed_node2", "fixed_node3", "fixed_node4",
+               "partial_node", "release_node", "sr")
+
+
+def _refuse(what: str, item: str):
+    raise ValueError(f"{what} is not ported to sqmc_tpu_torch (ROADMAP {item})")
+
+
+def check_ported(cfg):
+    """Raise ValueError for every card this port does not run."""
+    ht = cfg.hamiltonian_type
+    if ht in ("fictitious", "read", "hubbard"):
+        _refuse(f"hamiltonian_type {ht!r} (the dense toy systems)", "A8")
+    if ht in ("hubbardk", "hubbard2", "hubbarddm"):
+        _refuse(f"hamiltonian_type {ht!r} (the Hubbard systems)", "A8")
+    if ht not in ("chem", "heg"):
+        raise ValueError(f"unknown hamiltonian_type {ht!r}")
+    if cfg.run_type in ("selected_ci", "trunc_lanc"):
+        _refuse(f"run_type {cfg.run_type!r} (algo/legacy_ci.py)", "A8")
+    if cfg.run_type == "vmc":
+        _refuse("run_type 'vmc' (systems/hubbard/vmc.py)", "A8")
+    if cfg.run_type in _FIXED_NODE or cfg.importance_sampling:
+        _refuse("fixed-node run types and guiding wavefunctions",
+                "A3 remainder")
+    if cfg.run_type != "hci":
+        if cfg.proposal_method in ("uniform", "uniform2", "CauchySchwarz"):
+            _refuse(f"proposal_method {cfg.proposal_method!r}",
+                    "A3 remainder")
+        if cfg.use_exponential_projector:
+            _refuse("the exponential (continuous-time) projector",
+                    "A3 remainder")
+    if cfg.get_natorbs:
+        _refuse("&natorb get_natorbs (algo/rdm.py)", "A8")
+    if cfg.get_greens_function:
+        _refuse("&greens_function (algo/greens.py)", "A8")
+    if cfg.active_space is not None:
+        _refuse("&active_space", "A8")
+    if cfg.dump_wf_var:
+        _refuse("dump_wf_var (the variational wavefunction cache)", "A8")
+
+
+def _wf_cache_name(eps_var: float) -> str:
+    """The reference's cache file name, wf_eps_var=<eps in es7.2e1>, which
+    the JAX package's CLI reads from the working directory."""
+    return f"wf_eps_var={eps_var:7.2e}".replace("e-0", "E-0").replace(
+        "e+0", "E+0")
+
+
+def make_system(cfg, fcidump: str | None, device):
+    """The deck's FermionSystem on `device`."""
+    if cfg.hamiltonian_type == "chem":
+        from .systems.base import make_chem_system
+        return make_chem_system(
+            fcidump or "FCIDUMP", nup=cfg.nup or None,
+            ndn=(cfg.nelec - cfg.nup) if cfg.nelec else None,
+            time_sym=cfg.time_sym, z=cfg.z, point_group=cfg.point_group,
+            hf_symmetry=cfg.hf_symmetry, hf_up_occ_in=cfg.hf_up_occ,
+            hf_dn_occ_in=cfg.hf_dn_occ, device=device)
+    from .systems.heg.system import make_heg_system
+    system = make_heg_system(cfg.n_dim, cfg.r_s, cfg.nelec, cfg.nup,
+                             cfg.cutoff_radius, device=device)
+    print(f"For this cell, HF kinetic, exchange, total energies = "
+          f"{system.extra['energy_hf']:.8f}")
+    if system.extra["madelung_implemented"]:
+        print(f"Madelung energy ={system.extra['energy_madelung']:10.6f}")
+    else:
+        print("Madelung energy not implemented for 2D "
+              "(ref heg.f90:2845); totals exclude it")
+    return system
+
+
+def deduce_tau(cfg, system):
+    """tau = tau_multiplier / (diag_hi - diag_lo) (ref:
+    chemistry.f90:447-454): the lowest diagonal from the starting det, the
+    highest from the det occupying the top orbitals.  Returns (tau,
+    [diag_lo, diag_hi])."""
+    import torch
+    from . import dets as dets_mod
+    from .systems.chem import slater
+    norb = system.norb
+    pair_u = np.stack([system.hf_up, dets_mod.det_from_orbs(
+        range(norb - system.nup, norb), norb)])
+    pair_d = np.stack([system.hf_dn, dets_mod.det_from_orbs(
+        range(norb - system.ndn, norb), norb)])
+    dev = system.device
+    dg = slater.diag_elements(
+        system.table,
+        dets_mod.to_bits(torch.as_tensor(pair_u, device=dev), norb),
+        dets_mod.to_bits(torch.as_tensor(pair_d, device=dev), norb)
+    ).cpu().numpy()
+    return cfg.tau_multiplier / (dg[1] - dg[0]), dg
+
+
+def run_det_walk(cfg, system, verbose: bool = True):
+    """SQMC walk on a determinant system driven from card input (ref:
+    do_walk.f90 walk:1462), in float64 state as the JAX package's CLI
+    runs it."""
+    from .algo.semistoch import build_trial_wavefunction
+    from .algo.walk import WalkConfig, run_walk
+
+    if cfg.diff_from_psi_t and cfg.imp_iters > 0:
+        from .algo.semistoch import build_trial_iterate
+        trial = build_trial_iterate(
+            system, cfg.imp_iters, cfg.n_imp_init, cfg.n_imp_trunc,
+            norb_active=cfg.norb_imp or None,
+            n_psi_t=max(cfg.n_truncate_det or 200, 1), verbose=verbose)
+    elif cfg.trial_wf_iters >= 0:
+        from .algo.semistoch import build_trial_from_cards
+        if verbose:
+            print(f"trial_wf_iters, norb_trial_wf, n_initiators_trial_wf, "
+                  f"n_truncate_trial_wf: {cfg.trial_wf_iters} "
+                  f"{cfg.norb_trial_wf} {cfg.n_initiators_trial_wf} "
+                  f"{cfg.n_truncate_trial_wf}")
+        trial = build_trial_from_cards(
+            system, cfg.trial_wf_iters, cfg.norb_trial_wf,
+            cfg.n_initiators_trial_wf, cfg.n_truncate_trial_wf,
+            cfg.size_deterministic or 1, verbose=verbose)
+    else:
+        eps_fallback = cfg.eps_var if cfg.eps_var < 1 else 2e-3
+        if verbose:
+            print(f"WARNING: no trial_wf cards in deck; building Psi_T "
+                  f"from HCI eps_var={eps_fallback:g} "
+                  f"(n_psi_t={max(cfg.n_truncate_det or 200, 1)}, "
+                  f"n_imp={cfg.size_deterministic or 1000}) - not a "
+                  "reference-card construction")
+        trial = build_trial_wavefunction(
+            system, eps_var=eps_fallback,
+            n_psi_t=max(cfg.n_truncate_det or 200, 1),
+            n_imp=cfg.size_deterministic or 1000, verbose=verbose)
+
+    if cfg.hf_to_psit:
+        from .algo.semistoch import ensure_psit_in_imp
+        trial = ensure_psit_in_imp(system, trial, verbose=verbose)
+
+    tau = cfg.tau
+    if tau == 0.0:
+        tau, dg = deduce_tau(cfg, system)
+        if verbose:
+            print(f"diagonal_ham_lowest, diagonal_ham_highest, "
+                  f"tau_multiplier, tau={dg[0]:13.6f}{dg[1]:13.6f}"
+                  f"{cfg.tau_multiplier:10.6f}{tau:10.6f}")
+
+    if verbose and cfg.proposal_method.startswith("heat_bath"):
+        print(f"proposal_method {cfg.proposal_method} -> fast_heatbath "
+              "(exact joint-|H| heat bath)")
+
+    # MWALK auto-size (ref do_walk.f90:652-674): ~w_abs_target/min_wt
+    # occupied dets at equilibrium plus the resident D space
+    if cfg.mwalk:
+        mwalk = cfg.mwalk
+    elif cfg.semistochastic:
+        mwalk = int(3.5 * (cfg.w_abs_target / cfg.min_wt
+                           + len(trial.imp_up)))
+        if verbose:
+            print(f"1Setting MWALK=3.5*(w_abs_gen_target/min_wt+n_imp)="
+                  f"{mwalk:10d}")
+    else:
+        mwalk = int(4 * cfg.w_abs_target / cfg.min_wt)
+        if verbose:
+            print(f"2Setting MWALK=4*(w_abs_gen_target/min_wt)={mwalk:10d}")
+    mwalk = max(mwalk, 4096)
+    cap_spawn = max(int(3 * cfg.w_abs_target), 4 * 4096)
+    wcfg = WalkConfig(
+        mwalk=mwalk, cap_spawn=cap_spawn, norb=system.norb, nup=system.nup,
+        ndn=system.ndn, n_words=system.n_words, tau=tau or 2e-3,
+        w_abs_target=cfg.w_abs_target, r_initiator=cfg.r_initiator,
+        initiator_power=cfg.initiator_power, min_wt=cfg.min_wt,
+        always_spawn_cutoff=cfg.always_spawn_cutoff,
+        pop_ctrl_exponent=cfg.population_control_exponent,
+        reweight_factor_inv_max=cfg.reweight_factor_inv_max,
+        has_singles=system.has_singles, c_t_initiator=cfg.c_t_initiator,
+        time_sym=system.time_sym, z=system.z,
+        semistochastic=cfg.semistochastic)
+    out = run_walk(system, trial, wcfg, nstep=cfg.nstep, nblk=cfg.nblk,
+                   nblk_eq=cfg.nblk_eq, w_abs_begin=cfg.w_abs_begin,
+                   e_trial_initial=cfg.e_trial_initial or trial.e_trial,
+                   seed=cfg.seeds[0], verbose=verbose)
+    if verbose:
+        print(f"walk: measured_gens={out.n_measured} "
+              f"gen_per_s={out.steps_per_sec:.3f} "
+              f"capacity_grows={out.capacity_grows}")
+    print(f"e_mixed={out.e_mixed:26.9f} +-{out.e_err:.9f}")
+    return out
+
+
+def run_hci_pt(cfg, system, verbose: bool = True):
+    """HCI, then PT for each state (ref: hci.f90 perform_hci)."""
+    from .algo.hci import run_hci
+    from .algo.pt import do_pt
+
+    my_second("BEG", "variational part")
+    res = run_hci(system, eps_var=cfg.eps_var,
+                  eps_var_sched=cfg.eps_var_sched, n_states=cfg.n_states,
+                  verbose=verbose)
+    my_second("END", "variational part")
+    print(f"Variational energy={res.energies[0]:26.9f}")
+
+    outs = []
+    for state in range(cfg.n_states):
+        if cfg.n_states > 1:
+            print(f"State {state + 1}: variational energy="
+                  f"{res.energies[state]:26.9f}")
+        out = do_pt(system, res.up, res.dn, res.wts[:, state], res.diag,
+                    float(res.energies[state]),
+                    eps_var=min(cfg.eps_var_sched), eps_pt=cfg.eps_pt,
+                    eps_pt_big=cfg.eps_pt_big, target_error=cfg.target_error,
+                    n_mc=cfg.n_mc,
+                    n_max_connections=int(cfg.n_max_connections),
+                    verbose=verbose)
+        if out["mode"] == "deterministic":
+            print(f"Second-order PT energy lowering={out['pt']:26.9f}")
+        else:
+            print(f"Second-order PT energy lowering={out['pt']:26.9f} "
+                  f"+- {out['pt_err']:.9f}")
+        print(f"Total energy({state + 1})={out['e_tot']:26.9f}")
+        if state == 0:
+            print(f"Total energy={out['e_tot']:26.9f}")
+        if cfg.hamiltonian_type == "heg" and \
+                system.extra["madelung_implemented"]:
+            print(f"Total energy (includ. Madelung)="
+                  f"{out['e_tot'] + system.extra['energy_madelung']:22.9f}")
+        outs.append(out)
+    my_second("END", "HCI")
+    return res, outs
+
+
+def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
+                    device="cuda"):
+    """Run a parsed deck on `device`."""
+    check_ported(cfg)
+    if cfg.run_type == "hci" and os.path.exists(
+            _wf_cache_name(min(cfg.eps_var_sched))):
+        _refuse(f"reading the wavefunction cache "
+                f"{_wf_cache_name(min(cfg.eps_var_sched))}", "A8")
+    system = make_system(cfg, fcidump, device)
+    if cfg.run_type != "hci":
+        my_second("BEG", "walk")
+        out = run_det_walk(cfg, system, verbose=verbose)
+        my_second("END", "walk")
+        return out
+    return run_hci_pt(cfg, system, verbose=verbose)
+
+
+def main(argv=None):
+    import torch
+    from .ops import segscan, spmv
+
+    p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-f", "--fcidump", default=None,
+                   help="FCIDUMP path (default: ./FCIDUMP)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (trace.json, Chrome "
+                        "trace format) into DIR")
+    args = p.parse_args(argv)
+    device = "cpu" if args.cpu else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("sqmc_tpu_torch: no CUDA card; pass --cpu to run "
+                         "on the CPU")
+
+    print("*" * 47)
+    print("** SQMC-TPU (Semistochastic Quantum Monte Carlo) **")
+    print("*" * 47)
+    with open(args.input) as f:
+        cfg = parse_input(f.read())
+    segscan.reset_launches()
+    spmv.reset_launches()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device == "cuda" else [])
+        os.makedirs(args.profile, exist_ok=True)
+        with profile(activities=acts) as prof:
+            run_from_config(cfg, fcidump=args.fcidump, device=device)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    else:
+        run_from_config(cfg, fcidump=args.fcidump, device=device)
+    print(f"Kernel launches: seg_scan={segscan.launches} "
+          f"spmv={spmv.launches}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

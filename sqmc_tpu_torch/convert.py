@@ -23,6 +23,7 @@ from .algo.sparseham import SparseHam
 from .algo.walk import WalkState
 from .systems.base import FermionSystem
 from .systems.chem.integrals import IntegralTable
+from .systems.chem.pointgroup import PointGroup
 from .systems.heatbath import heatbath_from_arrays
 
 
@@ -57,14 +58,18 @@ def table_from_numpy(t, device="cuda") -> IntegralTable:
 
 def system_from_numpy(s, device="cuda") -> FermionSystem:
     """FermionSystem from an object with the sqmc_tpu FermionSystem fields:
-    the integral arrays and the heat-bath tables are copied, not rebuilt."""
-    if getattr(s, "time_sym", False):
-        raise ValueError("time-reversal symmetrized systems are not ported")
+    the integral arrays and the heat-bath tables are copied, not rebuilt;
+    time_sym, z and a point group in ``extra`` come along (the group
+    becomes the port's own PointGroup)."""
     hb = s.heatbath
     heatbath = None if hb is None else heatbath_from_arrays(
         int(hb.norb), hb.same_rs, hb.same_val, hb.same_start, hb.same_count,
         hb.opp_rs, hb.opp_val, hb.opp_start, hb.opp_count, hb.max_double,
         device=device)
+    extra = dict(s.extra)
+    pg = extra.get("point_group")
+    if pg is not None:
+        extra["point_group"] = PointGroup(pg.name, np.asarray(pg.orb_sym))
     return FermionSystem(
         name=s.name, norb=int(s.norb), nup=int(s.nup), ndn=int(s.ndn),
         table=table_from_numpy(s.table, device), heatbath=heatbath,
@@ -73,7 +78,8 @@ def system_from_numpy(s, device="cuda") -> FermionSystem:
         has_singles=bool(s.has_singles),
         hf_up=np.asarray(s.hf_up).view(np.int64).copy(),
         hf_dn=np.asarray(s.hf_dn).view(np.int64).copy(),
-        extra=dict(s.extra))
+        extra=extra, time_sym=bool(getattr(s, "time_sym", False)),
+        z=int(getattr(s, "z", 1)))
 
 
 def sparse_ham_from_numpy(H, device="cuda") -> SparseHam:

@@ -76,6 +76,15 @@ def lex_less_eq(a_up, a_dn, b_up, b_dn):
     return lt, eq
 
 
+def keys_less(up_a, dn_a, up_b, dn_b) -> torch.Tensor:
+    """Elementwise (up_a, dn_a) < (up_b, dn_b) in the JAX package's
+    unsigned det order (up-major, most significant word first), on flipped
+    words: a raw int64 compare would invert every word with bit 63 set.
+    The time-reversal representative of a det is the orientation with
+    ``not keys_less(dn, up, up, dn)``."""
+    return lex_less_eq(up_a, dn_a, up_b, dn_b)[0]
+
+
 def lower_bound_dets(list_up, list_dn, q_up, q_dn) -> torch.Tensor:
     """Count of list entries whose key is < each query (bisection over a
     sorted list; works for any word count)."""

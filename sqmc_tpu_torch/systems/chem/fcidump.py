@@ -96,6 +96,36 @@ def read_fcidump(path: str) -> FCIDumpData:
                        hf_dn_orbs=_occ("hf_dn"))
 
 
+def write_fcidump(path: str, h: np.ndarray, eri_compact: np.ndarray,
+                  core: float, orb_sym, nelec: int, ms2: int = 0,
+                  thresh: float = 1e-12):
+    """Write a Molpro-format FCIDUMP with the lines and order of the JAX
+    package's writer (sqmc_tpu/algo/rdm.py write_fcidump): the unique
+    two-body entries (pq) >= (rs), p >= q, r >= s in (p, q, r, s) order,
+    then h_pq for p >= q, then the core energy; entries with |value| <=
+    thresh are left out."""
+    norb = h.shape[0]
+    g = np.indices((norb,) * 4).reshape(4, -1)
+    p, q, r, s = g
+    keep = (q <= p) & (r <= p) & (s <= np.where(r == p, q, r))
+    p, q, r, s = p[keep], q[keep], r[keep], s[keep]
+    v = eri_compact[quad_index(pair_index(p, q), pair_index(r, s))]
+    nz = np.abs(v) > thresh
+    lines = [f" &FCI NORB={norb},NELEC={nelec},MS2={ms2},\n",
+             "  ORBSYM=" + ",".join(str(int(x)) for x in orb_sym) + ",\n",
+             "  ISYM=1,\n &END\n"]
+    lines += [f"{a:23.16e} {b + 1:3d} {c + 1:3d} {d + 1:3d} {e + 1:3d}\n"
+              for a, b, c, d, e in zip(v[nz], p[nz], q[nz], r[nz], s[nz])]
+    hp, hq = np.tril_indices(norb)
+    hv = h[hp, hq]
+    nz = np.abs(hv) > thresh
+    lines += [f"{a:23.16e} {b + 1:3d} {c + 1:3d}   0   0\n"
+              for a, b, c in zip(hv[nz], hp[nz], hq[nz])]
+    lines.append(f"{core:23.16e}   0   0   0   0\n")
+    with open(path, "w") as f:
+        f.writelines(lines)
+
+
 def orbital_energies(h: np.ndarray, eri: np.ndarray, hf_up_occ,
                      hf_dn_occ) -> np.ndarray:
     """The reference's estimated orbital energies (chemistry.f90:9155):

@@ -155,3 +155,33 @@ def single_words(table: IntegralTable, w_same_i, w_same_j, w_other_i,
     return dets.single_sign_words(w_same_i, p, r) * single_element_no_sign(
         table, dets.to_bits(w_same_i, norb), dets.to_bits(w_other_i, norb),
         p, r)
+
+
+# ---------------------------------------------------------------------------
+# Time-reversal symmetrized elements (ref: hamiltonian_chem_time_sym:1355)
+# ---------------------------------------------------------------------------
+
+SQRT2 = 1.4142135623730951
+SQRT2INV = 0.7071067811865476
+
+
+def pair_matrix_elements_time_sym(table: IntegralTable, bits_up_i, bits_dn_i,
+                                  bits_up_j, bits_dn_j, z: int) -> torch.Tensor:
+    """<i_ts|H|j_ts> between time-symmetrized basis states given by their
+    representative orientations (up <= dn):
+
+      norm_bra * norm_ketinv * (H(i, j) + z H(rev_i, j))
+
+    with norm_bra = sqrt2 when i is self-symmetric, norm_ketinv = 1/sqrt2
+    when j is, H(rev_i, j) replaced by H(i, j) when j is self-symmetric
+    and dropped when i is (ref: chemistry.f90:1355-1413)."""
+    sym_i = (bits_up_i == bits_dn_i).all(dim=-1)
+    sym_j = (bits_up_j == bits_dn_j).all(dim=-1)
+    m1 = pair_matrix_elements(table, bits_up_i, bits_dn_i, bits_up_j, bits_dn_j)
+    m2 = pair_matrix_elements(table, bits_dn_i, bits_up_i, bits_up_j, bits_dn_j)
+    m2 = torch.where(sym_j, m1, m2)
+    m2 = torch.where(sym_i, torch.zeros_like(m2), m2)
+    one = torch.ones_like(m1)
+    norm = torch.where(sym_i, SQRT2 * one, one) * torch.where(
+        sym_j, SQRT2INV * one, one)
+    return norm * (m1 + z * m2)

@@ -1,0 +1,339 @@
+"""The port's card-input entry point (``python -m sqmc_tpu_torch``) against
+the JAX package's (``python -m sqmc_tpu``): the same parse of every
+inline deck, the same printed energies (to 1e-9) on a time-symmetrized
+chem HCI+PT deck with d2h, hf_symmetry and two states and on an electron
+gas deck, a walk deck run through the cards on the CPU, and a ValueError
+naming its ROADMAP item for every card the port does not run."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from sqmc_tpu.algo.rdm import write_fcidump
+from sqmc_tpu.config import parse_input as j_parse
+from sqmc_tpu_torch import cli
+from sqmc_tpu_torch.config import parse_input as t_parse
+from test_torch_timesym import D2H_SYMS, sym_integrals
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# ---------------------------------------------------------------------------
+# decks (copies of tests/test_cli.py's, plus the port's own)
+# ---------------------------------------------------------------------------
+
+FICTITIOUS = """\
+1234567 7654321                    irand_seed
+100 8 2 0                          nstep,nblk,nblk_eq,ipr
+500 2000 0                         w_abs_gen_begin, w_abs_gen_target, MWALK
+0.5 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.25                        population_control_expon, e_trial_initial, min_wt
+heat_bath2 0 1. 0 1.               proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+none                               run_type
+.false. f                          semistochastic, use_exponential_projector
+'fictitious' 0                     hamiltonian_type,ipr
+1 1. 1. 0.5 1.0                    bosonic, spectrum_coef, spectrum_power, ham_diag_fluc, ham_offdiag_fluc
+20                                 ndet
+1                                  diagonalize_ham
+2                                  ndet_psi_t
+1 2                                iwdet_psi_t
+0.9 0.3                            cdet_psi_t
+"""
+
+HUBBARDK = """\
+9 3                                irand_seed
+hci                                run_type
+1e-9 1e-9 1e-4 1                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+'hubbardk' 0                       hamiltonian_type,ipr
+2 2                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+2 2                                n_alpha, n_beta
+"""
+
+HUBBARD2_FN = """\
+13 5                               irand_seed
+100 6 3 0                          nstep,nblk,nblk_eq,ipr
+1500 3000 4096                     w_abs_gen_begin, w_abs_gen_target, MWALK
+0.3 0.02                           tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+fast_heatbath 1 0. 0 1.            proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+fixed_node1                        run_type
+.false. f                          semistochastic, use_exponential_projector
+0. 0.                              psi_g_energy, psi_g_epsilon
+'hubbard2' 0                       hamiltonian_type,ipr
+1 8                                l_x, l_y
+f f                                pbc, neel_up_only
+1. 4.                              t, U
+2 2                                n_alpha, n_beta
+gutz                               wf_type
+0.7                                g
+0                                  diagonalize_ham
+"""
+
+CHEM_WALK = """\
+1837465927472523 1257676276476276   irand_seed
+100 5 3 0                          nstep,nblk,nblk_eq,ipr
+2000 4000 8192                     w_abs_gen_begin, w_abs_gen_target, MWALK
+0.1 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+fast_heatbath 0 1. 0 1.            proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+none                               run_type
+.true. f                           semistochastic, use_exponential_projector
+f                                  diff_from_psi_t
+200                                size_deterministic
+f f 0.5                            hf_to_psit, c_t_initiator, always_spawn_cutoff
+'chem'  0                          hamiltonian_type,ipr
+8        4                        nelec, nup
+d2h                                point_group
+f                                  time_sym
+26                                 norb
+0                                  n_core_spatial_orb
+2                                  trial_wf_iterations
+26 26                              norb_trial_wf
+1 20                               trial_wf_initiators
+50 80                              n_sym_uniq_det_trial_wf
+1,5,3,2,1,7,6,5,1,2,3,1,6,7,5,4,1,5,3,2,8,5,1,7,6,5, orbital_symmetries(1:norb)
+1                                  spatial_symmetry_wf
+0                                  diagonalize_ham
+"""
+
+OBSERVABLES = FICTITIOUS + """
+&natorb get_natorbs=.true. use_pt=.false. /
+&greens_function get_greens_function=.true. n_w=5 w_min=-2. w_max=2. /
+&active_space n_var_e_up=2 n_var_e_dn=2 n_var_orbs=10 /
+"""
+
+# a C2-curve deck's layout (HCI-minimal: time_sym z = +1, d2h, two states,
+# the eps_var schedule 2 x 2e-3 -> 1e-3, hf_symmetry) on 6 orbitals
+TS_HCI = """\
+1 1                                irand_seed
+hci                                run_type
+1e-3 1e-7 1e-4 2                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+'chem' 0                           hamiltonian_type,ipr
+6 3                                nelec, nup
+d2h                                point_group
+t                                  time_sym
+1                                  z
+6                                  norb
+1,5,3,2,1,7,                       orbital_symmetries(1:norb)
+1                                  spatial_symmetry_wf
+&selected_ci eps_var_sched=2*2e-3 /
+&hf_det hf_symmetry=1 /
+"""
+
+HEG_HCI = """\
+1 1                                irand_seed
+hci                                run_type
+1e-4 1e-7 1e-4 1                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+'heg' 0                            hamiltonian_type,ipr
+3                                  n_dim
+1.0                                r_s
+4 2                                nelec, nup
+1.6                                cutoff_radius
+"""
+
+# a time-symmetrized walk deck in the SQMC layout: trial_wf cards,
+# hf_to_psit, tau from tau_multiplier, auto MWALK
+TS_WALK = """\
+11 7                               irand_seed
+20 3 1 0                           nstep,nblk,nblk_eq,ipr
+200 500 0                          w_abs_gen_begin, w_abs_gen_target, MWALK
+0.1 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+heat_bath2 0 1. 0 1.               proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+none                               run_type
+.true. f                           semistochastic, use_exponential_projector
+f                                  diff_from_psi_t
+4                                  size_deterministic
+t f 0.5                            hf_to_psit, c_t_initiator, always_spawn_cutoff
+'chem'  0                          hamiltonian_type,ipr
+6        3                         nelec, nup
+d2h                                point_group
+t                                  time_sym
+1                                  z
+6                                  norb
+0                                  n_core_spatial_orb
+2                                  trial_wf_iterations
+6 6                                norb_trial_wf
+1 5                                trial_wf_initiators
+10 20                              n_sym_uniq_det_trial_wf
+1,5,3,2,1,7,                       orbital_symmetries(1:norb)
+1                                  spatial_symmetry_wf
+0                                  diagonalize_ham
+"""
+
+DECKS = dict(fictitious=FICTITIOUS, hubbardk=HUBBARDK, hubbard2_fn=HUBBARD2_FN,
+             chem_walk=CHEM_WALK, observables=OBSERVABLES, ts_hci=TS_HCI,
+             heg_hci=HEG_HCI, ts_walk=TS_WALK,
+             partial_node=FICTITIOUS.replace(
+                 "none                               run_type",
+                 "partial_node                       run_type\n0.7  eps"))
+
+
+@pytest.mark.parametrize("name", sorted(DECKS))
+def test_parse_input_matches_jax(name):
+    """Every field of the parsed deck equals the JAX package's."""
+    j, t = j_parse(DECKS[name]), t_parse(DECKS[name])
+    for f in dataclasses.fields(j):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+@pytest.fixture(scope="module")
+def fcidump(tmp_path_factory):
+    h, eri, core = sym_integrals(6, D2H_SYMS[:6], 3)
+    path = str(tmp_path_factory.mktemp("cli") / "FCIDUMP")
+    write_fcidump(path, h, eri, core, D2H_SYMS[:6], nelec=6, ms2=0)
+    return path
+
+
+def _run(pkg, deck_text, tmp_path, *extra):
+    deck = tmp_path / f"deck_{pkg}"
+    deck.write_text(deck_text)
+    out = subprocess.run([sys.executable, "-m", pkg, "-i", str(deck), *extra],
+                         capture_output=True, text=True, cwd=tmp_path,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+                                  OMP_NUM_THREADS="2"),
+                         timeout=300)
+    return out
+
+
+ENERGY_LINES = (r"Variational energy=\s*([-+0-9.]+)",
+                r"Second-order PT energy lowering=\s*([-+0-9.]+)",
+                r"Total energy\(\d\)=\s*([-+0-9.]+)",
+                r"Total energy=\s*([-+0-9.]+)",
+                r"State \d: variational energy=\s*([-+0-9.]+)",
+                r"Total energy \(includ. Madelung\)=\s*([-+0-9.]+)")
+
+
+def _energies(text):
+    return {p: [float(x) for x in re.findall(p, text)] for p in ENERGY_LINES}
+
+
+@pytest.mark.parametrize("deck", ["ts_hci", "heg_hci"])
+def test_cli_energies_match_jax(deck, fcidump, tmp_path):
+    """Both CLIs with --cpu print the same energies to 1e-9 (each printed
+    to 9 decimals): HCI, PT for each state, totals, Madelung.  The port's
+    HEG run also writes a --profile trace."""
+    extra = ("-f", fcidump, "--cpu") if deck == "ts_hci" else ("--cpu",)
+    prof = tmp_path / "prof"
+    jo = _run("sqmc_tpu", DECKS[deck], tmp_path, *extra)
+    to = _run("sqmc_tpu_torch", DECKS[deck], tmp_path, *extra,
+              *(("--profile", str(prof)) if deck == "heg_hci" else ()))
+    assert jo.returncode == 0, jo.stderr[-2000:]
+    assert to.returncode == 0, to.stderr[-2000:]
+    je, te = _energies(jo.stdout), _energies(to.stdout)
+    assert je[ENERGY_LINES[0]] and je[ENERGY_LINES[1]]
+    if deck == "ts_hci":
+        assert len(je[ENERGY_LINES[2]]) == 2            # both states
+    else:
+        assert je[ENERGY_LINES[5]]
+    for p in ENERGY_LINES:
+        assert len(te[p]) == len(je[p]), p
+        np.testing.assert_allclose(te[p], je[p], rtol=0, atol=1.01e-9,
+                                   err_msg=p)
+    for tag in ("END OF variational part", "END OF HCI"):
+        assert tag in to.stdout
+    assert "Kernel launches: seg_scan=0 spmv=0" in to.stdout
+    if deck == "heg_hci":
+        assert (prof / "trace.json").stat().st_size > 0
+
+
+def test_cli_ts_walk_deck_on_cpu(fcidump, tmp_path):
+    """The time-symmetrized walk deck through the cards on the CPU: Psi_T
+    from the trial_wf cards, Psi_T forced into D, tau deduced, MWALK
+    auto-sized, heat_bath2 mapped to fast_heatbath; e_mixed lands near
+    the exact e0 of the sector."""
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.base import make_chem_system
+    to = _run("sqmc_tpu_torch", TS_WALK, tmp_path, "-f", fcidump, "--cpu")
+    assert to.returncode == 0, to.stderr[-2000:]
+    text = to.stdout
+    for line in ("trial_wf_iters", "hf_to_psit: forcing Psi_T",
+                 "tau_multiplier, tau=", "Setting MWALK=",
+                 "heat_bath2 -> fast_heatbath", "END OF walk"):
+        assert line in text, line
+    assert "WARNING: no trial_wf cards" not in text
+    m = re.search(r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text)
+    e, err = float(m.group(1)), float(m.group(2))
+    s = make_chem_system(fcidump, time_sym=True, z=1, point_group="d2h",
+                         device="cpu")
+    e0 = run_hci(s, eps_var=1e-9, eps_var_sched=[1e-9] * 20, max_iters=40,
+                 verbose=False).energies[0]
+    assert np.isfinite(err) and abs(e - e0) < max(6 * err, 2e-3), (e, e0)
+
+
+def test_cli_needs_a_card_without_cpu(tmp_path):
+    """Without --cpu the CLI runs on the card, and without one it exits
+    nonzero before any work (it never falls back to the CPU)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    to = _run("sqmc_tpu_torch", HEG_HCI, tmp_path)
+    assert to.returncode != 0
+    assert "--cpu" in to.stderr and "Variational energy" not in to.stdout
+
+
+def _cfg(deck, **kw):
+    return dataclasses.replace(t_parse(DECKS[deck]), **kw)
+
+
+UNPORTED = {
+    "fictitious": (lambda: _cfg("fictitious"), "A8"),
+    "read": (lambda: _cfg("fictitious", hamiltonian_type="read"), "A8"),
+    "hubbard": (lambda: _cfg("fictitious", hamiltonian_type="hubbard"), "A8"),
+    "hubbardk": (lambda: _cfg("hubbardk"), "A8"),
+    "hubbard2": (lambda: _cfg("hubbard2_fn"), "A8"),
+    "selected_ci": (lambda: _cfg("ts_hci", run_type="selected_ci"), "A8"),
+    "trunc_lanc": (lambda: _cfg("ts_hci", run_type="trunc_lanc"), "A8"),
+    "vmc": (lambda: _cfg("ts_hci", run_type="vmc"), "A8"),
+    "fixed_node": (lambda: _cfg("ts_walk", run_type="fixed_node1"),
+                   "A3 remainder"),
+    "guiding": (lambda: _cfg("ts_walk", importance_sampling=1),
+                "A3 remainder"),
+    "uniform": (lambda: _cfg("ts_walk", proposal_method="uniform"),
+                "A3 remainder"),
+    "cauchy_schwarz": (lambda: _cfg("ts_walk",
+                                    proposal_method="CauchySchwarz"),
+                       "A3 remainder"),
+    "exponential": (lambda: _cfg("ts_walk", use_exponential_projector=True),
+                    "A3 remainder"),
+    "natorbs": (lambda: _cfg("ts_hci", get_natorbs=True), "A8"),
+    "greens": (lambda: _cfg("ts_hci", get_greens_function=True), "A8"),
+    "active_space": (lambda: _cfg("ts_hci", active_space=(2, 2, 4)), "A8"),
+    "dump_wf_var": (lambda: _cfg("ts_hci", dump_wf_var=True), "A8"),
+    "unknown": (lambda: _cfg("ts_hci", hamiltonian_type="spin"), ""),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_cards_raise(name, fcidump):
+    make, item = UNPORTED[name]
+    with pytest.raises(ValueError, match=f"ROADMAP {item}" if item else
+                       "hamiltonian_type"):
+        cli.run_from_config(make(), fcidump=fcidump, device="cpu")
+
+
+def test_wavefunction_cache_raises(fcidump, tmp_path, monkeypatch):
+    """The JAX CLI reads a wf_eps_var=... cache from the working
+    directory; the port refuses it instead of ignoring it."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg("ts_hci")
+    (tmp_path / cli._wf_cache_name(min(cfg.eps_var_sched))).write_text("x")
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        cli.run_from_config(cfg, fcidump=fcidump, device="cpu")

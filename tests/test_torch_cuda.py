@@ -466,3 +466,152 @@ def test_spmv_misaligned_x():
     bound = tspmv.spmv_plain(x.abs().double(), cols, vals.abs().double(),
                              ptr, cnt)
     assert bool(((y.double() - ref.double()).abs() <= 1e-5 * bound).all())
+
+
+# ---------------------------------------------------------------------------
+# The time-reversal symmetrized basis on the card (both kernels)
+# ---------------------------------------------------------------------------
+
+def _ts_system(norb, nel, dev, z=1, seed=5):
+    """Random chem integrals made with numpy (no JAX on the card), as a
+    time-symmetrized system of sector z on `dev`: z = +1 from the
+    closed-shell start, z = -1 from an open-shell one."""
+    from sqmc_tpu_torch import dets as tdets
+    from sqmc_tpu_torch.systems.base import make_system_from_arrays
+    from sqmc_tpu_torch.systems.chem.fcidump import n_eri
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(norb, norb))
+    h = 0.3 * 0.5 * (h + h.T) + np.diag(np.arange(norb) * 0.5)
+    eri = 0.1 * rng.normal(size=n_eri(norb))
+    s = make_system_from_arrays(h, eri, float(rng.normal()), nel, nel,
+                                device=dev)
+    s.time_sym, s.z = True, z
+    if z < 0:
+        s.hf_dn = tdets.det_from_orbs(list(range(nel - 1)) + [nel], norb)
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+def test_spmv_kernel_on_time_sym_h(dtype, rtol):
+    """K2 on the time-symmetrized H of an HCI run on the card (9 orbitals,
+    3 + 3 electrons, z = +1, two states: the sqrt2-scaled rows of the
+    self-symmetric dets included) at m = 2, the Davidson's width: every row
+    within rtol x sum_k |v_k x_k| of the plain version, one launch."""
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    dev = _device()
+    s = _ts_system(9, 3, dev)
+    res = run_hci(s, eps_var=1e-3, eps_var_sched=[1e-3] * 2, n_states=2,
+                  verbose=False)
+    H = build_sparse_ham(s.table, res.up, res.dn, 3, 3, 9, time_sym=True,
+                         z=1)
+    selfs = (res.up == res.dn).all(dim=1)
+    assert H.n >= 2000 and bool(selfs.any()) and bool((~selfs).any())
+    c, v, _, p, k = tspmv.blockell_from_coo(H.n, H.rows, H.cols, H.vals,
+                                            H.diag, dtype=np.float64)
+    cols, ptr, cnt = (torch.as_tensor(a, device=dev) for a in (c, p, k))
+    vals = torch.as_tensor(v, device=dev).to(dtype)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal((H.n, 2)),
+                        device=dev).to(dtype)
+    before = tspmv.launches
+    y = tspmv.spmv(x, cols, vals, ptr, cnt)
+    assert tspmv.launches == before + 1
+    ref = tspmv.spmv_plain(x, cols, vals, ptr, cnt)
+    bound = tspmv.spmv_plain(x.abs().double(), cols, vals.abs().double(),
+                             ptr, cnt)
+    assert y.shape == (H.n, 2) and y.dtype == dtype
+    assert bool(((y.double() - ref.double()).abs() <= rtol * bound).all())
+    # the device Davidson on this H (m = 2 per launch) refines to the
+    # float64 Davidson's energies
+    dd = run_hci(s, eps_var=1e-3, eps_var_sched=[1e-3] * 2, n_states=2,
+                 verbose=False, device_davidson=True)
+    assert tspmv.launches > before + 1
+    np.testing.assert_allclose(dd.energies, res.energies, rtol=0, atol=2e-6)
+
+
+def _ts_exact_trace(dev, z, ngen=10):
+    """Deterministic-limit generations of the time-symmetrized walk (6
+    orbitals, 2 + 2 electrons, D = the whole sector) on `dev` in f64 state:
+    each merge is K1 on the card, each projection K2.  Returns the trace
+    and the sector's exact e0 (dense symmetrized H)."""
+    from sqmc_tpu_torch import dets as tdets
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.systems.chem import slater
+    s = _ts_system(6, 2, dev, z=z, seed=3)
+    trial = build_trial_wavefunction(s, eps_var=1e-9, n_psi_t=400, n_imp=400)
+    bu = tdets.to_bits(trial.imp_up, 6)
+    bd = tdets.to_bits(trial.imp_dn, 6)
+    n = len(bu)
+    i, j = (a.reshape(-1) for a in torch.meshgrid(
+        torch.arange(n, device=dev), torch.arange(n, device=dev),
+        indexing="ij"))
+    Hts = slater.pair_matrix_elements_time_sym(s.table, bu[i], bd[i], bu[j],
+                                               bd[j], z).reshape(n, n)
+    e0 = float(torch.linalg.eigvalsh(Hts.cpu())[0])
+    cfg = TW.WalkConfig(mwalk=1024, cap_spawn=4096, norb=6, nup=2, ndn=2,
+                        n_words=1, tau=5e-3, w_abs_target=500.0,
+                        has_singles=True, time_sym=True, z=z, cap_fresh=512)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, 500.0, e0, tables)
+    st, stats = TW.walk_block(st, tables, cfg, ngen,
+                              torch.Generator(device=dev).manual_seed(0))
+    return torch.stack([stats[k] for k in ("e_num_gen", "e_den_gen",
+                                           "w_abs_gen", "nwalk")]
+                       ).cpu().numpy(), e0, trial
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z", [1, -1])
+def test_time_sym_walk_on_card_matches_cpu(z):
+    """Ten deterministic-limit generations of the time-symmetrized walk on
+    the card (K1 each merge, K2 each projection) equal the CPU's (the
+    plain scan and SpMV) to 1e-10, and their energy is the sector's exact
+    e0 (z = -1 from an open-shell start)."""
+    dev = _device()
+    before, sp_before = tseg.launches, tspmv.launches
+    card, e0, trial = _ts_exact_trace(dev, z)
+    assert tseg.launches == before + 10 and tspmv.launches == sp_before + 10
+    cpu, e0_cpu, _ = _ts_exact_trace("cpu", z)
+    np.testing.assert_allclose(card, cpu, rtol=1e-10, atol=0)
+    assert abs(e0 - e0_cpu) < 1e-12
+    assert abs(trial.e_trial - e0) < 1e-8
+    np.testing.assert_allclose(card[0] / card[1], e0, rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_time_sym_walk_kernel_vs_plain_scan(monkeypatch):
+    """A stochastic time-symmetrized walk (D = 20 dets, so most moves are
+    spawns mapped to representatives) for 20 generations on the card, once
+    with K1 and once with the plain scan in its place, from the same state
+    and random stream: the same trace to 1e-9 relative."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    dev = _device()
+    s = _ts_system(9, 3, dev)
+    trial = build_trial_wavefunction(s, eps_var=2e-3, n_psi_t=30, n_imp=20)
+    cfg = TW.WalkConfig(mwalk=8192, cap_spawn=16384, norb=9, nup=3, ndn=3,
+                        n_words=1, tau=5e-3, w_abs_target=3000.0,
+                        has_singles=True, r_initiator=0.5, time_sym=True,
+                        z=1)
+    tables = TW.build_walk_tables(s, trial, cfg)
+
+    def trace():
+        st = TW.init_walk_state(cfg, trial, 2000.0, trial.e_trial, tables)
+        st, stats = TW.walk_block(st, tables, cfg, 20,
+                                  torch.Generator(device=dev).manual_seed(5))
+        return torch.stack([stats[k] for k in ("e_num_gen", "e_den_gen",
+                                               "w_abs_gen", "nwalk")]
+                           ).cpu().numpy(), st
+
+    before = tseg.launches
+    kern, st = trace()
+    assert tseg.launches == before + 20
+    u, d = st.up[:int(st.nwalk), 0].cpu(), st.dn[:int(st.nwalk), 0].cpu()
+    assert bool((u <= d).all())            # representatives (norb < 63)
+    monkeypatch.setattr(tseg, "seg_scan", tseg.seg_scan_plain)
+    plain, _ = trace()
+    assert tseg.launches == before + 20
+    np.testing.assert_allclose(kern, plain, rtol=1e-9, atol=0)

@@ -140,12 +140,24 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 
 def test_unported_options_raise(fcidump):
+    """Options that stay unported raise ValueError: the mesh, the
+    wavefunction cache, the active space and ARPACK in run_hci, and every
+    WalkConfig option other than time_sym (time_sym, z, point_group and
+    hf_symmetry are ported: tests/test_torch_timesym*.py)."""
+    from sqmc_tpu_torch.algo.walk import WalkConfig
     s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     for kw in (dict(mesh=object()), dict(wf_cache_dir="wf"),
                dict(active_space=(1, 1, 4)), dict(diagonalizer="arpack")):
         with pytest.raises(ValueError):
             TH.run_hci(s, eps_var=1e-3, verbose=False, **kw)
-    for kw in (dict(time_sym=True), dict(point_group="d2h"),
-               dict(hf_symmetry=1)):
+    c = t_chem(fcidump, device="cpu", time_sym=True, point_group="d2h")
+    base = dict(norb=c.norb, nup=c.nup, ndn=c.ndn, n_words=1, mwalk=1024,
+                cap_spawn=4096, tau=5e-3, w_abs_target=500.0, time_sym=True)
+    for kw in (dict(use_exponential_projector=True),
+               dict(run_type="fixed_node1"), dict(proposal="uniform"),
+               dict(proposal="cauchy_schwarz"), dict(guiding="table"),
+               dict(full_sort_merge=False), dict(initiator_rule="sequential"),
+               dict(axis_name="d"), dict(ct_in_d=True), dict(proj_bf16=True),
+               dict(z=2)):
         with pytest.raises(ValueError):
-            t_chem(fcidump, device="cpu", **kw)
+            WalkConfig(**base, **kw)

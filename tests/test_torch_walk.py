@@ -135,7 +135,7 @@ def test_run_walk_exact_energy(exact):
 
 def test_unported_options_raise():
     base = dict(norb=4, nup=2, ndn=2, **KW)
-    for opt in (dict(time_sym=True), dict(use_exponential_projector=True),
+    for opt in (dict(time_sym=True, z=0), dict(use_exponential_projector=True),
                 dict(run_type="fixed_node1"), dict(proposal="uniform"),
                 dict(proposal="cauchy_schwarz"), dict(axis_name="d"),
                 dict(ct_in_d=True), dict(full_sort_merge=False),
