@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase (one card)
     python3 chip_smoke.py --kernels   # phases 0-2c only, then exit 1
+    python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -55,11 +56,49 @@ Phases, each reported on its own line; any failure exits nonzero:
      e_mixed within max(5 sigma, 2 mHa) of E_var + PT; 6c the 6-orbital
      time-symmetrized oracle (D = the whole space) at the exact e0 to
      1e-8 for z = +1 and, from an open-shell start, z = -1.  Decks, logs
-     and the FCIDUMP go to build/smoke_phase6/.
+     and the FCIDUMP go to build/smoke_phase6/;
+  7. the Hubbard determinant systems and the walk's other projectors
+     (decks and logs in build/smoke_phase7/):
+     7a momentum-space Hubbard at full width, the 4x4 periodic cluster at
+     U/t = 4 with 5 + 5 electrons (16 k-points, 19.1M dets): the HCI + PT
+     deck through the CLI (eps_var 2e-3, 2e-3 -> 1e-3), the device
+     Davidson (K2) on the same system within 1e-6 of it, then in f32 state
+     at population 2e5 the linear semistochastic heat-bath walk (tau 5e-4)
+     and the continuous-time projector (tau 5e-3, semistochastic off),
+     each gated on capacity, population within 10% and |e_mixed - (E_var +
+     PT)| < max(5 sigma, 2 mHa);
+     7b real-space Hubbard on the same cluster (one Hamiltonian, another
+     basis): fixed_node1 with importance sampling by a Gutzwiller
+     function (g = 0.6; orbitals of the hopping matrix plus a small random
+     site potential, so that no det sits exactly on a node; the walk
+     starts from the no-double-occupancy det where |psi_g| is largest),
+     semistochastic with D = the HCI space at eps_var 0.03, f64 state, so
+     each generation projects through K2 on the non-symmetric fixed-node
+     matrix; tau is the linear projector's stability bound 1 / (largest
+     diagonal of that matrix - E_T), at most 1e-3: a det next to a node of
+     psi_g carries an unbounded diagonal dump, and past the bound its
+     weight alternates and grows; K2 against its plain version on that
+     matrix (f32 and f64, m = 1); gates: no overflow, population within 10% of its target,
+     e_mixed >= E0 - 5 sigma with E0 = 7a's E_var + PT;
+     7c small oracles on the card: on the 1x8 open chain (784 dets, no
+     sign violator: fixed-node is exact) importance sampling and
+     fixed_node1 (also as a deck through the CLI), and on the 2x3 open
+     lattice (225 dets, 240 violators)
+     fixed_node1, partial_node eps 0.6 and release_node, each against the
+     dense fixed-node effective Hamiltonian; the CT projector in its
+     three modes (2x2 Hubbard-k, HEG-4, a 5-orbital chem system) against
+     FCI; the uniform proposal on HEG-14 at reduced depth against phase
+     3's oracle and the Cauchy-Schwarz proposal on a 4-orbital chem system
+     against FCI (the electron gas has (pr|pr) = 0, so that proposal has no
+     support there); the sequential initiator rule and the two-level merge
+     in the deterministic limit against the full-sort group-max trace
+     (1e-10); save, load and resume of a walker state giving the same
+     next block as the uninterrupted run.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
-launches from phase 3, spmv's from phase 4; errors and times measured
+launches from phases 3 and 7, spmv's from phases 4 and 7, each path
+counted from 0; errors and times measured
 here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
 m = 1 shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -79,7 +118,7 @@ EPS_VAR = 1e-3
 GOLD_NDET, GOLD_EVAR = 9475, 58.276906085
 ORACLE = 58.275966889                 # E_var + deterministic PT (eps_pt 2e-7)
 W_TARGET, W_BEGIN = 200_000.0, 140_000.0
-NSTEP, NBLK_EQ, NBLK = 100, 12, 30    # 1,200 equilibration + 3,000 measured
+NSTEP, NBLK_EQ, NBLK = 100, 12, 15    # 1,200 equilibration + 1,500 measured
 MERGE_N = 458_752 + 262_144           # walk merge rows: mwalk + cap_spawn
 
 
@@ -847,12 +886,12 @@ def _run_cli(tag, deck, workdir, *extra):
         f.write(out.stdout + out.stderr)
     if out.returncode != 0:
         log(out.stdout[-3000:] + out.stderr[-3000:])
-        log(f"phase 6 {tag}: python -m sqmc_tpu_torch exited "
+        log(f"cli deck {tag}: python -m sqmc_tpu_torch exited "
             f"{out.returncode}")
         sys.exit(out.returncode)
     m = re.search(r"Kernel launches: seg_scan=(\d+) spmv=(\d+)", out.stdout)
     counts = dict(seg_scan=int(m.group(1)), spmv=int(m.group(2)))
-    log(f"phase 6 {tag}: seconds={sec:.2f} seg_scan_launches="
+    log(f"cli deck {tag}: seconds={sec:.2f} seg_scan_launches="
         f"{counts['seg_scan']} spmv_launches={counts['spmv']}")
     return out.stdout, sec, counts
 
@@ -1059,6 +1098,553 @@ def phase_cli(dev):
         f"6c={time.time() - t2:.2f} seconds")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: Hubbard determinant systems, the other projectors
+# ---------------------------------------------------------------------------
+
+HUB = (4, 4, 1.0, 4.0, 5, 5)          # l_x, l_y, t, U, nup, ndn
+HUBK_HCI_DECK = """\
+1 1                                irand_seed
+hci                                run_type
+1e-3 2e-6 1e-5 1                   eps_var, eps_pt, target_error, n_states
+f                                  dump_wf_var
+'hubbardk' 0                       hamiltonian_type,ipr
+4 4                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+5 5                                n_alpha, n_beta
+&selected_ci eps_var_sched=2*2e-3 /
+"""
+HUB2_FN_DECK = """\
+13 5                               irand_seed
+100 4 2 0                          nstep,nblk,nblk_eq,ipr
+1500 3000 4096                     w_abs_gen_begin, w_abs_gen_target, MWALK
+0.3 0.02                           tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+fast_heatbath 1 0. 0 1.            proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+fixed_node1                        run_type
+.false. f                          semistochastic, use_exponential_projector
+0. 0.                              psi_g_energy, psi_g_epsilon
+'hubbard2' 0                       hamiltonian_type,ipr
+1 8                                l_x, l_y
+f f                                pbc, neel_up_only
+1. 4.                              t, U
+2 2                                n_alpha, n_beta
+gutz                               wf_type
+0.7                                g
+0                                  diagonalize_ham
+"""
+HUB_W = 200_000.0                     # 7a walks' population
+HUB_TAU, HUB_CT_TAU = 5e-4, 5e-3      # linear projector; CT at ten times it
+HUB2_W, HUB2_TAU_MAX, HUB2_G, HUB2_EPS = 100_000.0, 1e-3, 0.6, 0.03
+COUNTS7 = dict(seg_scan=0, spmv=0)    # phase 7's launches, path by path
+
+
+def _counted(fn):
+    """Run fn() with both kernel counts set to 0 just before and read just
+    after; adds them to COUNTS7 and returns (result, counts)."""
+    from sqmc_tpu_torch.ops import segscan, spmv
+    segscan.reset_launches()
+    spmv.reset_launches()
+    out = fn()
+    c = dict(seg_scan=segscan.launches, spmv=spmv.launches)
+    for k in c:
+        COUNTS7[k] += c[k]
+    return out, c
+
+
+def _gate_walk(tag, out, target_pop, oracle, floor, lower_bound_only=False):
+    """The walk gates: finite output, no capacity growth or overflow,
+    population within 10% of its target, and e_mixed within max(5 sigma,
+    floor) of the oracle (or, for a variational bound, not below it)."""
+    import numpy as np
+    pop = float(np.mean(out.w_abs_trace[-min(200, out.n_measured):]))
+    dev_ = out.e_mixed - oracle
+    gate = max(5 * out.e_err, floor)
+    if not (np.all(np.isfinite(out.w_abs_trace)) and np.isfinite(out.e_mixed)
+            and np.isfinite(out.e_err)):
+        raise AssertionError(f"{tag}: non-finite walk output")
+    if bool(out.state.overflow) or out.capacity_grows:
+        raise AssertionError(f"{tag}: capacity overflow")
+    if abs(pop - target_pop) > 0.1 * target_pop:
+        raise AssertionError(f"{tag}: population {pop:.0f} not within 10% "
+                             f"of {target_pop:.0f}")
+    if lower_bound_only:
+        if dev_ < -5 * out.e_err:
+            raise AssertionError(f"{tag}: e_mixed {out.e_mixed:.6f} below "
+                                 f"E0 {oracle:.6f} by more than 5 sigma")
+    elif abs(dev_) >= gate:
+        raise AssertionError(f"{tag}: |e_mixed - oracle| = {abs(dev_):.6f} "
+                             f">= {gate:.6f}")
+    return pop, dev_, gate
+
+
+def phase_hubbard_k(dev, workdir, smi):
+    """7a: the 4x4 momentum-space Hubbard cluster at full width.  Returns
+    E_var + PT of the CLI deck (the energy the other cells are held to)."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
+
+    text, sec, c_cli = _run_cli("7a_hubbardk_hci", HUBK_HCI_DECK, workdir)
+    e_var = _grab(text, r"Variational energy=")
+    pt = _grab(text, r"Second-order PT energy lowering=")
+    e_tot = _grab(text, r"Total energy=")
+    ndet = int(_grab(text, r"Final Iteration\s+\d+"))
+    log(f"phase 7a hubbardk hci cli: ndets={ndet} e_var={e_var:.9f} "
+        f"pt={pt:.9f} e_tot={e_tot:.9f} seconds={sec:.2f}")
+    if not 10_000 <= ndet <= 100_000 or not pt < 0:
+        raise AssertionError("the Hubbard-k HCI deck is off its shape")
+
+    def dd():
+        system = make_hubbard_k_system(*HUB, device=dev)
+        res = run_hci(system, eps_var=1e-3, eps_var_sched=[2e-3, 2e-3, 1e-3],
+                      verbose=False, device_davidson=True)
+        torch.cuda.synchronize()
+        return system, res
+    t0 = time.time()
+    (system, res), c_dd = _counted(dd)
+    log(f"phase 7a hubbardk device_davidson: ndets={len(res.up)} "
+        f"e_var={res.energies[0]:.9f} dev_from_cli="
+        f"{res.energies[0] - e_var:.3e} spmv_launches={c_dd['spmv']} "
+        f"seconds={time.time() - t0:.2f}")
+    if len(res.up) != ndet or abs(res.energies[0] - e_var) > 1e-6 \
+            or c_dd["spmv"] <= 0:
+        raise AssertionError("device-Davidson HCI disagrees with the CLI")
+
+    t0 = time.time()
+    trial = build_trial_wavefunction(system, eps_var=1e-3, n_psi_t=2000,
+                                     n_imp=10_000)
+    torch.cuda.synchronize()
+    log(f"phase 7a hubbardk trial: n_imp={len(trial.imp_up)} "
+        f"n_psit={len(trial.psit_up)} n_ct={len(trial.ct_up)} "
+        f"seconds={time.time() - t0:.2f}")
+    base = dict(mwalk=458_752, cap_spawn=262_144, norb=system.norb,
+                nup=system.nup, ndn=system.ndn, n_words=1,
+                w_abs_target=HUB_W, min_wt=0.5, f32_state=True,
+                has_singles=False)
+    # A CT child carries at least always_spawn_cutoff x granularity x
+    # exp(tau x rate) = 0.5 x 1.41 here, so the initiator threshold must lie
+    # above that (1.0, granularity 1): at the linear walk's 0.5 every child
+    # would found an initiator and the approximation would be void.
+    # The population (an L1 norm) more than doubles while Psi_T's 2,000 dets
+    # spread over ~2.4e5, so the walks start well below the target.
+    runs = (("linear", dict(tau=HUB_TAU, spawn_granularity=2.0,
+                            r_initiator=0.5), 14, 8, 100, 0.5 * HUB_W),
+            ("ct", dict(tau=HUB_CT_TAU, semistochastic=False,
+                        use_exponential_projector=True, r_initiator=1.0),
+             4, 6, 50, 0.8 * HUB_W))
+    for name, kw, nblk_eq, nblk, nstep, w0 in runs:
+        cfg = WalkConfig(**base, **kw)
+        t0 = time.time()
+        out, c = _counted(lambda: run_walk(
+            system, trial, cfg, nstep=nstep, nblk=nblk, nblk_eq=nblk_eq,
+            w_abs_begin=w0, e_trial_initial=e_var, verbose=False,
+            max_eq_extensions=1, seed=1))
+        torch.cuda.synchronize()
+        pop, dev_, gate = _gate_walk(f"7a {name}", out, HUB_W, e_tot, 2e-3)
+        nwalk = float(np.mean(out.nwalk_trace[-out.n_measured:]))
+        log(f"phase 7a hubbardk walk {name}: tau={cfg.tau:g} "
+            f"measured_gens={out.n_measured} gen_per_s={out.steps_per_sec:.3f} "
+            f"occupied_det_walker_steps_per_s={nwalk * out.steps_per_sec:.6g} "
+            f"pop={pop:.1f} nwalk={nwalk:.1f} e_mixed={out.e_mixed:.9f} +- "
+            f"{out.e_err:.9f} vs_e_var_plus_pt_mHa={1e3 * dev_:.4f} "
+            f"gate_mHa={1e3 * gate:.4f} seg_scan_launches={c['seg_scan']} "
+            f"spmv_launches={c['spmv']} seconds={time.time() - t0:.1f} [{smi}]")
+        if c["seg_scan"] <= 0:
+            raise AssertionError(f"7a {name}: the walk never launched K1")
+    return e_tot
+
+
+def _best_open_det(guide, norb, nup, ndn, dev):
+    """The det without double occupancy on which |psi_g| is largest: the
+    up and dn Slater parts are evaluated once per spin string."""
+    import itertools
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.guiding import _batched_det
+    strings = {k: np.array(list(itertools.combinations(range(norb), k)))
+               for k in {nup, ndn}}
+    su, sd = strings[nup], strings[ndn]
+    du = _batched_det(guide.phi_up[torch.as_tensor(su, device=dev)]).abs()
+    dd = _batched_det(guide.phi_dn[torch.as_tensor(sd, device=dev)]).abs()
+    mu = torch.zeros((len(su), norb), device=dev)
+    mu.scatter_(1, torch.as_tensor(su, device=dev), 1.0)
+    md = torch.zeros((len(sd), norb), device=dev)
+    md.scatter_(1, torch.as_tensor(sd, device=dev), 1.0)
+    amp = du[:, None] * dd[None, :] * ((mu @ md.T) == 0)
+    k = int(torch.argmax(amp))
+    iu, idn = divmod(k, len(sd))
+    return (dets.det_from_orbs(su[iu].tolist(), norb),
+            dets.det_from_orbs(sd[idn].tolist(), norb), float(amp.max()))
+
+
+def phase_hubbard_real(dev, e0, smi):
+    """7b: fixed_node1 with Gutzwiller importance sampling on the 4x4
+    real-space cluster in f64 state (K2 on the fixed-node matrix each
+    generation), held to the variational bound against 7a's energy."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.guiding import make_gutzwiller_guiding
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import (WalkConfig, build_walk_tables,
+                                          run_walk)
+    from sqmc_tpu_torch.ops import spmv as S
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_real_system
+
+    t0 = time.time()
+    l_x, l_y, t_hop, U, nup, ndn = HUB
+    system = make_hubbard_real_system(l_x, l_y, t_hop, U, nup, ndn, pbc=True,
+                                      device=dev)
+    norb = system.norb
+    pot = 0.3 * np.random.default_rng(4).normal(size=norb)
+    _, phi = np.linalg.eigh(system.table.h.cpu().numpy() + np.diag(pot))
+    guide = make_gutzwiller_guiding(system, g=HUB2_G, phi_up=phi[:, :nup],
+                                    phi_dn=phi[:, :ndn])
+    system.hf_up, system.hf_dn, amp = _best_open_det(guide, norb, nup, ndn, dev)
+    trial = build_trial_wavefunction(system, eps_var=HUB2_EPS, n_psi_t=2000,
+                                     n_imp=4000)
+    torch.cuda.synchronize()
+    log(f"phase 7b hubbard2 setup: start_det_psi_g={amp:.3e} "
+        f"n_imp={len(trial.imp_up)} n_ct={len(trial.ct_up)} "
+        f"e_trial={trial.e_trial:.6f} seconds={time.time() - t0:.2f}")
+    if not 1000 <= len(trial.imp_up) <= 10_000:
+        raise AssertionError("7b: the D space is not a few thousand dets")
+
+    kw = dict(mwalk=458_752, cap_spawn=262_144, norb=norb, nup=nup, ndn=ndn,
+              n_words=1, w_abs_target=HUB2_W, tau=HUB2_TAU_MAX, min_wt=0.5,
+              r_initiator=0.0, has_singles=True, run_type="fixed_node1",
+              guiding="gutzwiller")
+    rng = np.random.default_rng(14)
+    for f32, rtol in ((True, 1e-5), (False, 1e-13)):
+        tab = build_walk_tables(system, trial, WalkConfig(
+            f32_state=f32, dense_proj_max=0, **kw), guide=guide)
+        n = len(trial.imp_up)
+        A = torch.zeros((n, n), dtype=torch.float64, device=dev)
+        A[tab.imp_rows, tab.imp_cols] = tab.imp_vals.double()
+        asym = float((A - A.T).abs().max())
+        x = torch.as_tensor(rng.standard_normal(n), device=dev).to(
+            tab.imp_ell_vals.dtype)
+        args = (tab.imp_ell_cols, tab.imp_ell_vals, tab.imp_ell_ptr,
+                tab.imp_ell_nnz)
+        got = S.spmv(x, *args)
+        torch.cuda.synchronize()
+        ref = S.spmv_plain(x, *args)
+        bound = S.spmv_plain(x.abs().double(), args[0], args[1].abs().double(),
+                             *args[2:])
+        err = (got.double() - ref.double()).abs()
+        off = A - torch.diag(torch.diagonal(A))
+        log(f"phase 7b spmv on the fixed-node matrix: rows={n} nnz="
+            f"{int(tab.imp_ell_nnz.sum())} "
+            f"{str(x.dtype).split('.')[-1]} m=1 match max_abs_err="
+            f"{float(err.max()):.3e} max_asymmetry={asym:.3e} "
+            f"empty_rows={int((tab.imp_ell_nnz == 0).sum())} "
+            f"max_offdiag={float(off.max()):.3e}")
+        if bool((err > rtol * bound).any()) or asym < 1e-6 \
+                or float(off.max()) > 1e-12:
+            raise AssertionError("K2 disagrees with its plain version on the "
+                                 "fixed-node matrix (or the matrix is not "
+                                 "the fixed-node one)")
+        del A, off
+
+    # 1 + tau (E_T - H_fn,ii) must stay above -1 on every D det
+    top = float(tab.imp_diag.max()) - trial.e_trial
+    cfg = WalkConfig(f32_state=False, **dict(kw, tau=min(HUB2_TAU_MAX,
+                                                         1.0 / top)))
+    log(f"phase 7b stability: largest_fixed_node_diagonal_above_e_trial="
+        f"{top:.3e} tau={cfg.tau:.3e}")
+    t0 = time.time()
+    out, c = _counted(lambda: run_walk(
+        system, trial, cfg, nstep=100, nblk=4, nblk_eq=4,
+        w_abs_begin=HUB2_W, e_trial_initial=trial.e_trial,
+        verbose=False, max_eq_extensions=1, seed=1, guide=guide))
+    torch.cuda.synchronize()
+    pop, dev_, _ = _gate_walk("7b fixed_node1", out, HUB2_W, e0, 0.0,
+                              lower_bound_only=True)
+    nwalk = float(np.mean(out.nwalk_trace[-out.n_measured:]))
+    log(f"phase 7b hubbard2 fixed_node1 walk: tau={cfg.tau:g} g={HUB2_G} "
+        f"measured_gens={out.n_measured} gen_per_s={out.steps_per_sec:.3f} "
+        f"occupied_det_walker_steps_per_s={nwalk * out.steps_per_sec:.6g} "
+        f"pop={pop:.1f} nwalk={nwalk:.1f} e_mixed={out.e_mixed:.6f} +- "
+        f"{out.e_err:.6f} above_e0={dev_:.6f} seg_scan_launches="
+        f"{c['seg_scan']} spmv_launches={c['spmv']} "
+        f"seconds={time.time() - t0:.1f} [{smi}]")
+    if c["seg_scan"] <= 0 or c["spmv"] <= 0:
+        raise AssertionError("7b: the walk did not run both kernels")
+
+
+def _dense_space(system, dev):
+    """Every det of a small system's (nup, ndn) space, the dense H on it."""
+    import itertools
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    norb, nup, ndn = system.norb, system.nup, system.ndn
+    cu = [dets.det_from_orbs(c, norb) for c in itertools.combinations(range(norb), nup)]
+    cd = [dets.det_from_orbs(c, norb) for c in itertools.combinations(range(norb), ndn)]
+    up = torch.as_tensor(np.repeat(np.stack(cu), len(cd), axis=0), device=dev)
+    dn = torch.as_tensor(np.tile(np.stack(cd), (len(cu), 1)), device=dev)
+    sp = build_sparse_ham(system.table, up, dn, nup, ndn, norb)
+    n = len(up)
+    H = np.zeros((n, n))
+    H[sp.rows.cpu().numpy(), sp.cols.cpu().numpy()] = sp.vals.cpu().numpy()
+    return up, dn, H + H.T + np.diag(sp.diag.cpu().numpy())
+
+
+def _fn_mixed_oracle(H, g, vec, eps):
+    """Mixed energy <psi_T|H|phi> / <psi_T|phi> of the ground state phi of
+    the exact fixed-node(eps) effective Hamiltonian: violating transformed
+    elements Ht_ij = g_i H_ij / g_j > 0 scaled by 1 - eps, eps times their
+    column sums on the diagonal."""
+    import numpy as np
+    ht = H * (g[:, None] / g[None, :])
+    viol = ~np.eye(len(H), dtype=bool) & (ht > 0)
+    hfn = np.where(viol, (1 - eps) * H, H)
+    np.fill_diagonal(hfn, np.diag(H) + eps * np.where(viol, ht, 0.0).sum(axis=0))
+    w, v = np.linalg.eig(hfn)
+    phi = v[:, np.argmin(w.real)].real
+    return float((vec @ H @ phi) / (vec @ phi)), int(viol.sum())
+
+
+def phase_fixed_node_oracles(dev, workdir):
+    """7c, first part: guided walks on enumerable lattices against the
+    dense fixed-node oracle, within 6 max(sigma, 1e-4) + 1e-3; the chain
+    also as a fixed_node1 deck through the CLI (Gutzwiller guiding set up
+    from the wf_type and g cards), within max(6 sigma, 5e-3) of e0."""
+    import re
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.guiding import eval_guiding, make_gutzwiller_guiding
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.ops import setalg
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_real_system
+
+    cases = (("chain_1x8", (1, 8), 0.0,
+              (("none", {}, None), ("fixed_node1", {}, 1.0))),
+             ("lattice_2x3", (2, 3), 0.3,
+              (("fixed_node1", {}, 1.0),
+               ("partial_node", dict(partial_node_eps=0.6), 0.6),
+               ("release_node", dict(release_step=150), None))))
+    for name, (l_x, l_y), pot_size, runs in cases:
+        s = make_hubbard_real_system(l_x, l_y, 1.0, 4.0, 2, 2, pbc=False,
+                                     device=dev)
+        pot = pot_size * np.random.default_rng(4).normal(size=s.norb)
+        _, phi = np.linalg.eigh(s.table.h.cpu().numpy() + np.diag(pot))
+        guide = make_gutzwiller_guiding(s, g=0.7, phi_up=phi[:, :2],
+                                        phi_dn=phi[:, :2])
+        up, dn, H = _dense_space(s, dev)
+        g = eval_guiding(guide, "gutzwiller", up, dn, s.norb, 2, 2).cpu().numpy()
+        e0 = float(np.linalg.eigvalsh(H)[0])
+        trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=40, n_imp=1)
+        order = setalg.lexsort_dets(up, dn)
+        pos = setalg.search_dets(up[order], dn[order], trial.psit_up,
+                                 trial.psit_dn)
+        vec = np.zeros(len(up))
+        vec[order[pos].cpu().numpy()] = trial.psit_coef.cpu().numpy()
+        if name == "chain_1x8":
+            text, sec, c = _run_cli("7c_hubbard2_fixed_node", HUB2_FN_DECK,
+                                    workdir)
+            for k in c:
+                COUNTS7[k] += c[k]
+            e_cli, err_cli = map(float, re.search(
+                r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text).groups())
+            log(f"phase 7c chain_1x8 fixed_node1 cli: e0={e0:.6f} "
+                f"e_mixed={e_cli:.6f} +- {err_cli:.6f} seconds={sec:.2f}")
+            if "trial_wf_type=gutz" not in text or c["seg_scan"] <= 0 \
+                    or not abs(e_cli - e0) < max(6 * err_cli, 5e-3):
+                raise AssertionError("7c: the hubbard2 fixed_node1 deck "
+                                     "missed the chain's e0")
+        for run_type, opts, eps in runs:
+            target, nviol = (e0, _fn_mixed_oracle(H, g, vec, 1.0)[1]) \
+                if eps is None else _fn_mixed_oracle(H, g, vec, eps)
+            cfg = WalkConfig(mwalk=4096, cap_spawn=8192, cap_fresh=2048,
+                             norb=s.norb, nup=2, ndn=2, n_words=1, tau=2e-2,
+                             w_abs_target=2000.0, has_singles=True,
+                             r_initiator=0.0, run_type=run_type,
+                             guiding="gutzwiller", **opts)
+            t0 = time.time()
+            out, c = _counted(lambda: run_walk(
+                s, trial, cfg, nstep=100, nblk=4, nblk_eq=3,
+                w_abs_begin=1500.0, e_trial_initial=target, verbose=False,
+                guide=guide, seed=2))
+            gate = 6 * max(out.e_err, 1e-4) + 1e-3
+            log(f"phase 7c {name} {run_type}: dets={len(up)} violators={nviol} "
+                f"e0={e0:.6f} oracle={target:.6f} e_mixed={out.e_mixed:.6f} "
+                f"+- {out.e_err:.6f} gate={gate:.6f} seg_scan_launches="
+                f"{c['seg_scan']} seconds={time.time() - t0:.1f}")
+            if not abs(out.e_mixed - target) < gate or out.capacity_grows:
+                raise AssertionError(f"7c {name} {run_type} missed its oracle")
+
+
+def phase_ct_and_proposal_oracles(dev, heg14, heg14_trial):
+    """7c, second part: the CT projector in its three modes and the
+    Cauchy-Schwarz proposal against FCI on small systems; the uniform
+    proposal on HEG-14 at reduced depth against phase 3's oracle."""
+    import numpy as np
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.systems.base import make_system_from_arrays
+    from sqmc_tpu_torch.systems.chem.integrals import n_eri
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
+
+    rng = np.random.default_rng(3)
+    h = rng.normal(size=(5, 5)) * 0.3
+    h = 0.5 * (h + h.T) + np.diag(np.arange(5) * 1.0)
+    chem5 = make_system_from_arrays(h, rng.normal(size=n_eri(5)) * 0.1, 0.0,
+                                    2, 2, name="toy", device=dev)
+    rng = np.random.default_rng(5)
+    h4 = rng.normal(size=(4, 4)) * 0.3
+    chem4 = make_system_from_arrays(
+        0.5 * (h4 + h4.T) + np.diag(np.arange(4) * 1.0),
+        rng.normal(size=n_eri(4)) * 0.1, 0.0, 2, 2, device=dev)
+    exact = dict(eps_var=1e-9, eps_var_sched=[1e-9] * 30, max_iters=60,
+                 verbose=False)
+    small = (
+        ("ct hubbardk 2x2", make_hubbard_k_system(2, 2, 1.0, 4.0, 2, 2, device=dev),
+         1e-6, 36, dict(tau=0.05, semistochastic=False,
+                        use_exponential_projector=True), 1e-4, 50),
+        ("ct heg-4", make_heg_system(3, 1.0, 4, 2, 1.6, device=dev),
+         1e-4, 30, dict(tau=0.02, semistochastic=False,
+                        use_exponential_projector=True, ct_mode="heg"), 2e-4, 50),
+        ("ct generic chem-5", chem5, 1e-6, 30,
+         dict(tau=0.05, semistochastic=False, use_exponential_projector=True,
+              ct_mode="generic"), 2e-4, 50),
+        ("cauchy_schwarz chem-4", chem4, 1e-4, 10,
+         dict(tau=2e-3, proposal="cauchy_schwarz"), 1e-4, 100))
+    for name, s, eps, n_psi_t, kw, floor, nstep in small:
+        e0 = float(run_hci(s, **exact).energies[0])
+        trial = build_trial_wavefunction(s, eps_var=eps, n_psi_t=n_psi_t, n_imp=1)
+        cfg = WalkConfig(mwalk=2048, cap_spawn=8192, cap_fresh=2048,
+                         norb=s.norb, nup=2, ndn=2, n_words=1,
+                         w_abs_target=2000.0, has_singles=s.has_singles,
+                         r_initiator=0.0, **kw)
+        t0 = time.time()
+        out, c = _counted(lambda: run_walk(
+            s, trial, cfg, nstep=nstep, nblk=5, nblk_eq=2, w_abs_begin=1500.0,
+            e_trial_initial=e0, verbose=False, max_eq_extensions=0, seed=1))
+        gate = 6 * max(out.e_err, 5e-6) + floor
+        log(f"phase 7c {name}: tau={cfg.tau:g} e0={e0:.9f} "
+            f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} gate={gate:.3e} "
+            f"seg_scan_launches={c['seg_scan']} seconds={time.time() - t0:.1f}")
+        if not abs(out.e_mixed - e0) < gate or out.capacity_grows:
+            raise AssertionError(f"7c {name} missed FCI")
+
+    cfg = WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=heg14.norb,
+                     nup=heg14.nup, ndn=heg14.ndn, n_words=heg14.n_words,
+                     tau=2e-3, w_abs_target=W_TARGET, spawn_granularity=2.0,
+                     min_wt=0.5, r_initiator=0.5, f32_state=True,
+                     has_singles=False, proposal="uniform")
+    t0 = time.time()
+    out, c = _counted(lambda: run_walk(
+        heg14, heg14_trial, cfg, nstep=100, nblk=4, nblk_eq=4,
+        w_abs_begin=W_TARGET, e_trial_initial=heg14_trial.e_trial,
+        verbose=False, max_eq_extensions=1, seed=3))
+    pop, dev_, gate = _gate_walk("7c uniform heg-14", out, W_TARGET, ORACLE,
+                                 2e-3)
+    log(f"phase 7c uniform proposal heg-14: measured_gens={out.n_measured} "
+        f"gen_per_s={out.steps_per_sec:.3f} pop={pop:.1f} "
+        f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
+        f"bias_vs_oracle_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
+        f"seg_scan_launches={c['seg_scan']} seconds={time.time() - t0:.1f}")
+
+
+def phase_merge_and_checkpoint_oracles(dev, workdir):
+    """7c, third part, on HEG-4 with D = the whole space (every spawn is
+    discarded, so a generation does not depend on the random stream): the
+    sequential initiator rule and the two-level merge give the full-sort
+    group-max trace to 1e-10; then, on the stochastic walk, a state saved
+    after two blocks and loaded again continues exactly as the
+    uninterrupted run."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    from sqmc_tpu_torch.utils.checkpoint import load_walker_state
+
+    s = make_heg_system(3, 1.0, 4, 2, 1.6, device=dev)
+    res = run_hci(s, eps_var=1e-9, eps_var_sched=[1e-9] * 30, max_iters=60,
+                  verbose=False)
+    full = build_trial_wavefunction(s, eps_var=1e-9, n_psi_t=len(res.up),
+                                    n_imp=len(res.up))
+    kw = dict(mwalk=2048, cap_spawn=4096, cap_fresh=1024, norb=s.norb, nup=2,
+              ndn=2, n_words=1, tau=5e-3, w_abs_target=500.0,
+              has_singles=False)
+    keys = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk")
+    traces = {}
+    for name, opts in (("full_sort_group_max", {}),
+                       ("sequential", dict(initiator_rule="sequential")),
+                       ("two_level", dict(full_sort_merge=False, cap_new=512))):
+        cfg = TW.WalkConfig(**kw, **opts)
+        tab = TW.build_walk_tables(s, full, cfg)
+        st = TW.init_walk_state(cfg, full, 500.0, float(res.energies[0]), tab)
+        (st, stats), c = _counted(lambda: TW.walk_block(
+            st, tab, cfg, 10, torch.Generator(device=dev).manual_seed(0)))
+        traces[name] = torch.stack([stats[k] for k in keys]).cpu().numpy()
+        dev_ = np.abs(traces[name] / traces["full_sort_group_max"] - 1).max()
+        log(f"phase 7c deterministic limit {name}: gens=10 "
+            f"max_rel_dev_from_full_sort={dev_:.3e} "
+            f"seg_scan_launches={c['seg_scan']} spmv_launches={c['spmv']}")
+        if not dev_ < 1e-10:
+            raise AssertionError(f"7c: the {name} trace left the full-sort one")
+
+    trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=30, n_imp=10)
+    cfg = TW.WalkConfig(**dict(kw, r_initiator=0.0))
+    ck = os.path.join(workdir, "7c_walker_state")
+    run = dict(nstep=20, w_abs_begin=400.0, e_trial_initial=float(res.energies[0]),
+               verbose=False, max_eq_extensions=0)
+    (whole, part, rest), c = _counted(lambda: (
+        TW.run_walk(s, trial, cfg, nblk=2, nblk_eq=1, seed=11, **run),
+        TW.run_walk(s, trial, cfg, nblk=1, nblk_eq=1, seed=11,
+                    checkpoint_file=ck, **run),
+        TW.run_walk(s, trial, cfg, nblk=1, nblk_eq=0, seed=99,
+                    resume_state=load_walker_state(ck, cfg, device=dev), **run)))
+    same = (rest.e_blocks[0] == whole.e_blocks[1]
+            and torch.equal(rest.state.wt, whole.state.wt)
+            and torch.equal(rest.state.up, whole.state.up))
+    log(f"phase 7c checkpoint resume: block3_uninterrupted="
+        f"{whole.e_blocks[1]:.12f} block3_resumed={rest.e_blocks[0]:.12f} "
+        f"same_state={same} seg_scan_launches={c['seg_scan']}")
+    if not same:
+        raise AssertionError("7c: the resumed walk left the uninterrupted one")
+
+
+def phase_hubbard(dev, smi, heg14=None, heg14_trial=None):
+    """Phase 7: 7a, 7b, 7c; every path's kernel counts set to 0 just before
+    it and read just after, summed into COUNTS7."""
+    workdir = os.path.join(HERE, "build", "smoke_phase7")
+    os.makedirs(workdir, exist_ok=True)
+    for name in os.listdir(workdir):
+        os.remove(os.path.join(workdir, name))
+    t0 = time.time()
+    e0 = phase_hubbard_k(dev, workdir, smi)
+    t1 = time.time()
+    phase_hubbard_real(dev, e0, smi)
+    t2 = time.time()
+    phase_fixed_node_oracles(dev, workdir)
+    if heg14 is None:
+        from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+        from sqmc_tpu_torch.systems.heg.system import make_heg_system
+        heg14 = make_heg_system(*HEG, device=dev)
+        heg14_trial = build_trial_wavefunction(heg14, eps_var=EPS_VAR,
+                                               n_psi_t=2000, n_imp=20000)
+    phase_ct_and_proposal_oracles(dev, heg14, heg14_trial)
+    phase_merge_and_checkpoint_oracles(dev, workdir)
+    log(f"phase 7 launches: {COUNTS7}")
+    log(f"phase 7 stages: 7a={t1 - t0:.2f} 7b={t2 - t1:.2f} "
+        f"7c={time.time() - t2:.2f} seconds")
+
+
 def phase_build():
     """Both kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1087,6 +1673,10 @@ def main():
         f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
 
     phase_build()
+    if "--hubbard" in sys.argv[1:]:
+        phase_hubbard(dev, smi)
+        raise SystemExit("chip_smoke: --hubbard ran phases 0, 1 and 7 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     kernel_us = phase_kernel_rows()
@@ -1100,6 +1690,9 @@ def main():
     sp_launches = phase_shci(dev, system, res)
     phase_f64_walk(dev, system, trial)
     phase_cli(dev)
+    phase_hubbard(dev, smi, system, trial)
+    launches += COUNTS7["seg_scan"]
+    sp_launches += COUNTS7["spmv"]
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,

@@ -30,12 +30,18 @@ Randomness comes from one ``torch.Generator``; the port cannot follow the
 JAX package's random stream, so only the deterministic limit matches it
 value by value.
 
-Ported configuration: run_type "none", proposal "fast_heatbath", singles
-on or off, full-sort merge, "group_max" initiators, f32 or f64 state, the
-plain or the time-reversal symmetrized basis (``time_sym``, z = +1 or -1:
-walkers are representatives, spawns map to them with the sqrt2 norms and
-z signs, and the diagonal carries z <i|H|rev i>).  Every other
-WalkConfig option raises ValueError.
+Projectors and options (all of the JAX walk's on one device): the linear
+projector 1 + tau(E_T - H) with "fast_heatbath", "uniform" or
+"cauchy_schwarz" double proposals, or the continuous-time exponential
+projector (``use_exponential_projector``, modes "hubbardk", "heg",
+"generic"); importance sampling with a guiding wavefunction and the
+fixed-node family of run types (violating spawns flip, drop or redirect
+to the parent det; "sr" adds the Sorella comb); the C(T)-in-D estimator
+(``ct_in_d``); the full-sort or the two-level merge; "group_max" or
+"sequential" initiators; f32 or f64 state; the plain or the time-reversal
+symmetrized basis.  Sharding (``axis_name`` / ``n_dev``) and the JAX
+package's capacity workarounds (``cap_compact`` / ``cap_single``) are not
+part of the port and raise ValueError.
 """
 
 from __future__ import annotations
@@ -68,9 +74,7 @@ I64 = torch.int64
 
 @dataclasses.dataclass(frozen=True)
 class WalkConfig:
-    """Walk knobs, named as in sqmc_tpu.algo.walk.WalkConfig.  Options of
-    the JAX package that the port does not implement keep their defaults
-    here, and setting one raises ValueError."""
+    """Walk knobs, named and defaulted as in sqmc_tpu.algo.walk.WalkConfig."""
     mwalk: int                  # walker-list capacity (ref MWALK)
     cap_spawn: int              # spawn-slot capacity per step
     norb: int
@@ -88,41 +92,103 @@ class WalkConfig:
     reweight_factor_inv_max: float = 2.0
     semistochastic: bool = True
     has_singles: bool = True
+    # C(T)-in-D mixed estimator: two dots against the D-weight vector the
+    # projection already holds, evaluated on the step's INPUT state (the
+    # gather path's trace shifted by one generation).  Valid only when
+    # every C(T) det lies in D; build_walk_tables checks it.
+    ct_in_d: bool = False
+    # store the dense D-projection matrix in bfloat16 (half the resident
+    # table); products of bfloat16-rounded operands accumulate in float32
+    proj_bf16: bool = False
     spawn_granularity: float = 1.0
+    # double-excitation proposal (ref proposal_method card, do_walk.f90:289):
+    # 'fast_heatbath' (exact joint |H|; ref
+    # off_diagonal_move_chem_efficient_heatbath:5086), 'uniform' (orbitals
+    # uniform; ref off_diagonal_move_chem:4237), 'cauchy_schwarz' (separable
+    # sqrt((pr|pr)(qs|qs)) bound; ref off_diagonal_move_chem_cauchySchwarz:2530)
+    proposal: str = "fast_heatbath"
     c_t_initiator: bool = False
+    # annihilation: one stable sort of [mwalk + cap_spawn] rows (True), or
+    # the two-level merge: spawns onto resident dets merge by scatter, only
+    # new dets are sorted, and the two sorted lists interleave by rank
+    full_sort_merge: bool = True
+    cap_new: int = 0            # distinct new dets per step (0 = see cap_new_eff)
     cap_fresh: int = 0          # fresh-det buffer (0 = max(cap_spawn//8, 8192))
+    # "group_max": a merged group's initiator is the max over its rows;
+    # "sequential": the reference's order-dependent pairwise rule
+    # (do_walk.f90:5897-5950), a measurement mode (sequential_initiator_scan)
+    initiator_rule: str = "group_max"
     dense_proj_max: int = 16384
+    # accepted for configurations written for the JAX package: the port's
+    # C(T) lookup is a binary search either way
+    det_hash: bool = True
     f32_state: bool = False
+    # continuous-time exponential projector exp(-tau(H - E_T)) (ref
+    # use_exponential_projector card, move_uniform_exponential_projector
+    # do_walk.f90:3803): per child a chain of off-diagonal moves at
+    # exponentially sampled times, parents take the exact diagonal factor.
+    # Needs semistochastic=False.  Chains longer than ct_max_jumps moves
+    # are zeroed (P < 1e-9 at tau * rate <= 1).
+    use_exponential_projector: bool = False
+    ct_max_jumps: int = 12
+    # "hubbardk": uniform (e_up, e_dn, r), s by momentum conservation, unit
+    # jump factors; "heg": uniform electron pair + r, s by momentum
+    # conservation, factor -H_ij / (rate p(j|i)); "generic": uniform singles
+    # and doubles over all orbital cells with exact signed elements.
+    # "heg" / "generic" rates are ct_rate_mult * sum_j |H_hf,j|.
+    ct_mode: str = "hubbardk"
+    ct_rate_mult: float = 1.5
+    # projector variant (ref run_type dispatch do_walk.f90:38-50): 'none' /
+    # 'no_fixed_node' = exact signed projector; on the importance-
+    # transformed flow Ht_ij = (psi_g_i / psi_g_j) H_ij, sign-violating
+    # spawns redirect to the parent det (fixed_node1/4), flip sign
+    # (fixed_node2), are dropped (fixed_node3), redirect with probability
+    # partial_node_eps (partial_node; sr adds the Sorella comb), or redirect
+    # until step release_step (release_node)
+    run_type: str = "none"
+    partial_node_eps: float = 0.0
+    release_step: int = 0
+    sr_nwalk: int = 0           # sr comb size (0 = w_abs_target)
+    guiding: str = "none"       # 'none', 'gutzwiller' or 'table'
     # time-reversal symmetrized basis (ref hamiltonian_chem_time_sym,
     # chemistry.f90:1323), sector z = +1 or -1
     time_sym: bool = False
     z: int = 1
-    # --- not ported: must keep these values ---
-    proposal: str = "fast_heatbath"
-    full_sort_merge: bool = True
-    initiator_rule: str = "group_max"
-    run_type: str = "none"
-    guiding: str = "none"
-    use_exponential_projector: bool = False
+    # --- not part of the port: must keep these values ---
     axis_name: str | None = None
     n_dev: int = 1
-    ct_in_d: bool = False
     cap_compact: int = 0
     cap_single: int = 0
-    cap_new: int = 0
-    proj_bf16: bool = False
 
     def __post_init__(self):
-        fixed = dict(proposal="fast_heatbath", full_sort_merge=True,
-                     initiator_rule="group_max", run_type="none",
-                     guiding="none", use_exponential_projector=False,
-                     axis_name=None, n_dev=1, ct_in_d=False, cap_compact=0,
-                     cap_single=0, cap_new=0, proj_bf16=False)
-        for name, want in fixed.items():
+        for name, want, why in (
+                ("axis_name", None, "multi-GPU sharding is not ported yet"),
+                ("n_dev", 1, "multi-GPU sharding is not ported yet"),
+                ("cap_compact", 0, "a TPU capacity workaround with no effect "
+                                   "on results"),
+                ("cap_single", 0, "a TPU capacity workaround with no effect "
+                                  "on results")):
             if getattr(self, name) != want:
                 raise ValueError(
-                    f"WalkConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported to sqmc_tpu_torch (only {want!r})")
+                    f"WalkConfig.{name}={getattr(self, name)!r} is not part "
+                    f"of sqmc_tpu_torch ({why}; only {want!r})")
+        allowed = ("none", "no_fixed_node", "fixed_node1", "fixed_node2",
+                   "fixed_node3", "fixed_node4", "partial_node",
+                   "release_node", "sr")
+        if self.run_type not in allowed:
+            raise ValueError(f"unknown run_type {self.run_type!r}; one of "
+                             f"{allowed}")
+        if self.run_type not in ("none", "no_fixed_node") \
+                and self.guiding == "none":
+            raise ValueError(f"run_type {self.run_type!r} requires a "
+                             "guiding wavefunction (cfg.guiding)")
+        if self.guiding not in ("none", "gutzwiller", "table"):
+            raise ValueError(f"unknown guiding {self.guiding!r}")
+        if self.proposal not in ("fast_heatbath", "uniform",
+                                 "cauchy_schwarz"):
+            raise ValueError(f"unknown proposal {self.proposal!r}")
+        if self.initiator_rule not in ("group_max", "sequential"):
+            raise ValueError(f"unknown initiator_rule {self.initiator_rule!r}")
         if self.z not in (1, -1):
             raise ValueError(f"WalkConfig.z={self.z!r}: the time-symmetrized "
                              "sector is +1 or -1")
@@ -132,8 +198,21 @@ class WalkConfig:
         return self.nup + self.ndn
 
     @property
+    def npairs(self):
+        return ((self.nup * (self.nup - 1)) // 2
+                + (self.ndn * (self.ndn - 1)) // 2 + self.nup * self.ndn)
+
+    @property
+    def cap_new_eff(self):
+        return self.cap_new or max(self.cap_spawn // 4, 8192)
+
+    @property
     def cap_fresh_eff(self):
         return self.cap_fresh or max(self.cap_spawn // 8, 8192)
+
+    @property
+    def fixed_node(self):
+        return self.run_type not in ("none", "no_fixed_node")
 
 
 N_HIST_BINS = 40
@@ -176,7 +255,26 @@ class WalkTables(NamedTuple):
     imp_ell_ptr: torch.Tensor    # [n_imp + 1] i64 row pointers into the slots
     imp_ell_nnz: torch.Tensor    # [n_imp] i32 entries per row
     imp_diag: torch.Tensor       # [n_imp] f64
-    imp_dense: torch.Tensor      # [n_imp, n_imp] f32 off-diagonal, or [0, 0]
+    imp_dense: torch.Tensor      # [n_imp, n_imp] f32/bf16 off-diagonal, or [0, 0]
+    # the same matrix as a row-sorted, row-complete COO with the diagonal
+    # (after the guiding / fixed-node transform it is not symmetric)
+    imp_rows: torch.Tensor       # [nnz] i64
+    imp_cols: torch.Tensor       # [nnz] i64
+    imp_vals: torch.Tensor       # [nnz] f32/f64
+    # Cauchy-Schwarz bound c[p,r] = sqrt|(pr|pr)| with per-row alias tables
+    cs_c: torch.Tensor           # [norb, norb] f64
+    cs_rowsum: torch.Tensor      # [norb] f64
+    cs_aliasJ: torch.Tensor      # [norb, norb] i64
+    cs_aliasq: torch.Tensor      # [norb, norb] f64
+    # continuous-time projector: momentum-conservation target
+    # s = kmap3[(p*norb+q)*norb+r] (hubbardk: umklapp folded; heg: -1 outside
+    # the cutoff) and the total off-diagonal rate ([1] / 0 when unused)
+    kmap3: torch.Tensor          # [norb^3] i64, or [1]
+    ct_rate: torch.Tensor        # [] f64
+    # C(T)-in-D estimator vectors over the D dets ([0] = inactive)
+    ct_num_imp: torch.Tensor     # [n_imp] f64
+    ct_den_imp: torch.Tensor
+    guide: object                # guiding.Guiding (empty when guiding == 'none')
 
 
 class WalkState(NamedTuple):
@@ -201,6 +299,10 @@ class WalkState(NamedTuple):
     w_abs_gen: torch.Tensor
     overflow: torch.Tensor         # [] bool: capacity exceeded
     step: torch.Tensor             # [] i32
+    # the random generator's state at the end of the last block (uint8, on
+    # the host): run_walk sets it when it writes checkpoints, so a resumed
+    # walk draws what the uninterrupted one would have
+    rng_state: torch.Tensor | None = None
 
 
 def _fused_keys(cfg) -> bool:
@@ -266,15 +368,128 @@ def _row_sums(val, start, count):
     return out
 
 
-def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
+def _hf_offdiag_mass(system) -> float:
+    """sum_j |H_hf,j| over the HF det's connections: the scale of the CT
+    jump rate in the heg / generic modes.  Any rate > 0 is unbiased (the
+    per-jump factor divides by rate * p(j|i)); this one keeps the factors
+    O(1)."""
+    from .connect import generate_connections
+    dev = system.device
+    up = torch.as_tensor(np.atleast_2d(system.hf_up), device=dev)
+    dn = torch.as_tensor(np.atleast_2d(system.hf_dn), device=dev)
+    _, _, helem, _ = generate_connections(
+        system, up, dn, torch.zeros(1, dtype=F64, device=dev))
+    mass = float(helem.abs().sum())
+    if mass <= 0.0:
+        raise ValueError("HF det has no off-diagonal connections - "
+                         "cannot scale the CT jump rate")
+    return mass
+
+
+def _ct_tables(system, cfg):
+    """(kmap3, ct_rate) of the continuous-time projector for cfg.ct_mode,
+    after checking the mode against the system."""
+    norb = system.norb
+    sysname = system.name
+    if cfg.semistochastic:
+        raise ValueError(
+            "use_exponential_projector requires semistochastic=False "
+            "(ref skips the deterministic projection, do_walk.f90:2255)")
+    if cfg.fixed_node:
+        raise NotImplementedError(
+            "use_exponential_projector supports the plain signed "
+            "projector only")
+    if cfg.time_sym:
+        raise NotImplementedError(
+            "use_exponential_projector runs in the plain det basis "
+            "(no time-reversal symmetrization)")
+    mode = cfg.ct_mode
+    if mode == "hubbardk":
+        if sysname != "hubbardk":
+            raise NotImplementedError(
+                "ct_mode='hubbardk' needs a momentum-space Hubbard "
+                "system; set ct_mode='heg' or 'generic' for this one "
+                "(WalkConfig.ct_mode)")
+        if cfg.has_singles:
+            raise NotImplementedError(
+                "ct_mode='hubbardk' is the doubles-only uniform walk")
+        ex = system.extra
+        rel = np.asarray(ex["k_rel"], np.int64)
+        lx, ly = int(ex["l_x"]), int(ex["l_y"])
+        kmin = rel.min(axis=0)
+        # canonical half-step grid coordinates; umklapp = mod L (all k
+        # components share one parity, so the //2 is exact)
+        idx = np.full((lx, ly), -1, np.int64)
+        idx[((rel[:, 0] - kmin[0]) // 2) % lx,
+            ((rel[:, 1] - kmin[1]) // 2) % ly] = np.arange(norb)
+        ks = rel[:, None, None, :] + rel[None, :, None, :] \
+            - rel[None, None, :, :]
+        kmap3 = idx[((ks[..., 0] - kmin[0]) // 2) % lx,
+                    ((ks[..., 1] - kmin[1]) // 2) % ly].reshape(-1)
+        assert kmap3.min() >= 0
+        return kmap3, cfg.nup * cfg.ndn * (norb - cfg.nup) \
+            * abs(float(ex["U"])) / norb
+    if mode == "heg":
+        if sysname != "heg":
+            raise NotImplementedError(
+                "ct_mode='heg' needs the HEG system (momentum-"
+                "conserving doubles with analytic elements)")
+        if cfg.nup < 1 or cfg.ndn < 1 or cfg.nelec < 2:
+            raise ValueError("ct_mode='heg' needs >=1 electron of each spin")
+        # exact momentum map without periodic folding (no umklapp in the
+        # HEG): s with k_s = k_p + k_q - k_r, -1 outside the cutoff sphere
+        # (such proposals kill the chain)
+        rel = np.asarray(system.extra["k_rel"], np.int64)
+        lut = {tuple(v): i for i, v in enumerate(rel.tolist())}
+        ks = (rel[:, None, None, :] + rel[None, :, None, :]
+              - rel[None, None, :, :]).reshape(-1, rel.shape[1])
+        kmap3 = np.fromiter((lut.get(tuple(v), -1) for v in ks.tolist()),
+                            np.int64, count=len(ks))
+        return kmap3, cfg.ct_rate_mult * _hf_offdiag_mass(system)
+    if mode == "generic":
+        if sysname in ("hubbardk", "hubbard2", "hubbarddm"):
+            raise NotImplementedError(
+                "ct_mode='generic' covers det systems with chem-style "
+                "integral tables (chem/heg/toy); hubbardk has its own "
+                "mode and real-space Hubbard is unsupported")
+        if cfg.nup < 1 or cfg.ndn < 1 or cfg.nelec < 2:
+            raise ValueError("ct_mode='generic' needs >=1 electron of each "
+                             "spin")
+        return np.zeros(1, np.int64), \
+            cfg.ct_rate_mult * _hf_offdiag_mass(system)
+    raise ValueError(f"unknown ct_mode {mode!r}")
+
+
+def _guide_values(guide, cfg, up, dn):
+    """psi_g on a det list as numpy float64, zeros pushed to 1e-300."""
+    from .guiding import eval_guiding
+    g = eval_guiding(guide, cfg.guiding, up, dn, cfg.norb, cfg.nup,
+                     cfg.ndn).cpu().numpy()
+    return np.where(np.abs(g) < 1e-300, 1e-300, g)
+
+
+def build_walk_tables(system, trial, cfg: WalkConfig,
+                      guide=None) -> WalkTables:
     """Assemble the walk's device tables from a FermionSystem and a
-    TrialWavefunction, on the system's device."""
+    TrialWavefunction, on the system's device.
+
+    With a guiding wavefunction (cfg.guiding != 'none') the C(T) estimator
+    caches and the D-space projector are importance-transformed
+    (Ht_ij = psi_g_i / psi_g_j H_ij), and the projector also gets the exact
+    fixed-node treatment of cfg.run_type: violators zeroed (or flipped),
+    their column sums dumped on the diagonal (ref do_walk.f90:887-1012).
+    The transformed projector is not symmetric."""
+    from .guiding import empty_guiding
     full_fp32_matmul()
     if cfg.time_sym != system.time_sym or (cfg.time_sym
                                            and cfg.z != system.z):
         raise ValueError("WalkConfig time_sym / z must match the system's "
                          "(the trial's H is built in the system's basis)")
     dev = system.device
+    if cfg.guiding != "none" and guide is None:
+        raise ValueError(f"cfg.guiding={cfg.guiding!r} needs a guide")
+    if guide is None:
+        guide = empty_guiding(dev)
     hb = system.heatbath
     table = system.table
     norb = system.norb
@@ -287,6 +502,19 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
     o_rowsum = _row_sums(o_val, o_st, o_ct)
     s_J, s_q = _row_alias(s_val, s_st, s_ct)
     o_J, o_q = _row_alias(o_val, o_st, o_ct)
+
+    # Cauchy-Schwarz separable bound c[p,r] = sqrt|(pr|pr)| (ref
+    # off_diagonal_move_chem_cauchySchwarz:2530) with per-row alias tables
+    PP, RR = np.meshgrid(np.arange(norb), np.arange(norb), indexing="ij")
+    cs_c = np.sqrt(np.abs(table.eri_value_np(
+        PP.ravel(), RR.ravel(), PP.ravel(), RR.ravel()))).reshape(norb, norb)
+    np.fill_diagonal(cs_c, 0.0)
+    cs_rowsum = cs_c.sum(axis=1)
+    cs_J = np.zeros((norb, norb), np.int64)
+    cs_q = np.ones((norb, norb))
+    for p_ in range(norb):
+        if cs_rowsum[p_] > 0:
+            cs_J[p_], cs_q[p_] = setup_alias_np(cs_c[p_] / cs_rowsum[p_])
 
     # singles bound U[p,r] = |h_pr| + sum_q (|(pr|qq)| + |(pq|qr)|), zero
     # when symmetry-forbidden or p == r, with per-row alias tables
@@ -338,26 +566,92 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
     ro_dense = ro_dense + ro_dense.T - np.diag(np.diag(ro_dense))
     R2 = np.block([[rs_dense, ro_dense], [ro_dense.T, rs_dense]])
 
-    # projection matrix: diagonal split out, off-diagonal rows padded to
-    # 128-slot blocks (block-ELL, ops/spmv.py), or dense f32 for f32-state
-    # runs with n_imp <= dense_proj_max
+    # row-complete COO of H on D: the diagonal and both orientations of
+    # the stored upper triangle, stably sorted by row
     n_imp = len(trial.imp_up)
     H = trial.imp_ham
     fdt = np.float32 if cfg.f32_state else np.float64
-    imp_diag = np_(H.diag).astype(np.float64)
+    h_rows, h_cols = np_(H.rows), np_(H.cols)
+    r_all = np.concatenate([h_rows, h_cols, np.arange(n_imp)]).astype(np.int64)
+    c_all = np.concatenate([h_cols, h_rows, np.arange(n_imp)]).astype(np.int64)
+    v_all = np.concatenate([np_(H.vals), np_(H.vals), np_(H.diag)])
+    ord_r = np.argsort(r_all, kind="stable")
+    r_all, c_all, v_all = r_all[ord_r], c_all[ord_r], v_all[ord_r]
+
+    ct_num = np_(trial.ct_num).astype(np.float64)
+    ct_den = np_(trial.ct_den).astype(np.float64)
+    if cfg.guiding != "none":
+        # the walker carries f_i = psi_g_i Phi_i, so the estimator's
+        # per-det numerator and denominator divide by psi_g (ref
+        # energy_pieces under importance sampling)
+        g_ct = _guide_values(guide, cfg, trial.ct_up.to(dev),
+                             trial.ct_dn.to(dev))
+        ct_num = ct_num / g_ct
+        ct_den = ct_den / g_ct
+        if n_imp > 0:
+            g_imp = _guide_values(guide, cfg, trial.imp_up.to(dev),
+                                  trial.imp_dn.to(dev))
+            off = r_all != c_all
+            v_all = v_all * np.where(off, g_imp[r_all] / g_imp[c_all], 1.0)
+            if cfg.fixed_node:
+                # exact fixed-node effective H on D: sign-violating
+                # off-diagonals (Ht > 0) move to their column's diagonal
+                viol = off & (v_all > 0)
+                eps_fn = (cfg.partial_node_eps
+                          if cfg.run_type in ("partial_node", "sr") else 1.0)
+                dump = np.zeros(n_imp)
+                np.add.at(dump, c_all[viol], eps_fn * v_all[viol])
+                if cfg.run_type == "fixed_node2":
+                    v_all = np.where(viol, -v_all, v_all)
+                else:
+                    v_all = np.where(viol, (1.0 - eps_fn) * v_all, v_all)
+                    if cfg.run_type != "fixed_node3":
+                        v_all = v_all + dump[r_all] * ~off
+
+    # projection matrix: diagonal split out (the step uses the difference
+    # form), off-diagonal rows padded to 128-slot blocks (block-ELL,
+    # ops/spmv.py), or dense f32 for f32-state runs with n_imp <=
+    # dense_proj_max
+    dmask = r_all == c_all
+    imp_diag = np.zeros(n_imp)
+    np.add.at(imp_diag, r_all[dmask], v_all[dmask])
+    r_off, c_off, v_off = r_all[~dmask], c_all[~dmask], v_all[~dmask]
     use_dense = cfg.f32_state and 0 < n_imp <= cfg.dense_proj_max
     if use_dense:
-        rc = (torch.cat([H.rows, H.cols]).to(dev), torch.cat([H.cols, H.rows]).to(dev))
         imp_dense = torch.zeros((n_imp, n_imp), dtype=F32, device=dev)
-        imp_dense.index_put_(rc, torch.cat([H.vals, H.vals]).to(dev, F32),
-                             accumulate=True)
+        imp_dense.index_put_(
+            (torch.as_tensor(r_off, device=dev), torch.as_tensor(c_off, device=dev)),
+            torch.as_tensor(v_off.astype(np.float32), device=dev), accumulate=True)
+        if cfg.proj_bf16:
+            imp_dense = imp_dense.to(torch.bfloat16)
         ell_cols, ell_vals = np.zeros(0, np.int32), np.zeros(0, fdt)
         ell_ptr = np.zeros(n_imp + 1, np.int64)
         ell_nnz = np.zeros(n_imp, np.int32)
     else:
         imp_dense = torch.zeros((0, 0), dtype=F32, device=dev)
-        ell_cols, ell_vals, _, ell_ptr, ell_nnz = spmv.blockell_from_coo(
-            n_imp, H.rows, H.cols, H.vals, dtype=fdt)
+        ell_cols, ell_vals, _, ell_ptr, ell_nnz = spmv.blockell_from_full_coo(
+            n_imp, r_off, c_off, v_off, dtype=fdt)
+
+    kmap3, ct_rate = np.zeros(1, np.int64), 0.0
+    if cfg.use_exponential_projector:
+        kmap3, ct_rate = _ct_tables(system, cfg)
+
+    # C(T)-in-D estimator vectors: C(T)'s num / den scattered onto D
+    ct_num_imp = np.zeros(0)
+    ct_den_imp = np.zeros(0)
+    if (n_imp > 0 and cfg.semistochastic and cfg.ct_in_d
+            and len(trial.ct_up) > 0):
+        pos_ct = np_(setalg.search_dets(trial.imp_up, trial.imp_dn,
+                                        trial.ct_up, trial.ct_dn))
+        if not np.all(pos_ct >= 0):
+            raise ValueError(
+                "ct_in_d=True requires every C(T) det in the deterministic "
+                f"space: {int((pos_ct < 0).sum())}/{len(pos_ct)} outside D "
+                "(the estimator would silently drop their contributions)")
+        ct_num_imp = np.zeros(n_imp)
+        ct_den_imp = np.zeros(n_imp)
+        ct_num_imp[pos_ct] = ct_num
+        ct_den_imp[pos_ct] = ct_den
 
     t = lambda x, dt: torch.as_tensor(np.asarray(x).astype(dt), device=dev)  # noqa: E731
     ct_key = (flip(_fuse(trial.ct_up, trial.ct_dn)) if _fused_keys(cfg)
@@ -372,12 +666,21 @@ def build_walk_tables(system, trial, cfg: WalkConfig) -> WalkTables:
         u_alias_J=t(u_J.reshape(-1), np.int64),
         sng_pack=t(sng_pack, np.float32), table=table,
         ct_up=trial.ct_up.to(dev), ct_dn=trial.ct_dn.to(dev), ct_key=ct_key.to(dev),
-        ct_num=t(np_(trial.ct_num), fdt), ct_den=t(np_(trial.ct_den), fdt),
+        ct_num=t(ct_num, fdt), ct_den=t(ct_den, fdt),
         imp_up=trial.imp_up.to(dev), imp_dn=trial.imp_dn.to(dev),
         imp_ell_cols=t(ell_cols, np.int32), imp_ell_vals=t(ell_vals, fdt),
         imp_ell_ptr=t(ell_ptr, np.int64), imp_ell_nnz=t(ell_nnz, np.int32),
         imp_diag=t(imp_diag, np.float64),
-        imp_dense=imp_dense)
+        imp_dense=imp_dense,
+        imp_rows=t(r_all, np.int64), imp_cols=t(c_all, np.int64),
+        imp_vals=t(v_all, fdt),
+        cs_c=t(cs_c, np.float64), cs_rowsum=t(cs_rowsum, np.float64),
+        cs_aliasJ=t(cs_J, np.int64), cs_aliasq=t(cs_q, np.float64),
+        kmap3=t(kmap3, np.int64),
+        ct_rate=torch.tensor(float(ct_rate), dtype=F64, device=dev),
+        ct_num_imp=t(ct_num_imp, np.float64),
+        ct_den_imp=t(ct_den_imp, np.float64),
+        guide=guide)
 
 
 def _scalar(x, dtype, dev):
@@ -388,7 +691,8 @@ def init_walk_state(cfg: WalkConfig, trial, w_abs_begin: float,
                     e_trial_initial: float, tables: WalkTables) -> WalkState:
     """Initial population: Psi_T dets weighted by their coefficients and
     scaled to total |w| = w_abs_begin, plus every D det at weight 0
-    (ref: do_walk.f90:1129-1368)."""
+    (ref: do_walk.f90:1129-1368).  Under importance sampling the weights
+    are multiplied by psi_g (tables.guide)."""
     M, W = cfg.mwalk, cfg.n_words
     dev = tables.hb_rowsum.device
     sdt = F32 if cfg.f32_state else F64
@@ -397,6 +701,14 @@ def init_walk_state(cfg: WalkConfig, trial, w_abs_begin: float,
     coefs = torch.cat([trial.psit_coef.to(dev),
                        torch.zeros(len(trial.imp_up), dtype=F64, device=dev)])
     u, d, (c,), _ = setalg.unique_dets(all_up, all_dn, [coefs])
+    if cfg.guiding != "none":
+        # the walker carries f = psi_g * Phi, taken positive for fixed-node
+        # runs (ref do_walk.f90:1212-1217)
+        from .guiding import eval_guiding
+        c = eval_guiding(tables.guide, cfg.guiding, u, d, cfg.norb, cfg.nup,
+                         cfg.ndn) * c
+        if cfg.fixed_node:
+            c = c.abs()
     n0 = len(u)
     if n0 > M:
         raise ValueError(f"mwalk={M} is smaller than the {n0} initial dets")
@@ -467,10 +779,16 @@ def _search_ct(tables: WalkTables, cfg, q_up, q_dn) -> torch.Tensor:
     return setalg.search_dets(tables.ct_up, tables.ct_dn, q_up, q_dn)
 
 
+def _ct_free(tables: WalkTables) -> bool:
+    """True when the C(T)-in-D estimator is active: the per-walker C(T)
+    index is then never read, and fresh dets skip its search."""
+    return tables.ct_num_imp.numel() > 0
+
+
 def _fill_fresh(cfg, tables, up, dn, diag, ct, need):
-    """Diagonal elements and C(T) indices for the rows flagged in `need`,
-    through a cap_fresh-sized compaction buffer.  Returns (diag, ct,
-    overflow)."""
+    """Diagonal elements and (unless the C(T)-in-D estimator is active)
+    C(T) indices for the rows flagged in `need`, through a cap_fresh-sized
+    compaction buffer.  Returns (diag, ct, overflow)."""
     M = up.shape[0]
     F = cfg.cap_fresh_eff
     overflow = need.sum() > F
@@ -479,7 +797,8 @@ def _fill_fresh(cfg, tables, up, dn, diag, ct, need):
     f_up, f_dn = up[fi], dn[fi]
     f_diag = _walk_diag(cfg, tables.table, f_up, f_dn, dtype=diag.dtype)
     diag = _set_drop(diag, fidx, f_diag.to(diag.dtype))
-    ct = _set_drop(ct, fidx, _search_ct(tables, cfg, f_up, f_dn))
+    if not _ct_free(tables):
+        ct = _set_drop(ct, fidx, _search_ct(tables, cfg, f_up, f_dn))
     return diag, ct, overflow
 
 
@@ -489,7 +808,9 @@ def repair_caches(state: WalkState, tables: WalkTables, cfg) -> WalkState:
     so this only acts on states assembled elsewhere (it reads one flag
     from the device, once per block)."""
     alive = torch.arange(cfg.mwalk, device=state.wt.device) < state.nwalk
-    need = alive & ((state.diag > DIAG_UNKNOWN_THRESHOLD) | (state.ct == -2))
+    need = alive & (state.diag > DIAG_UNKNOWN_THRESHOLD)
+    if not _ct_free(tables):
+        need = need | (alive & (state.ct == -2))
     if not bool(need.any()):
         return state
     diag, ct, ovf = _fill_fresh(cfg, tables, state.up, state.dn, state.diag,
@@ -514,6 +835,414 @@ def _sign(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n % 2 == 0, 1.0, -1.0).to(F64)
 
 
+def _in_window(x, a_pos, b_pos):
+    return ((x >= torch.minimum(a_pos, b_pos))
+            & (x < torch.maximum(a_pos, b_pos))).to(I32)
+
+
+def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
+    """Continuous-time off-diagonal chains of the exponential projector
+    (ref: move_uniform_exponential_projector do_walk.f90:3803, the
+    deterministic_diagonal variant; the heg / generic modes go beyond the
+    reference, whose rate bound and diagonals are hubbardk-hardwired).
+
+    Per spawn slot, starting at its parent det (up_w, dn_w): jump times
+    are drawn from the exponential distribution at total rate
+    ``tables.ct_rate`` (the first one wrapped mod tau: the conditioning
+    factor 1 - exp(-tau rate) is already in the child weight) and proposal
+    moves are chained until the time tau.  A segment of length dt at det i
+    contributes exp(dt (E_T - H_ii + rate)) (the +rate cancels the
+    sampling density); a jump to det j proposed with probability p(j|i)
+    contributes -H_ij / (rate p(j|i)) (thinning: exact in expectation for
+    any rate > 0 and any proposal that covers the connected space).
+    hubbardk mode: uniform (e_up, e_dn, r) with s by momentum conservation,
+    where |H_ij| = U/N everywhere and the factor is -sign(H_ij).  Invalid
+    proposals zero the chain: variance, never bias.  cfg.ct_max_jumps
+    vectorized moves run over all slots; a chain still running after them
+    is zeroed.
+
+    Returns (up [S, W], dn [S, W], f [S] f64 chain factor, ok [S] bool)."""
+    S = up_w.shape[0]
+    dev = up_w.device
+    norb, nup, ndn = cfg.norb, cfg.nup, cfg.ndn
+    rate = tables.ct_rate
+    cu, cd = up_w, dn_w
+    one = torch.ones((), dtype=F64, device=dev)
+    zero = torch.zeros((), dtype=F64, device=dev)
+    f = torch.where(slot_valid, one, zero)
+    t = torch.zeros(S, dtype=F64, device=dev)
+    done = ~slot_valid
+    sl = torch.arange(S, device=dev)
+    for i in range(cfg.ct_max_jumps):
+        u6 = torch.rand((6, S), dtype=F64, device=dev, generator=gen)
+        t_inc = -torch.log(u6[0].clamp(min=TINY)) / rate
+        if i == 0:
+            t_inc = torch.remainder(t_inc, tau)     # conditioned on >= 1 jump
+        t_new = t + t_inc
+        cross = t_new > tau
+        bits_cu = dets.to_bits(cu, norb)
+        bits_cd = dets.to_bits(cd, norb)
+        diag_cur = slater.diag_elements(tables.table, bits_cu, bits_cd)
+        seg = torch.where(cross, tau - t, t_inc)
+        seg_f = torch.exp(seg * (e_trial - diag_cur + rate))
+        if cfg.ct_mode == "hubbardk":
+            occ_u = dets.occ_orbitals(bits_cu, nup)
+            occ_d = dets.occ_orbitals(bits_cd, ndn)
+            unocc_u = dets.occ_orbitals(1 - bits_cu, norb - nup)
+            p = occ_u[sl, (u6[1] * nup).to(I64).clamp(max=nup - 1)]
+            q = occ_d[sl, (u6[2] * ndn).to(I64).clamp(max=ndn - 1)]
+            r = unocc_u[sl, (u6[3] * (norb - nup)).to(I64).clamp(
+                max=norb - nup - 1)]
+            s_ = tables.kmap3[(p * norb + q) * norb + r]
+            s_occ = dets.get_orb(cd, s_)
+            cu_cnt = dets.count_below(cu, p, r) - _in_window(p, p, r)
+            cd_cnt = dets.count_below(cd, q, s_) - _in_window(q, q, s_)
+            jump_f = torch.where(s_occ, zero, -_sign(cu_cnt + cd_cnt))
+            nxt_up = dets.set_orb(dets.clear_orb(cu, p), r)
+            nxt_dn = dets.set_orb(dets.clear_orb(cd, q), s_)
+        else:
+            jump_f, nxt_up, nxt_dn = _ct_jump_move(
+                cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl)
+        act = ~done
+        dead = jump_f == 0.0
+        f = torch.where(act, f * seg_f * torch.where(cross, one, jump_f), f)
+        jumped = act & ~cross & ~dead
+        cu = torch.where(jumped[:, None], nxt_up, cu)
+        cd = torch.where(jumped[:, None], nxt_dn, cd)
+        t = torch.where(act, t_new, t)
+        done = done | (act & (cross | dead))
+    f = torch.where(done, f, zero)
+    return cu, cd, f, slot_valid & (f != 0.0)
+
+
+def _ct_jump_move(cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl):
+    """One proposed CT jump of the heg / generic modes (see _ct_chain).
+
+    With probability Ps (generic with singles only; Ps = n_s / (n_s + n_d)
+    over the uniform cell counts) a single excitation: electron uniform
+    over ne, target orbital uniform over norb.  Otherwise a double:
+    ordered electron pair (e1 uniform over ne, e2 over the rest), target r
+    for e1's spin uniform over norb, s for e2's spin from momentum
+    conservation (heg: tables.kmap3, -1 = outside the cutoff) or uniform
+    (generic).  p(j|i) counts every ordering that reaches j: same-spin
+    doubles 4, mixed doubles 2, singles 1.  Returns the factor
+    -H_ij / (rate p(j|i)) with the exact signed element, 0 for invalid or
+    forbidden proposals, and the target det."""
+    norb, nup, ndn = cfg.norb, cfg.nup, cfg.ndn
+    ne = nup + ndn
+    rate = tables.ct_rate
+    heg_mode = cfg.ct_mode == "heg"
+    dev = cu.device
+    zero = torch.zeros((), dtype=F64, device=dev)
+    occ_u = dets.occ_orbitals(bits_cu, nup)
+    occ_d = dets.occ_orbitals(bits_cd, ndn)
+
+    n_pairs_ord = ne * (ne - 1)
+    if cfg.has_singles and not heg_mode:
+        n_s_cells = ne * norb
+        n_d_cells = (n_pairs_ord // 2) * norb * norb
+        p_single = n_s_cells / (n_s_cells + n_d_cells)
+    else:
+        p_single = 0.0
+
+    # electron draws over the fused list: up 0..nup-1, dn nup..ne-1
+    e1 = (u6[2] * ne).to(I64).clamp(max=ne - 1)
+    e2r = (u6[3] * (ne - 1)).to(I64).clamp(max=ne - 2)
+    e2 = e2r + (e2r >= e1).to(I64)
+    up1 = e1 < nup
+    up2 = e2 < nup
+    orb1 = torch.where(up1, occ_u[sl, e1.clamp(0, nup - 1)],
+                       occ_d[sl, (e1 - nup).clamp(0, ndn - 1)])
+    orb2 = torch.where(up2, occ_u[sl, e2.clamp(0, nup - 1)],
+                       occ_d[sl, (e2 - nup).clamp(0, ndn - 1)])
+    r = (u6[4] * norb).to(I64).clamp(max=norb - 1)
+    if heg_mode:
+        s_ = tables.kmap3[(orb1 * norb + orb2) * norb + r]
+        s_ok = s_ >= 0
+        s_c = s_.clamp(0, norb - 1)
+    else:
+        s_c = (u6[5] * norb).to(I64).clamp(max=norb - 1)
+        s_ok = torch.ones_like(up1)
+
+    same_spin = up1 == up2
+    occ_r = torch.where(up1, dets.get_orb(cu, r), dets.get_orb(cd, r))
+    occ_s = torch.where(up2, dets.get_orb(cu, s_c), dets.get_orb(cd, s_c))
+    dbl_ok = s_ok & ~occ_r & ~occ_s & ~(same_spin & (r == s_c))
+
+    # exact signed double element
+    pl, ph = torch.minimum(orb1, orb2), torch.maximum(orb1, orb2)
+    rl, rh = torch.minimum(r, s_c), torch.maximum(r, s_c)
+    bits_same = torch.where(up1[:, None], bits_cu, bits_cd)
+    h_same = slater.double_same_spin(tables.table, bits_same, pl, ph, rl, rh)
+    p_up = torch.where(up1, orb1, orb2)
+    q_dn = torch.where(up1, orb2, orb1)
+    r_up = torch.where(up1, r, s_c)
+    s_dn = torch.where(up1, s_c, r)
+    h_mix = slater.double_opposite_spin(tables.table, bits_cu, bits_cd,
+                                        p_up, r_up, q_dn, s_dn)
+    h_dbl = torch.where(same_spin, h_same, h_mix)
+    ways = torch.where(same_spin, 4.0, 2.0).to(F64) / n_pairs_ord
+    if heg_mode:
+        p_dbl = ways / norb
+    else:
+        p_dbl = (1.0 - p_single) * ways / (norb * norb)
+    f_dbl = torch.where(dbl_ok, -h_dbl / (rate * p_dbl), zero)
+    du = torch.where(up1[:, None], dets.set_orb(dets.clear_orb(cu, orb1), r), cu)
+    du = torch.where(up2[:, None], dets.set_orb(dets.clear_orb(du, orb2), s_c), du)
+    dd = torch.where(~up1[:, None], dets.set_orb(dets.clear_orb(cd, orb1), r), cd)
+    dd = torch.where(~up2[:, None], dets.set_orb(dets.clear_orb(dd, orb2), s_c), dd)
+    if p_single <= 0.0:
+        return f_dbl, du, dd
+
+    # single: electron e1 -> r
+    take_single = u6[1] < p_single
+    bits_other = torch.where(up1[:, None], bits_cd, bits_cu)
+    h_sng = slater.single_element(tables.table, bits_same, bits_other, orb1, r)
+    p_sng = p_single / (ne * norb)
+    f_sng = torch.where(~occ_r, -h_sng / (rate * p_sng), zero)
+    su = torch.where(up1[:, None], dets.set_orb(dets.clear_orb(cu, orb1), r), cu)
+    sd = torch.where(~up1[:, None], dets.set_orb(dets.clear_orb(cd, orb1), r), cd)
+    return (torch.where(take_single, f_sng, f_dbl),
+            torch.where(take_single[:, None], su, du),
+            torch.where(take_single[:, None], sd, dd))
+
+
+def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
+    """One proposed excitation per spawn slot for the linear projector:
+    a double from cfg.proposal or (chem) a single, with the spawn-weight
+    factor -tau H / p(proposal).  `streams` = (ub, up_, ue, ua2, ur), five
+    [CAP] uniform streams.  Returns (spawn_up, spawn_dn, factor, ok)."""
+    CAP, norb = up_w.shape[0], cfg.norb
+    nup, ndn = cfg.nup, cfg.ndn
+    dev = up_w.device
+    ub, up_, ue, ua2, ur = streams
+    bits_up_c = dets.to_bits(up_w, norb)
+    bits_dn_c = dets.to_bits(dn_w, norb)
+    n2 = 2 * norb
+    ntri_s = norb * (norb - 1) // 2
+    bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)     # [CAP, 2n]
+    zero64 = torch.zeros((), dtype=F64, device=dev)
+
+    if cfg.has_singles:
+        u2 = tables.u_rowsum.to(F32).repeat(2)
+        sing_rows = torch.cumsum(bits2 * u2[None, :], dim=1)
+        utot_b = sing_rows[:, -1].to(wdt)
+    else:
+        sing_rows = None
+        utot_b = torch.zeros(CAP, dtype=F64, device=dev)
+
+    R2 = tables.R2
+    heatbath = cfg.proposal == "fast_heatbath"
+    if heatbath:
+        # hierarchical pair selection: spin-orbital a ~ m_a = sum_occ
+        # R2[a, q], then b | a ~ R2[a, b] over occupied b; the realized
+        # unordered-pair probability is the two-path sum of realized
+        # cumulative cells
+        mu = bits2 @ R2
+        mu_rows = torch.cumsum(mu * bits2, dim=1)
+        m_tot = mu_rows[:, -1]
+        w2_b = (0.5 * m_tot).to(wdt)
+    else:
+        # uniform / cauchy_schwarz: weights per electron pair, listed as
+        # up-up pairs, dn-dn pairs, then up-dn pairs
+        occ_up_c = dets.occ_orbitals(bits_up_c, nup)
+        occ_dn_c = dets.occ_orbitals(bits_dn_c, ndn)
+        iu, ju = np.triu_indices(nup, k=1)
+        idn, jdn = np.triu_indices(ndn, k=1)
+        io, jo = np.meshgrid(np.arange(nup), np.arange(ndn), indexing="ij")
+        p_pair = torch.cat([occ_up_c[:, iu], occ_dn_c[:, idn],
+                            occ_up_c[:, io.ravel()]], dim=1)
+        q_pair = torch.cat([occ_up_c[:, ju], occ_dn_c[:, jdn],
+                            occ_dn_c[:, jo.ravel()]], dim=1)
+        n_uu, n_dd = len(iu), len(idn)
+        if cfg.proposal == "uniform":
+            # a pair takes part when its heat-bath row is not empty
+            so_p = torch.cat([occ_up_c[:, iu], occ_dn_c[:, idn] + norb,
+                              occ_up_c[:, io.ravel()]], dim=1)
+            so_q = torch.cat([occ_up_c[:, ju], occ_dn_c[:, jdn] + norb,
+                              occ_dn_c[:, jo.ravel()] + norb], dim=1)
+            pr_weight = (R2[so_p, so_q] > 0).to(wdt)
+        else:
+            pr_weight = (tables.cs_rowsum[p_pair]
+                         * tables.cs_rowsum[q_pair]).to(wdt)
+        pair_rows = torch.cumsum(pr_weight.to(F32), dim=1)
+        w2_b = pair_rows[:, -1].to(wdt)
+    psing_b = torch.where(utot_b + w2_b > 0, utot_b / (utot_b + w2_b), zero64)
+    take_single = (ub < psing_b) if cfg.has_singles else \
+        torch.zeros(CAP, dtype=torch.bool, device=dev)
+
+    # ---- doubles ----
+    if heatbath:
+        o1 = _count_le(mu_rows, (up_ * m_tot).to(F32), n2 - 1)
+        r1_rows = torch.cumsum(R2[o1] * bits2, dim=1)
+        s1q = r1_rows[:, -1]
+        o2 = _count_le(r1_rows, (ue * s1q).to(F32), n2 - 1)
+        r2_rows = torch.cumsum(R2[o2] * bits2, dim=1)
+        s2q = r2_rows[:, -1]
+        p_pair_q = (_sel_cell(mu_rows, o1) * _sel_cell(r1_rows, o2) / s1q.clamp(min=TINY)
+                    + _sel_cell(mu_rows, o2) * _sel_cell(r2_rows, o1) / s2q.clamp(min=TINY)
+                    ) / m_tot.clamp(min=TINY)
+        pair_fail = ((o1 == o2) | (m_tot <= 0) | (s1q <= 0) | (s2q <= 0)
+                     | (p_pair_q <= 0))
+        up1 = o1 < norb
+        up2 = o2 < norb
+        orb1 = torch.where(up1, o1, o1 - norb)
+        orb2 = torch.where(up2, o2, o2 - norb)
+        same_up_k = up1 & up2
+        kk = torch.where(same_up_k, 0, torch.where(~up1 & ~up2, 1, 2))
+        opp = kk == 2
+        # opposite-spin: pp = the up orbital, qq = the dn orbital;
+        # same-spin: pp < qq
+        pp = torch.where(opp, torch.where(up1, orb1, orb2), torch.minimum(orb1, orb2))
+        qq = torch.where(opp, torch.where(up1, orb2, orb1), torch.maximum(orb1, orb2))
+        a_s = torch.minimum(pp, qq)
+        b_s = torch.maximum(pp, qq)
+        rc = torch.where(opp, ntri_s + tri_le(a_s, b_s), tri_lt(a_s, b_s))
+        st = tables.hb_start[rc]
+        cnt = tables.hb_count[rc]
+        S_exact = tables.hb_rowsum[rc]
+        # O(1) in-row target ~ |H|: uniform slot, then accept-or-alias
+        n_cat = tables.hb_alias_q.shape[0]
+        slot = torch.minimum((ur * cnt).to(I64), (cnt - 1).clamp(min=0))
+        i0 = (st + slot).clamp(0, n_cat - 1)
+        rv = torch.where(ua2.to(F32) < tables.hb_alias_q[i0],
+                         tables.hb_rs_own[i0], tables.hb_rs_partner[i0])
+        rs = rv.abs().to(I64) - 1
+        r_tab = rs // norb
+        s_tab = rs % norb
+        swp = opp & (pp > qq)
+        r = torch.where(swp, s_tab, r_tab)
+        s = torch.where(swp, r_tab, s_tab)
+        val_tab = rv.to(F64)                     # carries the sign only
+    else:
+        pair_i = _count_le(pair_rows, (up_ * w2_b).to(F32), cfg.npairs - 1)
+        pp = p_pair.gather(1, pair_i[:, None])[:, 0]
+        qq = q_pair.gather(1, pair_i[:, None])[:, 0]
+        kk = torch.where(pair_i < n_uu, 0,
+                         torch.where(pair_i < n_uu + n_dd, 1, 2))
+        same_up_k = kk == 0
+        opp = kk == 2
+        if cfg.proposal == "uniform":
+            # r, s uniform over orbitals (ref off_diagonal_move_chem:4237)
+            r = (ue * norb).to(I64).clamp(max=norb - 1)
+            s = (ua2 * norb).to(I64).clamp(max=norb - 1)
+            p_rs = torch.where(opp, 1.0 / norb ** 2, 2.0 / norb ** 2).to(F64)
+            extra_fail = ~opp & (r == s)
+        else:
+            # r ~ c_p, s ~ c_q with c_p(r) = sqrt|(pr|pr)|
+            u34 = torch.rand((2, CAP), dtype=F64, device=dev, generator=gen)
+            slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
+            r = torch.where(u34[0] < tables.cs_aliasq[pp, slot_r], slot_r,
+                            tables.cs_aliasJ[pp, slot_r])
+            slot_s = (ua2 * norb).to(I64).clamp(max=norb - 1)
+            s = torch.where(u34[1] < tables.cs_aliasq[qq, slot_s], slot_s,
+                            tables.cs_aliasJ[qq, slot_s])
+            cpq = (tables.cs_rowsum[pp].clamp(min=TINY)
+                   * tables.cs_rowsum[qq].clamp(min=TINY))
+            p_dir = tables.cs_c[pp, r] * tables.cs_c[qq, s] / cpq
+            p_swp = tables.cs_c[pp, s] * tables.cs_c[qq, r] / cpq
+            p_rs = torch.where(opp, p_dir, p_dir + p_swp)
+            extra_fail = (~opp & (r == s)) | (p_rs <= 0)
+        # same-spin target pairs are unordered: r < s (p_rs sums both)
+        r, s = (torch.where(opp, r, torch.minimum(r, s)),
+                torch.where(opp, s, torch.maximum(r, s)))
+        # exact element: same-spin (pr|qs) - (ps|qr), opposite-spin (pr|qs)
+        tb = tables.table
+        e_dir = tb.eri_value(pp, r, qq, s)
+        val_tab = torch.where(opp, e_dir, e_dir - tb.eri_value(pp, s, qq, r))
+
+    r_occ = torch.where(opp | (kk == 0), dets.get_orb(up_w, r), dets.get_orb(dn_w, r))
+    s_occ = torch.where(opp, dets.get_orb(dn_w, s),
+                        torch.where(kk == 0, dets.get_orb(up_w, s),
+                                    dets.get_orb(dn_w, s)))
+    dbl_ok = ~(r_occ | s_occ)
+
+    words_same = torch.where(same_up_k[:, None], up_w, dn_w)
+    c1 = (dets.count_below(words_same, pp, r) - _in_window(pp, pp, r)
+          - _in_window(qq, pp, r))
+    c2 = (dets.count_below(words_same, qq, s) - _in_window(pp, qq, s)
+          - _in_window(qq, qq, s))
+    cu_ = dets.count_below(up_w, pp, r) - _in_window(pp, pp, r)
+    cd_ = dets.count_below(dn_w, qq, s) - _in_window(qq, qq, s)
+    gamma = torch.where(opp, _sign(cu_ + cd_), _sign(c1 + c2))
+    h_signed_dbl = gamma * val_tab
+    if heatbath:
+        # p(spawn) = (1 - p_single) p{pair} |H| / S_exact: dividing by
+        # exactly the realized probability keeps E[spawn] = -tau H w
+        # independent of how the selection cumulatives were rounded (exact
+        # S/diff correction)
+        w_dbl = torch.where(
+            pair_fail, zero64,
+            -tau * torch.sign(h_signed_dbl) * S_exact.to(wdt)
+            / ((1.0 - psing_b) * p_pair_q.to(wdt)).clamp(min=TINY))
+    else:
+        prw_sel = pr_weight.gather(1, pair_i[:, None])[:, 0]
+        p_sel = (prw_sel / w2_b.clamp(min=TINY) * p_rs
+                 * (1.0 - psing_b).clamp(min=TINY))
+        w_dbl = torch.where(extra_fail | (p_sel <= 0), zero64,
+                            -tau * h_signed_dbl / p_sel.clamp(min=TINY))
+    dbl_up = torch.where(
+        opp[:, None], dets.set_orb(dets.clear_orb(up_w, pp), r),
+        torch.where(same_up_k[:, None],
+                    dets.set_orb(dets.set_orb(dets.clear_orb(
+                        dets.clear_orb(up_w, pp), qq), r), s), up_w))
+    dbl_dn = torch.where(
+        opp[:, None], dets.set_orb(dets.clear_orb(dn_w, qq), s),
+        torch.where(same_up_k[:, None], dn_w,
+                    dets.set_orb(dets.set_orb(dets.clear_orb(
+                        dets.clear_orb(dn_w, pp), qq), r), s)))
+    if not cfg.has_singles:
+        return dbl_up, dbl_dn, w_dbl, dbl_ok
+
+    # ---- singles (chem, real-space Hubbard) ----
+    o_s = _count_le(sing_rows, (up_ * utot_b).to(F32), n2 - 1)
+    e_up = o_s < norb
+    p_s = torch.where(e_up, o_s, o_s - norb)
+    slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
+    ia = p_s * norb + slot_r
+    r_s = torch.where(ua2.to(F32) < tables.u_alias_q[ia], slot_r,
+                      tables.u_alias_J[ia])
+    r_s_occ = torch.where(e_up, dets.get_orb(up_w, r_s), dets.get_orb(dn_w, r_s))
+    bits_same = torch.where(e_up[:, None], bits_up_c, bits_dn_c)
+    bits_other = torch.where(e_up[:, None], bits_dn_c, bits_up_c)
+    words_same_s = torch.where(e_up[:, None], up_w, dn_w)
+    sgn_s = _sign(dets.count_below(words_same_s, p_s, r_s)
+                  - (p_s < r_s).to(I32))
+    if tables.sng_pack.numel():
+        # f32 state: (pr|qq), (pq|qr), h_pr and U[p,r] in one row gather
+        srow = tables.sng_pack[p_s * norb + r_s]
+        direct_row = srow[:, :norb]
+        exch_row = srow[:, norb:2 * norb]
+        qs = torch.arange(norb, device=dev)
+        mask_pr = (qs[None, :] != p_s[:, None]) & (qs[None, :] != r_s[:, None])
+        h_sng = sgn_s * (srow[:, 2 * norb]
+                         + ((direct_row - exch_row) * bits_same.to(F32)
+                            * mask_pr).sum(-1)
+                         + (direct_row * bits_other.to(F32)).sum(-1))
+        u_sel = srow[:, 2 * norb + 1]
+    else:
+        h_sng = sgn_s * slater.single_element_no_sign(
+            tables.table, bits_same, bits_other, p_s, r_s)
+        u_sel = tables.u_table[p_s, r_s]
+    p_sel_sng = psing_b * u_sel / utot_b.clamp(min=TINY)
+    w_s = -tau * h_sng / p_sel_sng.clamp(min=TINY)
+    # realized p(spin-orbital) = diff / Utot from the cumulative, the
+    # alias draw is normalized by the exact row sum: multiply by S/diff
+    S_sng = tables.u_rowsum[p_s].to(w_s.dtype)
+    diff_sng = _sel_cell(sing_rows, o_s).to(w_s.dtype)
+    w_sng = w_s * torch.where(diff_sng > 0, S_sng / diff_sng,
+                              torch.ones((), dtype=w_s.dtype, device=dev))
+    sng_up = torch.where(e_up[:, None],
+                         dets.set_orb(dets.clear_orb(up_w, p_s), r_s), up_w)
+    sng_dn = torch.where(e_up[:, None], dn_w,
+                         dets.set_orb(dets.clear_orb(dn_w, p_s), r_s))
+    sng_ok = (~r_s_occ) & (u_sel > 0)
+    return (torch.where(take_single[:, None], sng_up, dbl_up),
+            torch.where(take_single[:, None], sng_dn, dbl_dn),
+            torch.where(take_single, w_sng, w_dbl),
+            torch.where(take_single, sng_ok, dbl_ok))
+
+
 def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                     gen: torch.Generator):
     """One MC generation.  Returns (new_state, stats) with stats a dict of
@@ -532,12 +1261,18 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     # k-th imp == 0 slot is the k-th D det: one compaction finds them all
     n_imp = tables.imp_up.shape[0]
     proj = cfg.semistochastic and n_imp > 0
+    ct_dots = None
     if proj:
         imp_pos = _compact_index(alive & (state.imp == 0), n_imp, -1)
         w_imp = torch.where(imp_pos >= 0, wt[imp_pos.clamp(min=0)],
                             torch.zeros((), dtype=wdt, device=dev))
         if tables.imp_dense.numel():
-            Hw_off = tables.imp_dense @ w_imp.to(F32)
+            A = tables.imp_dense
+            if A.dtype == torch.bfloat16:
+                # bfloat16-rounded operands, float32 products and sums
+                Hw_off = A.to(F32) @ w_imp.to(torch.bfloat16).to(F32)
+            else:
+                Hw_off = A @ w_imp.to(F32)
         else:
             Hw_off = spmv.spmv(w_imp, tables.imp_ell_cols,
                                tables.imp_ell_vals, tables.imp_ell_ptr,
@@ -546,21 +1281,35 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         # loses nothing to cancellation
         deltaw = tau * ((e_trial - tables.imp_diag) * w_imp.to(F64)
                         - Hw_off.to(F64))
+        if _ct_free(tables):
+            # C(T)-in-D: this generation's (e_num, e_den) are two dots
+            # against the D weights of the step's INPUT state
+            ct_dots = (tables.ct_num_imp @ w_imp.to(F64),
+                       tables.ct_den_imp @ w_imp.to(F64))
 
     # ---------------- spawn slot allocation -------------------------------
-    # one draw for the parent-level and all five per-slot streams
-    u_all = torch.rand(M + 5 * CAP, dtype=F64, device=dev, generator=gen)
+    # one draw for the parent-level stream and the per-slot streams
+    ct_mode = cfg.use_exponential_projector
+    n_streams = 0 if ct_mode else 5 + (cfg.run_type in ("partial_node", "sr"))
+    u_all = torch.rand(M + n_streams * CAP, dtype=F64, device=dev, generator=gen)
     u_spawn = u_all[:M]
     g = cfg.spawn_granularity
     cut = cfg.always_spawn_cutoff * g
-    absw = wt.abs()
+    if ct_mode:
+        # children carry the >= 1-jump weight fraction w (1 - exp(-tau
+        # rate)); the parent takes the no-jump path through its exact
+        # diagonal factor below (ref: stoch_wt, do_walk.f90:3852)
+        sw = (wt.to(F64) * -torch.expm1(-tables.ct_rate * tau)).to(wdt)
+    else:
+        sw = wt
+    absw = sw.abs()
     small = absw < cut
     nchild = torch.where(
         small, (u_spawn < absw / cut).to(wdt),
         torch.round(absw / g).clamp(min=1.0)).to(I64)
     nchild = torch.where(alive, nchild, 0)
-    wt_child = torch.where(small, torch.sign(wt) * cut,
-                           wt / nchild.clamp(min=1).to(wdt))
+    wt_child = torch.where(small, torch.sign(sw) * cut,
+                           sw / nchild.clamp(min=1).to(wdt))
     cum_child = torch.cumsum(nchild, 0)
     total_spawn = cum_child[-1]
     off_child = cum_child - nchild
@@ -573,171 +1322,17 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     slot_valid = torch.arange(CAP, dtype=I64, device=dev) < total_spawn
     overflow = total_spawn > CAP
 
-    ub = u_all[M:M + CAP]                       # branch
-    up_ = u_all[M + CAP:M + 2 * CAP]            # pair / electron select
-    ue = u_all[M + 2 * CAP:M + 3 * CAP]         # entry / orbital select
-    ua2 = u_all[M + 3 * CAP:M + 4 * CAP]        # alias accept
-    ur = u_all[M + 4 * CAP:M + 5 * CAP]         # in-row alias slot
-
     up_w, dn_w = state.up[b], state.dn[b]
     wtc_b = wt_child[b]
-    bits_up_c = dets.to_bits(up_w, norb)
-    bits_dn_c = dets.to_bits(dn_w, norb)
-    n2 = 2 * norb
-    ntri_s = norb * (norb - 1) // 2
-    bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)     # [CAP, 2n]
-
-    if cfg.has_singles:
-        u2 = tables.u_rowsum.to(F32).repeat(2)
-        sing_rows = torch.cumsum(bits2 * u2[None, :], dim=1)
-        utot_b = sing_rows[:, -1].to(wdt)
+    if ct_mode:
+        spawn_up, spawn_dn, fac, spawn_ok = _ct_chain(
+            cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial)
     else:
-        sing_rows = None
-        utot_b = torch.zeros(CAP, dtype=F64, device=dev)
-
-    # hierarchical pair selection: spin-orbital a ~ m_a = sum_occ R2[a, q],
-    # then b | a ~ R2[a, b] over occupied b; the realized unordered-pair
-    # probability is the two-path sum of realized cumulative cells
-    R2 = tables.R2
-    mu = bits2 @ R2
-    mu_rows = torch.cumsum(mu * bits2, dim=1)
-    m_tot = mu_rows[:, -1]
-    w2_b = (0.5 * m_tot).to(wdt)
-    psing_b = torch.where(utot_b + w2_b > 0, utot_b / (utot_b + w2_b),
-                          torch.zeros((), dtype=F64, device=dev))
-    take_single = (ub < psing_b) if cfg.has_singles else \
-        torch.zeros(CAP, dtype=torch.bool, device=dev)
-
-    # ---- doubles ----
-    o1 = _count_le(mu_rows, (up_ * m_tot).to(F32), n2 - 1)
-    r1_rows = torch.cumsum(R2[o1] * bits2, dim=1)
-    s1q = r1_rows[:, -1]
-    o2 = _count_le(r1_rows, (ue * s1q).to(F32), n2 - 1)
-    r2_rows = torch.cumsum(R2[o2] * bits2, dim=1)
-    s2q = r2_rows[:, -1]
-    p_pair_q = (_sel_cell(mu_rows, o1) * _sel_cell(r1_rows, o2) / s1q.clamp(min=TINY)
-                + _sel_cell(mu_rows, o2) * _sel_cell(r2_rows, o1) / s2q.clamp(min=TINY)
-                ) / m_tot.clamp(min=TINY)
-    pair_fail = ((o1 == o2) | (m_tot <= 0) | (s1q <= 0) | (s2q <= 0)
-                 | (p_pair_q <= 0))
-    up1 = o1 < norb
-    up2 = o2 < norb
-    orb1 = torch.where(up1, o1, o1 - norb)
-    orb2 = torch.where(up2, o2, o2 - norb)
-    same_up_k = up1 & up2
-    kk = torch.where(same_up_k, 0, torch.where(~up1 & ~up2, 1, 2))
-    opp = kk == 2
-    # opposite-spin: pp = the up orbital, qq = the dn orbital; same-spin:
-    # pp < qq
-    pp = torch.where(opp, torch.where(up1, orb1, orb2), torch.minimum(orb1, orb2))
-    qq = torch.where(opp, torch.where(up1, orb2, orb1), torch.maximum(orb1, orb2))
-    a_s = torch.minimum(pp, qq)
-    b_s = torch.maximum(pp, qq)
-    rc = torch.where(opp, ntri_s + tri_le(a_s, b_s), tri_lt(a_s, b_s))
-    st = tables.hb_start[rc]
-    cnt = tables.hb_count[rc]
-    S_exact = tables.hb_rowsum[rc]
-    # O(1) in-row target ~ |H|: uniform slot, then accept-or-alias
-    n_cat = tables.hb_alias_q.shape[0]
-    slot = torch.minimum((ur * cnt).to(I64), (cnt - 1).clamp(min=0))
-    i0 = (st + slot).clamp(0, n_cat - 1)
-    rv = torch.where(ua2.to(F32) < tables.hb_alias_q[i0],
-                     tables.hb_rs_own[i0], tables.hb_rs_partner[i0])
-    rs = rv.abs().to(I64) - 1
-    r_tab = rs // norb
-    s_tab = rs % norb
-    swp = opp & (pp > qq)
-    r = torch.where(swp, s_tab, r_tab)
-    s = torch.where(swp, r_tab, s_tab)
-    r_occ = torch.where(opp | (kk == 0), dets.get_orb(up_w, r), dets.get_orb(dn_w, r))
-    s_occ = torch.where(opp, dets.get_orb(dn_w, s),
-                        torch.where(kk == 0, dets.get_orb(up_w, s),
-                                    dets.get_orb(dn_w, s)))
-    dbl_ok = ~(r_occ | s_occ)
-
-    def in_window(x, a_pos, b_pos):
-        return ((x >= torch.minimum(a_pos, b_pos))
-                & (x < torch.maximum(a_pos, b_pos))).to(I32)
-
-    words_same = torch.where(same_up_k[:, None], up_w, dn_w)
-    c1 = (dets.count_below(words_same, pp, r) - in_window(pp, pp, r)
-          - in_window(qq, pp, r))
-    c2 = (dets.count_below(words_same, qq, s) - in_window(pp, qq, s)
-          - in_window(qq, qq, s))
-    cu_ = dets.count_below(up_w, pp, r) - in_window(pp, pp, r)
-    cd_ = dets.count_below(dn_w, qq, s) - in_window(qq, qq, s)
-    gamma = torch.where(opp, _sign(cu_ + cd_), _sign(c1 + c2))
-    h_signed_dbl = gamma * rv.to(F64)            # rv carries the sign only
-    # p(spawn) = (1 - p_single) p{pair} |H| / S_exact: dividing by exactly
-    # the realized probability keeps E[spawn] = -tau H w independent of
-    # how the selection cumulatives were rounded (exact S/diff correction)
-    w_dbl = torch.where(
-        pair_fail, torch.zeros((), dtype=F64, device=dev),
-        -tau * torch.sign(h_signed_dbl) * S_exact.to(wdt)
-        / ((1.0 - psing_b) * p_pair_q.to(wdt)).clamp(min=TINY))
-    dbl_up = torch.where(
-        opp[:, None], dets.set_orb(dets.clear_orb(up_w, pp), r),
-        torch.where(same_up_k[:, None],
-                    dets.set_orb(dets.set_orb(dets.clear_orb(
-                        dets.clear_orb(up_w, pp), qq), r), s), up_w))
-    dbl_dn = torch.where(
-        opp[:, None], dets.set_orb(dets.clear_orb(dn_w, qq), s),
-        torch.where(same_up_k[:, None], dn_w,
-                    dets.set_orb(dets.set_orb(dets.clear_orb(
-                        dets.clear_orb(dn_w, pp), qq), r), s)))
-
-    # ---- singles (chem) ----
-    if cfg.has_singles:
-        o_s = _count_le(sing_rows, (up_ * utot_b).to(F32), n2 - 1)
-        e_up = o_s < norb
-        p_s = torch.where(e_up, o_s, o_s - norb)
-        slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
-        ia = p_s * norb + slot_r
-        r_s = torch.where(ua2.to(F32) < tables.u_alias_q[ia], slot_r,
-                          tables.u_alias_J[ia])
-        r_s_occ = torch.where(e_up, dets.get_orb(up_w, r_s), dets.get_orb(dn_w, r_s))
-        bits_same = torch.where(e_up[:, None], bits_up_c, bits_dn_c)
-        bits_other = torch.where(e_up[:, None], bits_dn_c, bits_up_c)
-        words_same_s = torch.where(e_up[:, None], up_w, dn_w)
-        sgn_s = _sign(dets.count_below(words_same_s, p_s, r_s)
-                      - (p_s < r_s).to(I32))
-        if tables.sng_pack.numel():
-            # f32 state: (pr|qq), (pq|qr), h_pr and U[p,r] in one row gather
-            srow = tables.sng_pack[p_s * norb + r_s]
-            direct_row = srow[:, :norb]
-            exch_row = srow[:, norb:2 * norb]
-            qs = torch.arange(norb, device=dev)
-            mask_pr = (qs[None, :] != p_s[:, None]) & (qs[None, :] != r_s[:, None])
-            h_sng = sgn_s * (srow[:, 2 * norb]
-                             + ((direct_row - exch_row) * bits_same.to(F32)
-                                * mask_pr).sum(-1)
-                             + (direct_row * bits_other.to(F32)).sum(-1))
-            u_sel = srow[:, 2 * norb + 1]
-        else:
-            h_sng = sgn_s * slater.single_element_no_sign(
-                tables.table, bits_same, bits_other, p_s, r_s)
-            u_sel = tables.u_table[p_s, r_s]
-        p_sel_sng = psing_b * u_sel / utot_b.clamp(min=TINY)
-        w_s = -tau * h_sng / p_sel_sng.clamp(min=TINY)
-        # realized p(spin-orbital) = diff / Utot from the cumulative, the
-        # alias draw is normalized by the exact row sum: multiply by S/diff
-        S_sng = tables.u_rowsum[p_s].to(w_s.dtype)
-        diff_sng = _sel_cell(sing_rows, o_s).to(w_s.dtype)
-        w_sng = w_s * torch.where(diff_sng > 0, S_sng / diff_sng,
-                                  torch.ones((), dtype=w_s.dtype, device=dev))
-        sng_up = torch.where(e_up[:, None],
-                             dets.set_orb(dets.clear_orb(up_w, p_s), r_s), up_w)
-        sng_dn = torch.where(e_up[:, None], dn_w,
-                             dets.set_orb(dets.clear_orb(dn_w, p_s), r_s))
-        sng_ok = (~r_s_occ) & (u_sel > 0)
-        spawn_up = torch.where(take_single[:, None], sng_up, dbl_up)
-        spawn_dn = torch.where(take_single[:, None], sng_dn, dbl_dn)
-        spawn_ok = torch.where(take_single, sng_ok, dbl_ok) & slot_valid
-        spawn_wt = torch.where(take_single, w_sng, w_dbl) * wtc_b
-    else:
-        spawn_up, spawn_dn = dbl_up, dbl_dn
-        spawn_ok = dbl_ok & slot_valid
-        spawn_wt = w_dbl * wtc_b
+        streams = [u_all[M + k * CAP:M + (k + 1) * CAP] for k in range(5)]
+        spawn_up, spawn_dn, fac, spawn_ok = _propose(
+            cfg, tables, up_w, dn_w, tau, wdt, streams, gen)
+        spawn_ok = spawn_ok & slot_valid
+    spawn_wt = fac * wtc_b
     spawn_wt = torch.where(spawn_ok, spawn_wt, torch.zeros((), dtype=spawn_wt.dtype,
                                                            device=dev))
 
@@ -763,12 +1358,50 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         spawn_ok = spawn_ok & ~kill_ts
         spawn_wt = torch.where(spawn_ok, spawn_wt * fac, torch.zeros_like(spawn_wt))
 
+    if cfg.guiding != "none":
+        # importance sampling: spawn weight x psi_g(target) / psi_g(parent)
+        # (ref det_ratio_*), both evaluated at slot level
+        from .guiding import eval_guiding
+        psi_g_t = eval_guiding(tables.guide, cfg.guiding, spawn_up, spawn_dn,
+                               norb, cfg.nup, cfg.ndn)
+        gp = eval_guiding(tables.guide, cfg.guiding, up_w, dn_w, norb,
+                          cfg.nup, cfg.ndn)
+        ratio = psi_g_t / torch.where(gp.abs() < TINY, torch.full_like(gp, TINY), gp)
+        spawn_wt = torch.where(spawn_ok, spawn_wt * ratio,
+                               torch.zeros_like(spawn_wt))
+
     # child flags (ref: do_walk.f90:3700-3730)
     par_imp = state.imp[b]
     child_imp = torch.where(par_imp == -2, 2, par_imp.clamp(max=125) + 1)
     if cfg.semistochastic:
         child_imp = torch.where(par_imp == 0, -1, child_imp)
     child_init = torch.where(state.init[b] >= 2, 1, 0)
+
+    if cfg.fixed_node:
+        # sign-violating flow: a spawn whose sign is opposite its parent's
+        # (ref move variants do_walk.f90:3460-4748)
+        viol = spawn_ok & (spawn_wt * torch.sign(wtc_b) < 0)
+        if cfg.run_type == "fixed_node2":
+            spawn_wt = torch.where(viol, -spawn_wt, spawn_wt)
+        elif cfg.run_type == "fixed_node3":
+            spawn_ok = spawn_ok & ~viol
+            spawn_wt = torch.where(viol, torch.zeros_like(spawn_wt), spawn_wt)
+        else:
+            if cfg.run_type in ("partial_node", "sr"):
+                redirect = viol & (u_all[M + 5 * CAP:] < cfg.partial_node_eps)
+            elif cfg.run_type == "release_node":
+                redirect = viol & (state.step < cfg.release_step)
+            else:                               # fixed_node1 / fixed_node4
+                redirect = viol
+            # redirect to the parent det: an unbiased estimate of the
+            # fixed-node diagonal dump sum_viol Ht_ij.  imp is forced to the
+            # largest distance so that a D parent's redirected dump is not
+            # discarded by the D->D rule (the exact projection carries only
+            # the D-internal part of the dump)
+            spawn_up = torch.where(redirect[:, None], up_w, spawn_up)
+            spawn_dn = torch.where(redirect[:, None], dn_w, spawn_dn)
+            child_imp = torch.where(redirect, 126, child_imp)
+
     spawn_up = torch.where(spawn_ok[:, None], spawn_up, SENT)
     spawn_dn = torch.where(spawn_ok[:, None], spawn_dn, SENT)
     spawn_wt = spawn_wt.to(wdt)
@@ -776,7 +1409,12 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     child_init = torch.where(spawn_ok, child_init, 0).to(I32)
 
     # ---------------- diagonal move + projection on parents ----------------
-    diag_factor = (1.0 + tau * (e_trial - state.diag.to(F64))).clamp(min=0.0)
+    if ct_mode:
+        # exact diagonal propagation (deterministic_diagonal variant, ref
+        # do_walk.f90:3851)
+        diag_factor = torch.exp(tau * (e_trial - state.diag.to(F64)))
+    else:
+        diag_factor = (1.0 + tau * (e_trial - state.diag.to(F64))).clamp(min=0.0)
     wt_par = torch.where(alive & (state.imp >= 1), wt.to(F64) * diag_factor,
                          wt.to(F64)).to(wdt)
     if proj:
@@ -784,11 +1422,11 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                           torch.where(imp_pos >= 0, deltaw,
                                       torch.zeros((), dtype=F64, device=dev)).to(wdt))
 
-    out = _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
-                           spawn_dn, spawn_wt, spawn_ok, child_imp, child_init,
-                           overflow)
-    return _finalize_step(state, tables, cfg, *out, total_spawn, spawn_wt,
-                          spawn_ok)
+    merge = _full_sort_merge if cfg.full_sort_merge else _two_level_merge
+    out = merge(state, cfg, tables, gen, alive, wt_par, spawn_up, spawn_dn,
+                spawn_wt, spawn_ok, child_imp, child_init, overflow)
+    return _finalize_step(state, tables, cfg, gen, *out, total_spawn, spawn_wt,
+                          spawn_ok, ct_dots)
 
 
 def _initiator_update(cfg, wt, init, imp):
@@ -805,6 +1443,59 @@ def _initiator_update(cfg, wt, init, imp):
     if cfg.c_t_initiator:
         init = torch.where(imp == -2, 3, init).to(I32)
     return init
+
+
+def _min_wt_round(cfg, gen, wt, keep, imp):
+    """Stochastic min_wt rounding (ref reduce_my_walker:7196)."""
+    u = torch.rand(wt.shape[0], dtype=F64, device=wt.device, generator=gen)
+    aw = wt.abs()
+    tiny = keep & (imp >= 1) & (aw < cfg.min_wt)
+    kill = tiny & (u >= aw / cfg.min_wt)
+    wt = torch.where(tiny & ~kill, torch.sign(wt) * cfg.min_wt, wt)
+    return wt, keep & ~kill
+
+
+def sequential_initiator_scan(neq, s_wt, init_row):
+    """The reference's order-dependent pairwise initiator combine
+    (merge_original_with_spawned2 do_walk.f90:5897-5950): walk each merge
+    group in sort order carrying (running weight, initiator); a same-sign
+    pair takes the max initiator, an opposite-sign pair the initiator of
+    the sign-winning walker (exact cancellation -> 0), except that a
+    permanent initiator (code 3) is never demoted.
+
+    The rule is not associative, so it cannot ride the fused segmented
+    scan.  It is iterated over the RANK of a row within its group
+    instead: one count scan (ops/segscan.py) gives every row's rank, and
+    pass k combines the rank-k row of every group that has one with the
+    running value of the row before it, vectorized over the groups.  The
+    number of passes is the largest group size less one, read from the
+    device once per call; no group is cut short, however long.  This is a
+    measurement mode (WalkConfig.initiator_rule "sequential"): each pass
+    is a handful of small device operations.
+
+    neq: [N] bool group-start flags of the sorted rows; s_wt: [N] signed
+    row weights; init_row: [N] i32 row initiator flags.  Returns the [N]
+    running initiator; a group's merged value stands at its END row."""
+    N = neq.shape[0]
+    dev = neq.device
+    ones = torch.ones(N, dtype=I32, device=dev)
+    rank = (segscan.seg_scan([ones], ["sum"], neq)[0] - 1).to(I64)
+    counts = torch.bincount(rank).tolist()        # rows per rank: one sync
+    order = torch.argsort(rank, stable=True)      # rank-major, rows ascending
+    acc_w = s_wt.clone()
+    acc_i = init_row.to(I32).clone()
+    off = counts[0]
+    for cnt in counts[1:]:
+        rows = order[off:off + cnt]
+        off += cnt
+        pw, pi = acc_w[rows - 1], acc_i[rows - 1]
+        w, ini = s_wt[rows], init_row[rows].to(I32)
+        a, r = pw.abs(), w.abs()
+        opp = torch.where(r > a, ini, torch.where(r == a, 0, pi))
+        opp = torch.where(pi == 3, pi, opp)
+        acc_i[rows] = torch.where(pw * w > 0, torch.maximum(pi, ini), opp).to(I32)
+        acc_w[rows] = pw + w
+    return acc_i
 
 
 def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
@@ -872,6 +1563,8 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
         [u, init_row, s_wt, dwt_in, s_diag, s_ct],
         ["min", "max", "sum", "sum", "min", "max"], neq)
     g_wt = torch.where(g_u == 0, sc_wt - sc_dwt, sc_wt)
+    if cfg.initiator_rule == "sequential":
+        g_init = sequential_initiator_scan(neq, s_wt, init_row)
     g_valid = is_end & (g_u <= 127)
     g_imp = torch.where(g_u == 0, 0, torch.where(g_u == 1, -2, g_u - 1)).to(I32)
     g_init = _initiator_update(cfg, g_wt, g_init, g_imp)
@@ -911,27 +1604,191 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
         out_up = torch.stack([out_keys[W - 1 - w] for w in range(W)], dim=1)
         out_dn = torch.stack([out_keys[2 * W - 1 - w] for w in range(W)], dim=1)
 
-    # fresh groups (all-spawn: ct == -2) get diag and C(T) index here
+    # fresh groups (all-spawn: diag unknown, ct == -2) get diag and C(T)
+    # index here
+    fresh = (out_diag > DIAG_UNKNOWN_THRESHOLD) if _ct_free(tables) \
+        else (out_ct == -2)
     out_diag, out_ct, fresh_ovf = _fill_fresh(cfg, tables, out_up, out_dn,
-                                              out_diag, out_ct, out_ct == -2)
+                                              out_diag, out_ct, fresh)
     return (out_up, out_dn, out_wt, out_init, out_imp, out_diag, out_ct,
             nwalk_new, overflow | fresh_ovf)
 
 
-def _finalize_step(state, tables, cfg, out_up, out_dn, out_wt, out_init,
+def _search_sorted_dets(cfg, list_up, list_dn, q_up, q_dn):
+    """Index of each query det in a sorted det list (empty slots last),
+    -1 if absent."""
+    n = list_up.shape[0]
+    if _fused_keys(cfg):
+        lk, qk = flip(_fuse(list_up, list_dn)), flip(_fuse(q_up, q_dn))
+        idx = torch.searchsorted(lk, qk).clamp(max=n - 1)
+        return torch.where(lk[idx] == qk, idx, -1)
+    return setalg.search_dets(list_up, list_dn, q_up, q_dn)
+
+
+def _lower_bound_dets(cfg, list_up, list_dn, q_up, q_dn):
+    """Number of entries of a sorted det list whose key is < each query."""
+    if _fused_keys(cfg):
+        return torch.searchsorted(flip(_fuse(list_up, list_dn)),
+                                  flip(_fuse(q_up, q_dn)))
+    return setalg.lower_bound_dets(list_up, list_dn, q_up, q_dn)
+
+
+def _scatter_rows(M, fill, dtype, dev, shape_tail, *pairs):
+    """A [M, ...] tensor of `fill` with vals written at rows dest for each
+    (dest, vals) pair; dest >= M is dropped."""
+    out = torch.full((M + 1,) + shape_tail, fill, dtype=dtype, device=dev)
+    for dest, vals in pairs:
+        out[dest.clamp(max=M)] = vals.to(dtype)
+    return out[:M]
+
+
+def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
+                     spawn_dn, spawn_wt, spawn_ok, child_imp, child_init,
+                     overflow):
+    """Annihilation without the big sort (ref shape:
+    merge_original_with_spawned2/3, do_walk.f90:5866,6087):
+
+      level 1: spawns whose det already exists in the sorted walker list
+               merge in place by scatter-add / -max / -min;
+      level 2: the remaining new-det spawns are compacted into cap_new
+               slots, sorted and combined among themselves;
+      level 3: surviving walkers and surviving new groups interleave into
+               the output by rank (two lower-bound searches), which keeps
+               the list sorted without sorting mwalk + cap_spawn rows."""
+    M, W, NEW = cfg.mwalk, cfg.n_words, cfg.cap_new_eff
+    CAP = spawn_wt.shape[0]
+    dev = wt_par.device
+    wdt = wt_par.dtype
+    zero = torch.zeros((), dtype=wdt, device=dev)
+    BIG = 10 ** 6
+
+    # ---- level 1: hits on existing walkers --------------------------------
+    hit = _search_sorted_dets(cfg, state.up, state.dn, spawn_up, spawn_dn)
+    found = spawn_ok & (hit >= 0)
+    hit_c = hit.clamp(0, M - 1)
+    # stochastic D->D spawns are discarded (ref merge rule :5947); D dets
+    # are always resident, so an absent target cannot be in D
+    dropDD = found & (child_imp == -1) & (state.imp[hit_c] == 0)
+    mw_wt = wt_par.clone().index_add_(
+        0, hit_c, torch.where(found & ~dropDD, spawn_wt, zero))
+    in_init = torch.zeros(M, dtype=I32, device=dev).scatter_reduce_(
+        0, hit_c, torch.where(found, child_init, 0).to(I32), reduce="amax")
+    imp_eff_child = torch.where(child_imp == -1, 1, child_imp).abs().to(I32)
+    in_imp = torch.full((M,), BIG, dtype=I32, device=dev).scatter_reduce_(
+        0, hit_c, torch.where(found, imp_eff_child, BIG).to(I32), reduce="amin")
+    mw_init = torch.where(alive, torch.maximum(state.init, in_init), 0).to(I32)
+    mw_imp = torch.where(state.imp >= 1, torch.minimum(state.imp, in_imp),
+                         state.imp)
+    mw_imp = torch.where(alive, mw_imp, BIG).to(I32)
+    mw_init = _initiator_update(cfg, mw_wt, mw_init, mw_imp)
+    keep_w = alive & ~(((mw_wt == 0.0) | (mw_init == 0)) & (mw_imp >= 1))
+    mw_wt, keep_w = _min_wt_round(cfg, gen, mw_wt, keep_w, mw_imp)
+
+    # ---- level 2: new-det spawns ------------------------------------------
+    nf = spawn_ok & (hit < 0)
+    overflow = overflow | (nf.sum() > NEW)     # conservative: slots, pre-dedup
+    nidx = _compact_index(nf, NEW, CAP)
+    live = nidx < CAP
+    ni = nidx.clamp(max=CAP - 1)
+    nu_up = torch.where(live[:, None], spawn_up[ni], SENT)
+    nu_dn = torch.where(live[:, None], spawn_dn[ni], SENT)
+    nu_wt = torch.where(live, spawn_wt[ni], zero)
+    nu_init = torch.where(live, child_init[ni], 0).to(I32)
+    nu_imp = torch.where(live, imp_eff_child[ni], BIG).to(I32)
+    order = setalg.lexsort_dets(nu_up, nu_dn)
+    s_nup, s_ndn = nu_up[order], nu_dn[order]
+    s_nwt, s_ninit, s_nimp = nu_wt[order], nu_init[order], nu_imp[order]
+
+    neq = ~setalg.dets_equal_adjacent(s_nup, s_ndn)
+    gid = torch.cumsum(neq.to(I64), 0) - 1
+    valid_n = (s_nup != SENT).all(dim=1)
+    gn_wt = torch.zeros(NEW, dtype=wdt, device=dev).index_add_(
+        0, gid, torch.where(valid_n, s_nwt, zero))
+    gn_init = torch.zeros(NEW, dtype=I32, device=dev).scatter_reduce_(
+        0, gid, torch.where(valid_n, s_ninit, 0).to(I32), reduce="amax")
+    gn_imp = torch.full((NEW,), BIG, dtype=I32, device=dev).scatter_reduce_(
+        0, gid, torch.where(valid_n, s_nimp, BIG).to(I32), reduce="amin")
+    gn_valid = torch.zeros(NEW, dtype=I32, device=dev).scatter_reduce_(
+        0, gid, valid_n.to(I32), reduce="amax") > 0
+    gn_init = _initiator_update(cfg, gn_wt, gn_init, gn_imp)
+    keep_g = gn_valid & ~((gn_wt == 0.0) | (gn_init == 0))
+    gn_wt, keep_g = _min_wt_round(cfg, gen, gn_wt, keep_g, gn_imp)
+    # group values stand at each group's FIRST row
+    keep_n = neq & keep_g[gid]
+    n_wt_pos, n_init_pos, n_imp_pos = gn_wt[gid], gn_init[gid], gn_imp[gid]
+
+    # ---- level 3: rank merge of the two sorted survivor lists -------------
+    kw_i = torch.cumsum(keep_w.to(I64), 0)
+    kn_i = torch.cumsum(keep_n.to(I64), 0)
+    z1 = torch.zeros(1, dtype=I64, device=dev)
+    excl_n = torch.cat([z1, kn_i])
+    excl_w = torch.cat([z1, kw_i])
+    lo_w = _lower_bound_dets(cfg, s_nup, s_ndn, state.up, state.dn)
+    dest_w = torch.where(keep_w, kw_i - 1 + excl_n[lo_w.clamp(0, NEW)], M)
+    lo_n = _lower_bound_dets(cfg, state.up, state.dn, s_nup, s_ndn)
+    dest_n = torch.where(keep_n, kn_i - 1 + excl_w[lo_n.clamp(0, M)], M)
+    nwalk_new = (kw_i[-1] + kn_i[-1]).to(I32)
+    overflow = overflow | (nwalk_new > M)
+
+    def both(fill, dtype, w_vals, n_vals, tail=()):
+        return _scatter_rows(M, fill, dtype, dev, tail, (dest_w, w_vals),
+                             (dest_n, n_vals))
+
+    out_up = both(SENT, I64, state.up, s_nup, (W,))
+    out_dn = both(SENT, I64, state.dn, s_ndn, (W,))
+    out_wt = both(0, wdt, mw_wt, n_wt_pos)
+    out_init = both(0, I32, mw_init, n_init_pos)
+    out_imp = both(BIG, I32, mw_imp, n_imp_pos)
+    # survivors keep their diag / ct; new groups go through the fresh buffer
+    out_diag = both(DIAG_UNKNOWN, wdt, state.diag,
+                    torch.full((NEW,), DIAG_UNKNOWN, dtype=wdt, device=dev))
+    out_ct = both(-1, I64, torch.where(alive, state.ct, -1),
+                  torch.full((NEW,), -2, dtype=I64, device=dev))
+    fresh = (out_diag > DIAG_UNKNOWN_THRESHOLD) if _ct_free(tables) \
+        else (out_ct == -2)
+    out_diag, out_ct, fresh_ovf = _fill_fresh(cfg, tables, out_up, out_dn,
+                                              out_diag, out_ct, fresh)
+    return (out_up, out_dn, out_wt, out_init, out_imp, out_diag, out_ct,
+            nwalk_new, overflow | fresh_ovf)
+
+
+def _comb_reconfigure(w, u, n_comb: int):
+    """Sorella comb resampling (ref: stochastic_reconfiguration,
+    do_walk.f90:7258): systematic sampling of n_comb equal-weight walkers
+    from |w| with one uniform offset `u`, which preserves sum |w| exactly
+    and E[w'] = w."""
+    aw = w.abs().to(F64)
+    total = aw.sum()
+    cum = torch.cumsum(aw, 0)
+    pts = (u + torch.arange(n_comb, dtype=F64, device=w.device)) * (total / n_comb)
+    idx = torch.searchsorted(cum, pts).clamp(0, w.shape[0] - 1)
+    counts = torch.zeros(w.shape[0], dtype=F64, device=w.device).index_add_(
+        0, idx, torch.ones_like(pts))
+    return torch.sign(w).to(F64) * counts * (total / n_comb)
+
+
+def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
                    out_imp, out_diag, out_ct, nwalk_new, overflow,
-                   total_spawn, spawn_wt, spawn_ok):
-    """Reweight, estimators (float64) and population control (ref
-    do_walk.f90:2178, :2880-2889)."""
+                   total_spawn, spawn_wt, spawn_ok, ct_dots=None):
+    """Sorella comb (run_type sr), reweight, estimators (float64) and
+    population control (ref do_walk.f90:2178, :2880-2889)."""
     dev = out_wt.device
+    if cfg.run_type == "sr":
+        u = torch.rand((), dtype=F64, device=dev, generator=gen)
+        out_wt = _comb_reconfigure(out_wt, u, cfg.sr_nwalk or int(cfg.w_abs_target)
+                                   ).to(out_wt.dtype)
     out_wt = out_wt * state.reweight_factor_inv.to(out_wt.dtype)
 
-    n_ct = tables.ct_num.shape[0]
-    match = out_ct >= 0
-    safe = out_ct.clamp(0, max(n_ct - 1, 0))
-    zero = torch.zeros((), dtype=out_wt.dtype, device=dev)
-    e_num_gen = torch.where(match, tables.ct_num[safe] * out_wt, zero).sum(dtype=F64)
-    e_den_gen = torch.where(match, tables.ct_den[safe] * out_wt, zero).sum(dtype=F64)
+    if ct_dots is not None:
+        # C(T)-in-D: the dots were taken at the top of the step
+        e_num_gen, e_den_gen = ct_dots
+    else:
+        n_ct = tables.ct_num.shape[0]
+        match = out_ct >= 0
+        safe = out_ct.clamp(0, max(n_ct - 1, 0))
+        zero = torch.zeros((), dtype=out_wt.dtype, device=dev)
+        e_num_gen = torch.where(match, tables.ct_num[safe] * out_wt, zero).sum(dtype=F64)
+        e_den_gen = torch.where(match, tables.ct_den[safe] * out_wt, zero).sum(dtype=F64)
     w_abs_gen = out_wt.abs().sum(dtype=F64)
 
     e_num_blk = state.e_num_blk + e_num_gen
@@ -1071,21 +1928,39 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
              nblk_eq: int, w_abs_begin: float, e_trial_initial: float,
              seed: int = 0, verbose: bool = True,
              max_eq_extensions: int = 3, tables: WalkTables | None = None,
-             state: WalkState | None = None) -> WalkResult:
+             state: WalkState | None = None, guide=None,
+             checkpoint_file: str | None = None,
+             resume_state: WalkState | None = None) -> WalkResult:
     """Block driver with equilibration and capacity escalation (ref:
     do_walk.f90:2113).  The device work of a block runs without a host
     sync; the driver reads the overflow flag and the block's trace once
     per block.  `tables` / `state` may be passed in (tests); otherwise
-    they are built from the system and trial."""
+    they are built from the system, the trial and `guide` (the guiding
+    wavefunction of cfg.guiding).
+
+    checkpoint_file: after every block the walker state (block
+    accumulators rolled, generator state attached) is written there
+    (utils/checkpoint.save_walker_state).  resume_state: continue from
+    such a state instead of the initial population, drawing on from its
+    generator state when it has one."""
     if tables is None:
-        tables = build_walk_tables(system, trial, cfg)
+        tables = build_walk_tables(system, trial, cfg, guide=guide)
+    if resume_state is not None:
+        state = resume_state
     if state is None:
         state = init_walk_state(cfg, trial, w_abs_begin, e_trial_initial,
                                 tables)
     dev = state.wt.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if state.rng_state is not None:
+        gen.set_state(state.rng_state)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the two-level merge meets tens of thousands of new dets per step
+    # while the population grows: equilibration blocks run with cap_new =
+    # cap_spawn, measured blocks with the configured (small) buffer
+    cfg_growth = cfg if cfg.full_sort_merge else \
+        dataclasses.replace(cfg, cap_new=cfg.cap_spawn)
 
     e_blocks, eq_energies = [], []
     w_trace, n_trace, num_trace, den_trace = [], [], [], []
@@ -1104,7 +1979,8 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
         gen_state = gen.get_state()
         sync()
         t0 = time.time()
-        out, stats = walk_block(start, tables, cfg, nstep, gen)
+        out, stats = walk_block(start, tables, cfg_growth if equil else cfg,
+                                nstep, gen)
         if bool(out.overflow):     # the one sync of the block
             if grows >= 4:
                 raise RuntimeError(
@@ -1113,6 +1989,8 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
             grows += 1
             cfg = dataclasses.replace(cfg, mwalk=2 * cfg.mwalk,
                                       cap_spawn=2 * cfg.cap_spawn)
+            cfg_growth = cfg if cfg.full_sort_merge else \
+                dataclasses.replace(cfg, cap_new=cfg.cap_spawn)
             if verbose:
                 print(f"capacity overflow: growing to mwalk={cfg.mwalk} "
                       f"cap_spawn={cfg.cap_spawn}, rerunning block "
@@ -1144,6 +2022,10 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
                   f"w_abs={float(state.w_abs_gen):.1f} "
                   f"nwalk={int(state.nwalk)} steps/s={nstep / dt:.1f}",
                   flush=True)
+        if checkpoint_file is not None:
+            from ..utils.checkpoint import save_walker_state
+            state = state._replace(rng_state=gen.get_state())
+            save_walker_state(checkpoint_file, end_of_block(state))
         # equilibration auto-extension (ref: do_walk.f90:2917+)
         if (equil and iblk == n_eq_planned - 1
                 and eq_extensions < max_eq_extensions

@@ -8,9 +8,13 @@ included ("Variational energy=", "Second-order PT energy lowering=",
 The work runs on the card; ``--cpu`` runs it on the CPU instead.
 
 Ported: hamiltonian_type ``chem`` (FCIDUMP, &hf_det, point groups,
-hf_symmetry, time-reversal symmetry) and ``heg``, with run_type ``hci``
-(HCI + PT per state) or a walk (``none`` and every name outside the
-fixed-node family): Psi_T and D from the deck's trial_wf or
+hf_symmetry, time-reversal symmetry), ``heg``, ``hubbardk`` (momentum
+space) and ``hubbard2`` (real space), with run_type ``hci`` (HCI + PT per
+state) or a walk: the plain projector (``none`` and every name outside
+the fixed-node family), ``fixed_node1``-``4``, ``partial_node``,
+``release_node`` and ``sr`` with a Gutzwiller guiding function (also
+under ``importance_sampling``), the three proposal methods and the
+exponential projector.  Psi_T and D come from the deck's trial_wf or
 diff_from_psi_t cards, hf_to_psit, tau from tau_multiplier, MWALK and
 spawn capacity sized from the population.  Every other card raises
 ValueError naming its ROADMAP item.  The last line is the kernels' launch
@@ -40,24 +44,15 @@ def check_ported(cfg):
     ht = cfg.hamiltonian_type
     if ht in ("fictitious", "read", "hubbard"):
         _refuse(f"hamiltonian_type {ht!r} (the dense toy systems)", "A8")
-    if ht in ("hubbardk", "hubbard2", "hubbarddm"):
-        _refuse(f"hamiltonian_type {ht!r} (the Hubbard systems)", "A8")
-    if ht not in ("chem", "heg"):
+    if ht == "hubbarddm":
+        _refuse("hamiltonian_type 'hubbarddm' (the density-matrix basis)",
+                "A8")
+    if ht not in ("chem", "heg", "hubbardk", "hubbard2"):
         raise ValueError(f"unknown hamiltonian_type {ht!r}")
     if cfg.run_type in ("selected_ci", "trunc_lanc"):
         _refuse(f"run_type {cfg.run_type!r} (algo/legacy_ci.py)", "A8")
     if cfg.run_type == "vmc":
         _refuse("run_type 'vmc' (systems/hubbard/vmc.py)", "A8")
-    if cfg.run_type in _FIXED_NODE or cfg.importance_sampling:
-        _refuse("fixed-node run types and guiding wavefunctions",
-                "A3 remainder")
-    if cfg.run_type != "hci":
-        if cfg.proposal_method in ("uniform", "uniform2", "CauchySchwarz"):
-            _refuse(f"proposal_method {cfg.proposal_method!r}",
-                    "A3 remainder")
-        if cfg.use_exponential_projector:
-            _refuse("the exponential (continuous-time) projector",
-                    "A3 remainder")
     if cfg.get_natorbs:
         _refuse("&natorb get_natorbs (algo/rdm.py)", "A8")
     if cfg.get_greens_function:
@@ -85,6 +80,17 @@ def make_system(cfg, fcidump: str | None, device):
             time_sym=cfg.time_sym, z=cfg.z, point_group=cfg.point_group,
             hf_symmetry=cfg.hf_symmetry, hf_up_occ_in=cfg.hf_up_occ,
             hf_dn_occ_in=cfg.hf_dn_occ, device=device)
+    if cfg.hamiltonian_type == "hubbardk":
+        from .systems.hubbard.system import make_hubbard_k_system
+        return make_hubbard_k_system(cfg.l_x, cfg.l_y, cfg.t_hub, cfg.u_hub,
+                                     cfg.nup, cfg.nelec - cfg.nup,
+                                     device=device)
+    if cfg.hamiltonian_type == "hubbard2":
+        from .systems.hubbard.system import make_hubbard_real_system
+        return make_hubbard_real_system(cfg.l_x, cfg.l_y, cfg.t_hub,
+                                        cfg.u_hub, cfg.nup,
+                                        cfg.nelec - cfg.nup, pbc=cfg.pbc,
+                                        device=device)
     from .systems.heg.system import make_heg_system
     system = make_heg_system(cfg.n_dim, cfg.r_s, cfg.nelec, cfg.nup,
                              cfg.cutoff_radius, device=device)
@@ -123,9 +129,22 @@ def deduce_tau(cfg, system):
 def run_det_walk(cfg, system, verbose: bool = True):
     """SQMC walk on a determinant system driven from card input (ref:
     do_walk.f90 walk:1462), in float64 state as the JAX package's CLI
-    runs it."""
+    runs it, including the fixed-node run types with Gutzwiller guiding
+    (ref dispatch do_walk.f90:38-50; hubbard.f90 wf_type 'gutz':244-253)."""
     from .algo.semistoch import build_trial_wavefunction
     from .algo.walk import WalkConfig, run_walk
+
+    run_type = cfg.run_type if cfg.run_type in _FIXED_NODE else "none"
+    guide = None
+    guiding = "none"
+    if run_type != "none" or cfg.importance_sampling:
+        from .algo.guiding import make_gutzwiller_guiding
+        g = cfg.gutz_g if cfg.wf_type.startswith(("gutz", "cgutz")) else 1.0
+        guide = make_gutzwiller_guiding(system, g=g)
+        guiding = "gutzwiller"
+        if verbose and cfg.wf_type:
+            print(f"trial_wf_type={cfg.wf_type}")
+            print(f"g={g:8.3f}")
 
     if cfg.diff_from_psi_t and cfg.imp_iters > 0:
         from .algo.semistoch import build_trial_iterate
@@ -169,6 +188,9 @@ def run_det_walk(cfg, system, verbose: bool = True):
                   f"tau_multiplier, tau={dg[0]:13.6f}{dg[1]:13.6f}"
                   f"{cfg.tau_multiplier:10.6f}{tau:10.6f}")
 
+    proposal = {"uniform": "uniform", "uniform2": "uniform",
+                "CauchySchwarz": "cauchy_schwarz"}.get(
+                    cfg.proposal_method, "fast_heatbath")
     if verbose and cfg.proposal_method.startswith("heat_bath"):
         print(f"proposal_method {cfg.proposal_method} -> fast_heatbath "
               "(exact joint-|H| heat bath)")
@@ -198,12 +220,19 @@ def run_det_walk(cfg, system, verbose: bool = True):
         pop_ctrl_exponent=cfg.population_control_exponent,
         reweight_factor_inv_max=cfg.reweight_factor_inv_max,
         has_singles=system.has_singles, c_t_initiator=cfg.c_t_initiator,
-        time_sym=system.time_sym, z=system.z,
-        semistochastic=cfg.semistochastic)
+        run_type=run_type, partial_node_eps=cfg.partial_node_eps,
+        release_step=cfg.nstep * cfg.nblk_eq // 2 or 1,
+        guiding=guiding, time_sym=system.time_sym, z=system.z,
+        proposal=proposal,
+        use_exponential_projector=cfg.use_exponential_projector,
+        # the reference skips the deterministic projection in exponential
+        # mode (do_walk.f90:2255)
+        semistochastic=cfg.semistochastic
+        and not cfg.use_exponential_projector)
     out = run_walk(system, trial, wcfg, nstep=cfg.nstep, nblk=cfg.nblk,
                    nblk_eq=cfg.nblk_eq, w_abs_begin=cfg.w_abs_begin,
                    e_trial_initial=cfg.e_trial_initial or trial.e_trial,
-                   seed=cfg.seeds[0], verbose=verbose)
+                   seed=cfg.seeds[0], verbose=verbose, guide=guide)
     if verbose:
         print(f"walk: measured_gens={out.n_measured} "
               f"gen_per_s={out.steps_per_sec:.3f} "

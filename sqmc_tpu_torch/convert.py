@@ -20,6 +20,7 @@ import torch
 from .algo.hci import HCIResult
 from .algo.semistoch import TrialWavefunction, load_trial, trial_from_arrays
 from .algo.sparseham import SparseHam
+from .algo.guiding import Guiding
 from .algo.walk import WalkState
 from .systems.base import FermionSystem
 from .systems.chem.integrals import IntegralTable
@@ -40,9 +41,6 @@ def _opt(x, dtype, device):
 
 def table_from_numpy(t, device="cuda") -> IntegralTable:
     """IntegralTable from an object with the sqmc_tpu IntegralTable fields."""
-    if getattr(t, "heg_mod", None) is not None:
-        raise ValueError("modular momentum conservation (Hubbard-k) is not "
-                         "ported")
     return IntegralTable(
         norb=int(t.norb), core_energy=float(t.core_energy),
         h=_opt(t.h, np.float64, device),
@@ -53,7 +51,8 @@ def table_from_numpy(t, device="cuda") -> IntegralTable:
         sing_dir=_opt(t.sing_dir, np.float64, device),
         sing_exch=_opt(t.sing_exch, np.float64, device),
         heg_V=_opt(t.heg_V, np.float64, device),
-        heg_rel=_opt(t.heg_rel, np.int64, device))
+        heg_rel=_opt(t.heg_rel, np.int64, device),
+        heg_mod=_opt(getattr(t, "heg_mod", None), np.int64, device))
 
 
 def system_from_numpy(s, device="cuda") -> FermionSystem:
@@ -119,6 +118,17 @@ def trial_from_npz(src, device="cuda") -> TrialWavefunction:
                    h_rows=ham.rows, h_cols=ham.cols, h_vals=ham.vals,
                    h_diag=ham.diag)
     return trial_from_arrays(src, device=device)
+
+
+def guiding_from_numpy(g, device="cuda") -> Guiding:
+    """Guiding from an object with the sqmc_tpu Guiding fields."""
+    def f64(x):
+        return torch.as_tensor(np.array(x, dtype=np.float64), device=device)
+
+    return Guiding(phi_up=f64(g.phi_up), phi_dn=f64(g.phi_dn), g=f64(g.g),
+                   tab_up=words_to_torch(g.tab_up, device),
+                   tab_dn=words_to_torch(g.tab_dn, device),
+                   tab_val=f64(g.tab_val))
 
 
 def walk_state_from_numpy(st, f32_state: bool = False,

@@ -83,13 +83,17 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
 
 
 def to_bits(words: torch.Tensor, norb: int) -> torch.Tensor:
-    """Unpack words [..., W] to a dense occupancy uint8[..., norb]."""
-    W = words.shape[-1]
-    shifts = torch.arange(BITS_PER_WORD, dtype=torch.int64,
-                          device=words.device)
-    bits = (words[..., :, None] >> shifts) & 1
-    bits = bits.reshape(*words.shape[:-1], W * BITS_PER_WORD)
-    return bits[..., :norb].to(torch.uint8)
+    """Unpack words [..., W] to a dense occupancy uint8[..., norb] (only
+    the norb bits in use are expanded)."""
+    parts = []
+    for w in range(words.shape[-1]):
+        nb = min(BITS_PER_WORD, norb - BITS_PER_WORD * w)
+        if nb <= 0:
+            break
+        shifts = torch.arange(nb, dtype=torch.int64, device=words.device)
+        parts.append((words[..., w, None] >> shifts) & 1)
+    bits = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return bits.to(torch.uint8)
 
 
 def from_bits(bits: torch.Tensor, norb: int) -> torch.Tensor:

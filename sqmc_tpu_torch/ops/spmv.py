@@ -98,15 +98,7 @@ def ell_from_coo(n: int, rows, cols, vals, diag=None, k_max: int | None = None):
     return ell_cols, ell_vals, K, row_ptr, row_nnz
 
 
-def blockell_from_coo(n: int, rows, cols, vals, diag=None, dtype=np.float32):
-    """Symmetric upper COO (+ diag) -> 128-slot row-block layout.
-
-    Returns (ell_cols [P] int32, ell_vals [P] dtype, ell_row [P/128] int32,
-    row_ptr [n + 1] int64, row_nnz [n] int32): the first three equal
-    sqmc_tpu's ``blockell_from_coo`` (float32 values by default); every row
-    owns at least one block and holds row_nnz entries at its start."""
-    r_all, c_all, v_all, counts, rank = _symmetric_sorted(n, rows, cols,
-                                                          vals, diag)
+def _blockell_layout(n, r_all, c_all, v_all, counts, rank, dtype):
     nb_r = np.maximum(1, -(-counts // SLOTS))
     row_ptr = np.concatenate([[0], np.cumsum(nb_r)]).astype(np.int64) * SLOTS
     P = int(row_ptr[-1])
@@ -117,6 +109,31 @@ def blockell_from_coo(n: int, rows, cols, vals, diag=None, dtype=np.float32):
     ell_vals[slot] = v_all
     ell_row = np.repeat(np.arange(n, dtype=np.int32), nb_r)
     return ell_cols, ell_vals, ell_row, row_ptr, counts.astype(np.int32)
+
+
+def blockell_from_coo(n: int, rows, cols, vals, diag=None, dtype=np.float32):
+    """Symmetric upper COO (+ diag) -> 128-slot row-block layout.
+
+    Returns (ell_cols [P] int32, ell_vals [P] dtype, ell_row [P/128] int32,
+    row_ptr [n + 1] int64, row_nnz [n] int32): the first three equal
+    sqmc_tpu's ``blockell_from_coo`` (float32 values by default); every row
+    owns at least one block and holds row_nnz entries at its start."""
+    return _blockell_layout(n, *_symmetric_sorted(n, rows, cols, vals, diag),
+                            dtype)
+
+
+def blockell_from_full_coo(n: int, rows, cols, vals, dtype=np.float32):
+    """Row-complete COO of any (not necessarily symmetric) matrix -> the
+    same 128-slot row-block layout and outputs as :func:`blockell_from_coo`.
+    Every entry is stored once, explicit zeros included; entries keep
+    their order within a row; a row without entries owns one empty block
+    (row_nnz 0)."""
+    rows, cols, vals = _np(rows), _np(cols), _np(vals)
+    order = np.argsort(rows, kind="stable")
+    r_all, c_all, v_all = rows[order], cols[order], vals[order]
+    counts = np.bincount(r_all, minlength=n)
+    rank = np.arange(len(r_all)) - np.concatenate([[0], np.cumsum(counts)])[r_all]
+    return _blockell_layout(n, r_all, c_all, v_all, counts, rank, dtype)
 
 
 # ---------------------------------------------------------------------------

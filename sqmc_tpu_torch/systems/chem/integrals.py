@@ -6,7 +6,8 @@ Two backends behind one dataclass:
   * dense: molecular integrals in the 8-fold-symmetric compact array
     (ref: chemistry.f90:538 read_integrals, :9106 integral_index);
   * analytic HEG: (pq|rs) = V(k_p - k_q) under momentum conservation,
-    evaluated on the fly from O(norb^2) tables.
+    evaluated on the fly from O(norb^2) tables; with ``heg_mod`` the
+    conservation holds modulo the reciprocal lattice (Hubbard-k umklapp).
 
 Derived matrices: D[p,q]=(pp|qq), X[p,q]=(pq|qp), and the single-
 excitation tensors sing_dir[(p,r),q]=(pr|qq), sing_exch[(p,r),q]=(pq|qr).
@@ -36,6 +37,12 @@ def pair_index(a, b):
 quad_index = pair_index          # same formula over pair indices
 
 
+def n_eri(norb: int) -> int:
+    """Length of the compact 8-fold-symmetric two-electron array."""
+    npair = norb * (norb + 1) // 2
+    return npair * (npair + 1) // 2
+
+
 def _f64(x, device):
     return torch.as_tensor(np.asarray(x, np.float64), device=device)
 
@@ -45,7 +52,8 @@ class IntegralTable:
     """All integrals for one system.  Dense backend: ``eri`` holds the
     compact two-electron array.  HEG backend: ``eri`` is None, ``heg_V``
     [norb,norb] holds V(k_p-k_q) and ``heg_rel`` [norb,dim] the integer
-    k-vectors."""
+    k-vectors; ``heg_mod`` [dim], when set, makes momentum conservation
+    modular (Hubbard-k umklapp)."""
 
     norb: int
     core_energy: float
@@ -58,6 +66,7 @@ class IntegralTable:
     sing_exch: torch.Tensor | None = None
     heg_V: torch.Tensor | None = None
     heg_rel: torch.Tensor | None = None
+    heg_mod: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -86,9 +95,13 @@ class IntegralTable:
 
     @staticmethod
     def from_heg(h: np.ndarray, V: np.ndarray, k_rel: np.ndarray,
+                 mod: np.ndarray | None = None,
                  device="cuda") -> "IntegralTable":
-        """Momentum-space system with (pq|rs) = V[p,q] under exact momentum
-        conservation: D[p,q] = V[p,p], X[p,q] = V[p,q]."""
+        """Momentum-space system with (pq|rs) = V[p,q] under momentum
+        conservation, exact or (with `mod`) modulo the reciprocal lattice:
+        D[p,q] = V[p,p], X[p,q] = V[p,q].  For jellium V has a zero
+        diagonal; for Hubbard-k V = U/N everywhere and `mod` = (2Lx, 2Ly)
+        brings the umklapp terms."""
         norb = h.shape[0]
         V = np.asarray(V, np.float64)
         D = np.broadcast_to(np.diag(V)[:, None], (norb, norb)).copy()
@@ -98,7 +111,9 @@ class IntegralTable:
             direct=_f64(D, device), exchange=_f64(V, device),
             heg_V=_f64(V, device),
             heg_rel=torch.as_tensor(np.asarray(k_rel, np.int64),
-                                    device=device))
+                                    device=device),
+            heg_mod=None if mod is None else torch.as_tensor(
+                np.asarray(mod, np.int64), device=device))
 
     def to(self, device) -> "IntegralTable":
         """The same table with every tensor on `device`."""
@@ -114,6 +129,10 @@ class IntegralTable:
             return self.eri[quad_index(pair_index(p, q), pair_index(r, s))]
         rel = self.heg_rel
         d = rel[p] - rel[q] + rel[r] - rel[s]
+        if self.heg_mod is not None:
+            # remainder is non-negative for a positive modulus, as numpy's
+            # % is (fmod and the C % keep the dividend's sign)
+            d = torch.remainder(d, self.heg_mod)
         conserve = (d == 0).all(dim=-1)
         return torch.where(conserve, self.heg_V[p, q],
                            torch.zeros((), dtype=torch.float64,
@@ -128,4 +147,6 @@ class IntegralTable:
         rel = self.heg_rel.cpu().numpy()
         V = self.heg_V.cpu().numpy()
         d = rel[p] - rel[q] + rel[r] - rel[s]
+        if self.heg_mod is not None:
+            d = d % self.heg_mod.cpu().numpy()
         return np.where(np.all(d == 0, axis=-1), V[p, q], 0.0)

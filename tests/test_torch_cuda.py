@@ -615,3 +615,139 @@ def test_time_sym_walk_kernel_vs_plain_scan(monkeypatch):
     plain, _ = trace()
     assert tseg.launches == before + 20
     np.testing.assert_allclose(kern, plain, rtol=1e-9, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-node walks on the card: a non-symmetric projector through K2, and
+# a merge with redirected spawns through K1
+# ---------------------------------------------------------------------------
+
+def _fixed_node_setup(dev, run_type, n_imp, **cfg_opts):
+    """The 2x3 open real-space Hubbard lattice (2 + 2 electrons, 225 dets,
+    240 sign-violating transformed elements) on `dev` with Gutzwiller
+    guiding from the orbitals of h plus a small random site potential (so
+    no det sits on a node), a trial with a deterministic space of at most
+    n_imp dets, and the walk tables of `run_type`."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.guiding import make_gutzwiller_guiding
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_real_system
+    s = make_hubbard_real_system(2, 3, 1.0, 4.0, 2, 2, pbc=False, device=dev)
+    pot = 0.3 * np.random.default_rng(4).normal(size=6)
+    _, phi = np.linalg.eigh(s.table.h.cpu().numpy() + np.diag(pot))
+    guide = make_gutzwiller_guiding(s, g=0.7, phi_up=phi[:, :2],
+                                    phi_dn=phi[:, :2])
+    trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=40, n_imp=n_imp)
+    cfg = TW.WalkConfig(mwalk=4096, cap_spawn=8192, norb=6, nup=2, ndn=2,
+                        n_words=1, tau=1e-2, w_abs_target=2000.0,
+                        has_singles=True, r_initiator=0.0, run_type=run_type,
+                        guiding="gutzwiller", cap_fresh=2048, **cfg_opts)
+    return s, guide, trial, cfg, TW.build_walk_tables(s, trial, cfg,
+                                                      guide=guide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-13)])
+@pytest.mark.parametrize("run_type", ["fixed_node1", "fixed_node3"])
+def test_spmv_kernel_on_fixed_node_matrix(run_type, dtype, rtol):
+    """K2 on the importance-transformed fixed-node projector of the
+    lattice's whole 225-det space: NOT symmetric (violators zeroed, their column
+    sums on the diagonal), with explicit zeros where fixed_node3 dropped
+    a violator, and with one row emptied of every off-diagonal entry.
+    m = 1 (the walk's call): every row within rtol x sum_k |v_k x_k| of
+    the plain version; the empty row gives exactly 0."""
+    dev = _device()
+    f32 = dtype == torch.float32
+    _, _, trial, cfg, tab = _fixed_node_setup(
+        dev, run_type, 10 ** 4, f32_state=f32, dense_proj_max=0)
+    n = len(trial.imp_up)
+    r, c, v = (t.cpu().numpy() for t in (tab.imp_rows, tab.imp_cols,
+                                         tab.imp_vals))
+    A = np.zeros((n, n))
+    A[r, c] = v
+    assert np.abs(A - A.T).max() > 1e-3                  # not symmetric
+    off = r != c
+    if run_type == "fixed_node3":
+        assert (v[off] == 0).any()                       # dropped violators
+    assert tab.imp_ell_vals.dtype == dtype and tab.imp_dense.numel() == 0
+    empty = int(np.argmax(np.bincount(r[off], minlength=n)))
+    keep = off & (r != empty)
+    ec, ev, _, ep, en = tspmv.blockell_from_full_coo(
+        n, r[keep], c[keep], v[keep],
+        dtype=np.float32 if f32 else np.float64)
+    assert en[empty] == 0
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(n),
+                        device=dev).to(dtype)
+    layouts = {"walk tables": (tab.imp_ell_cols, tab.imp_ell_vals,
+                               tab.imp_ell_ptr, tab.imp_ell_nnz),
+               "one row emptied": tuple(torch.as_tensor(a, device=dev)
+                                        for a in (ec, ev, ep, en))}
+    for name, (cols, vals, ptr, cnt) in layouts.items():
+        before = tspmv.launches
+        y = tspmv.spmv(x, cols, vals, ptr, cnt)
+        assert tspmv.launches == before + 1, name
+        ref = tspmv.spmv_plain(x, cols, vals, ptr, cnt)
+        bound = tspmv.spmv_plain(x.abs().double(), cols, vals.abs().double(),
+                                 ptr, cnt)
+        assert bool(((y.double() - ref.double()).abs() <= rtol * bound).all()), name
+        assert torch.equal(y, tspmv.spmv(x, cols, vals, ptr, cnt)), name
+    assert float(y[empty]) == 0.0
+
+
+@pytest.mark.cuda
+def test_seg_scan_on_redirected_spawn_merge(monkeypatch):
+    """K1 on the merge of a fixed_node1 walk, where sign-violating spawns
+    were redirected to their parents (rows that share the parent's key,
+    imp code 126): every generation's scan is recorded and held against
+    the plain version on the same rows - integer fields (priority min,
+    initiator max, C(T) index max) bit for bit, float sums within the
+    rounding bound of the two association orders."""
+    from sqmc_tpu_torch.algo import walk as TW
+    dev = _device()
+    _, _, trial, cfg, tab = _fixed_node_setup(dev, "fixed_node1", 20)
+    calls = []
+    real = tseg.seg_scan
+
+    def recording(fields, ops, start):
+        out = real(fields, ops, start)
+        calls.append((fields, ops, start, out))
+        return out
+
+    monkeypatch.setattr(tseg, "seg_scan", recording)
+    st = TW.init_walk_state(cfg, trial, 1500.0, trial.e_trial, tab)
+    before = tseg.launches
+    st, _ = TW.walk_block(st, tab, cfg, 8,
+                          torch.Generator(device=dev).manual_seed(3))
+    assert tseg.launches == before + 8 and len(calls) == 8
+    redirected = 0
+    for fields, ops, start, got in calls:
+        _check_scan(fields, ops, start, got)
+        # priority value of a redirected spawn row: imp 126 -> u = 127
+        redirected += int((fields[0] == 127).sum())
+    assert redirected > 100
+    assert not bool(st.overflow)
+
+
+@pytest.mark.cuda
+def test_fixed_node_walk_on_card_matches_cpu():
+    """Deterministic-limit generations of a fixed_node3 walk (D = the
+    whole 225-det space of the lattice, f64 state) on the card - K2 on the
+    non-symmetric projector, K1 in the merge, guiding ratios on the card -
+    equal the CPU's to 1e-10."""
+    from sqmc_tpu_torch.algo import walk as TW
+
+    def trace(dev):
+        _, _, trial, cfg, tab = _fixed_node_setup(dev, "fixed_node3", 10 ** 4)
+        st = TW.init_walk_state(cfg, trial, 1500.0, trial.e_trial, tab)
+        st, stats = TW.walk_block(st, tab, cfg, 6,
+                                  torch.Generator(device=dev).manual_seed(0))
+        return torch.stack([stats[k] for k in ("e_num_gen", "e_den_gen",
+                                               "w_abs_gen", "nwalk")]
+                           ).cpu().numpy()
+
+    dev = _device()
+    before, sp_before = tseg.launches, tspmv.launches
+    card = trace(dev)
+    assert tseg.launches == before + 6 and tspmv.launches == sp_before + 6
+    np.testing.assert_allclose(card, trace("cpu"), rtol=1e-10, atol=0)

@@ -14,6 +14,10 @@ def test_port_imports_without_jax():
         for p in (ROOT / "sqmc_tpu_torch").rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    for new in ("sqmc_tpu_torch.algo.guiding",
+                "sqmc_tpu_torch.systems.hubbard.system",
+                "sqmc_tpu_torch.utils.checkpoint"):
+        assert new in mods, new
     code = (
         "import sys\n"
         "for m in [m for m in sys.modules if m.split('.')[0] == 'jax']:\n"
@@ -30,4 +34,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(mods) >= 15
+    assert int(out.stdout.strip()) == len(mods) >= 19

@@ -141,10 +141,14 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 def test_unported_options_raise(fcidump):
     """Options that stay unported raise ValueError: the mesh, the
-    wavefunction cache, the active space and ARPACK in run_hci, and every
-    WalkConfig option other than time_sym (time_sym, z, point_group and
-    hf_symmetry are ported: tests/test_torch_timesym*.py)."""
-    from sqmc_tpu_torch.algo.walk import WalkConfig
+    wavefunction cache, the active space and ARPACK in run_hci; in
+    WalkConfig the sharding and the JAX package's capacity workarounds,
+    and (as in the JAX package) an unknown name, a fixed-node run without
+    a guiding function or a sector other than +1 / -1.  The exponential
+    projector on a time-symmetrized system is refused where the JAX
+    package refuses it, in build_walk_tables."""
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
     s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
     for kw in (dict(mesh=object()), dict(wf_cache_dir="wf"),
                dict(active_space=(1, 1, 4)), dict(diagonalizer="arpack")):
@@ -153,11 +157,15 @@ def test_unported_options_raise(fcidump):
     c = t_chem(fcidump, device="cpu", time_sym=True, point_group="d2h")
     base = dict(norb=c.norb, nup=c.nup, ndn=c.ndn, n_words=1, mwalk=1024,
                 cap_spawn=4096, tau=5e-3, w_abs_target=500.0, time_sym=True)
-    for kw in (dict(use_exponential_projector=True),
-               dict(run_type="fixed_node1"), dict(proposal="uniform"),
-               dict(proposal="cauchy_schwarz"), dict(guiding="table"),
-               dict(full_sort_merge=False), dict(initiator_rule="sequential"),
-               dict(axis_name="d"), dict(ct_in_d=True), dict(proj_bf16=True),
+    for kw in (dict(axis_name="d"), dict(n_dev=2), dict(cap_compact=512),
+               dict(cap_single=512), dict(run_type="fixed_node1"),
+               dict(run_type="vmc"), dict(proposal="heat_bath3"),
+               dict(guiding="jastrow"), dict(initiator_rule="first"),
                dict(z=2)):
         with pytest.raises(ValueError):
             WalkConfig(**base, **kw)
+    trial = build_trial_wavefunction(c, eps_var=1e-2, n_psi_t=4, n_imp=1)
+    with pytest.raises(NotImplementedError, match="time-reversal"):
+        build_walk_tables(c, trial, WalkConfig(
+            **base, semistochastic=False, use_exponential_projector=True,
+            ct_mode="generic"))

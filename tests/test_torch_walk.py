@@ -134,13 +134,22 @@ def test_run_walk_exact_energy(exact):
 
 
 def test_unported_options_raise():
+    """Sharding and the JAX package's capacity workarounds are not part of
+    the port; an unknown name or a fixed-node run without a guide raises
+    as in the JAX package; every other option is accepted."""
     base = dict(norb=4, nup=2, ndn=2, **KW)
-    for opt in (dict(time_sym=True, z=0), dict(use_exponential_projector=True),
-                dict(run_type="fixed_node1"), dict(proposal="uniform"),
-                dict(proposal="cauchy_schwarz"), dict(axis_name="d"),
-                dict(ct_in_d=True), dict(full_sort_merge=False),
+    for opt in (dict(time_sym=True, z=0), dict(axis_name="d"), dict(n_dev=4),
                 dict(cap_compact=64), dict(cap_single=64),
-                dict(initiator_rule="sequential"), dict(guiding="table"),
-                dict(proj_bf16=True)):
+                dict(run_type="fixed_node1"), dict(run_type="vmc"),
+                dict(proposal="heat_bath2"), dict(initiator_rule="pairwise"),
+                dict(guiding="jastrow")):
         with pytest.raises(ValueError):
             TW.WalkConfig(**base, **opt)
+    for opt in (dict(use_exponential_projector=True, ct_mode="heg"),
+                dict(run_type="fixed_node1", guiding="gutzwiller"),
+                dict(run_type="sr", guiding="table", sr_nwalk=100),
+                dict(proposal="uniform"), dict(proposal="cauchy_schwarz"),
+                dict(ct_in_d=True), dict(full_sort_merge=False, cap_new=64),
+                dict(initiator_rule="sequential"), dict(proj_bf16=True),
+                dict(det_hash=False)):
+        TW.WalkConfig(**base, **opt)
