@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase (one card)
     python3 chip_smoke.py --kernels   # phases 0-2c only, then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
+    python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -51,7 +52,7 @@ Phases, each reported on its own line; any failure exits nonzero:
      process run_hci(device_davidson=True) on the same system (K2 with
      m = 2) within 1e-6 of the CLI's E_var and K2 against its plain
      version on the symmetrized H, then a time-symmetrized walk deck at
-     the bench's population (2e5, min_wt 0.5, f64 state, auto MWALK, 4 + 4
+     the bench's population (2e5, min_wt 0.5, f64 state, auto MWALK, 3 + 3
      blocks of 100 generations) gated on capacity, population and
      e_mixed within max(5 sigma, 2 mHa) of E_var + PT; 6c the 6-orbital
      time-symmetrized oracle (D = the whole space) at the exact e0 to
@@ -93,11 +94,44 @@ Phases, each reported on its own line; any failure exits nonzero:
      support there); the sequential initiator rule and the two-level merge
      in the deterministic limit against the full-sort group-max trace
      (1e-10); save, load and resume of a walker state giving the same
-     next block as the uninterrupted run.
+     next block as the uninterrupted run;
+  8. the small-model family (decks and logs in build/smoke_phase8/):
+     8a the dense `hubbard` deck through the CLI at full width, the 3x3
+     periodic cluster at U/t = 4 with 4 + 4 electrons (15,876 dets, a
+     2.02 GB float64 matrix on the card), run_type none and fixed_node1
+     with importance sampling, Psi_T = the 1,000 largest dets of the
+     ground state through the cards; oracle: Davidson on the SpMV kernel
+     over the whole determinant space of the real-space system; gates:
+     |e_mixed - e0| < max(5 sigma, 2 mHa) for none, e_mixed >= e0 - 5
+     sigma for fixed_node1, population within 10% of its target; prints
+     gen/s, the device ms per generation and the matvec's bytes bound;
+     8b the `fictitious` system at ndet 16,384 (2.15 GB): bosonic 1 with
+     the plain projector and bosonic 0 with partial_node (eps 0.5)
+     through the CLI, each deck's own torch.linalg.eigh on the card as
+     the exact oracle and the deterministic limit of the partial-node
+     projector as its oracle; release_node and sr on the same matrix in
+     this process; prints the seconds the matrix and the eigh took;
+     8c the 1x8 chain through both walk engines (dense-vector and
+     determinant), fixed_node1, one guiding function, tau and population:
+     within 5 combined sigma of each other and within 4 seed scatters of
+     the exact energy;
+     8d Gutzwiller VMC on the 4x4 cluster (5 + 5, U/t = 4): g = 1 against
+     the Slater determinant's energy from Wick's theorem (5 sigma), the
+     `hubbard2` deck with run_type vmc at g = 0.7 between e0 and that
+     energy; CPMC on the same cluster (1,024 walkers, tau 0.05) within 1%
+     of e0 = -19.58094, with its orthonormalization timed as Cholesky-QR
+     and as torch.linalg.qr; the density-matrix block basis on the 4x2
+     cluster at 4 + 4 (4,900 dets): spectrum of the exact rotation equal
+     to the real-space one to 1e-9, a truncated basis variational;
+     8e restart artifacts on HEG-14: the HCI deck with dump_wf_var run
+     twice in a fresh directory (the second run reads the cache, skips
+     the variational stage and prints the same energies), the
+     reference-format files written and read back, a 200-generation walk
+     writing its walkalize trace.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
-launches from phases 3 and 7, spmv's from phases 4 and 7, each path
+launches from phases 3, 7 and 8, spmv's from phases 4, 7 and 8, each path
 counted from 0; errors and times measured
 here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
 m = 1 shape) and ``{"ok": true, "device": {...}}``.
@@ -118,7 +152,7 @@ EPS_VAR = 1e-3
 GOLD_NDET, GOLD_EVAR = 9475, 58.276906085
 ORACLE = 58.275966889                 # E_var + deterministic PT (eps_pt 2e-7)
 W_TARGET, W_BEGIN = 200_000.0, 140_000.0
-NSTEP, NBLK_EQ, NBLK = 100, 12, 15    # 1,200 equilibration + 1,500 measured
+NSTEP, NBLK_EQ, NBLK = 100, 12, 10    # 1,200 equilibration + 1,000 measured
 MERGE_N = 458_752 + 262_144           # walk merge rows: mwalk + cap_spawn
 
 
@@ -800,7 +834,7 @@ f                                  dump_wf_var
 C2_W_TARGET = 200_000.0
 C2_WALK_DECK = f"""\
 11 7                               irand_seed
-100 4 4 0                          nstep,nblk,nblk_eq,ipr
+100 3 3 0                          nstep,nblk,nblk_eq,ipr
 140000 {C2_W_TARGET:.0f} 0                w_abs_gen_begin, w_abs_gen_target, MWALK
 0.1 0.                             tau_multiplier, tau
 1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
@@ -1141,16 +1175,18 @@ HUB2_W, HUB2_TAU_MAX, HUB2_G, HUB2_EPS = 100_000.0, 1e-3, 0.6, 0.03
 COUNTS7 = dict(seg_scan=0, spmv=0)    # phase 7's launches, path by path
 
 
-def _counted(fn):
+def _counted(fn, total=None):
     """Run fn() with both kernel counts set to 0 just before and read just
-    after; adds them to COUNTS7 and returns (result, counts)."""
+    after; adds them to `total` (COUNTS7 unless given) and returns (result,
+    counts)."""
     from sqmc_tpu_torch.ops import segscan, spmv
     segscan.reset_launches()
     spmv.reset_launches()
     out = fn()
     c = dict(seg_scan=segscan.launches, spmv=spmv.launches)
+    total = COUNTS7 if total is None else total
     for k in c:
-        COUNTS7[k] += c[k]
+        total[k] += c[k]
     return out, c
 
 
@@ -1234,7 +1270,7 @@ def phase_hubbard_k(dev, workdir, smi):
     # The population (an L1 norm) more than doubles while Psi_T's 2,000 dets
     # spread over ~2.4e5, so the walks start well below the target.
     runs = (("linear", dict(tau=HUB_TAU, spawn_granularity=2.0,
-                            r_initiator=0.5), 14, 8, 100, 0.5 * HUB_W),
+                            r_initiator=0.5), 14, 6, 100, 0.5 * HUB_W),
             ("ct", dict(tau=HUB_CT_TAU, semistochastic=False,
                         use_exponential_projector=True, r_initiator=1.0),
              4, 6, 50, 0.8 * HUB_W))
@@ -1416,7 +1452,9 @@ def phase_fixed_node_oracles(dev, workdir):
     """7c, first part: guided walks on enumerable lattices against the
     dense fixed-node oracle, within 6 max(sigma, 1e-4) + 1e-3; the chain
     also as a fixed_node1 deck through the CLI (Gutzwiller guiding set up
-    from the wf_type and g cards), within max(6 sigma, 5e-3) of e0."""
+    from the wf_type and g cards), within 4 seed scatters of e0 (the
+    deck's e_mixed scatters by 3.1e-3 over seeds, 1.3 times its blocking
+    error bar: tools/chain_seed_scatter.py)."""
     import re
     import numpy as np
     import torch
@@ -1458,7 +1496,7 @@ def phase_fixed_node_oracles(dev, workdir):
             log(f"phase 7c chain_1x8 fixed_node1 cli: e0={e0:.6f} "
                 f"e_mixed={e_cli:.6f} +- {err_cli:.6f} seconds={sec:.2f}")
             if "trial_wf_type=gutz" not in text or c["seg_scan"] <= 0 \
-                    or not abs(e_cli - e0) < max(6 * err_cli, 5e-3):
+                    or not abs(e_cli - e0) < 4 * CHAIN_SCATTER_DET:
                 raise AssertionError("7c: the hubbard2 fixed_node1 deck "
                                      "missed the chain's e0")
         for run_type, opts, eps in runs:
@@ -1471,7 +1509,7 @@ def phase_fixed_node_oracles(dev, workdir):
                              guiding="gutzwiller", **opts)
             t0 = time.time()
             out, c = _counted(lambda: run_walk(
-                s, trial, cfg, nstep=100, nblk=4, nblk_eq=3,
+                s, trial, cfg, nstep=100, nblk=2, nblk_eq=2,
                 w_abs_begin=1500.0, e_trial_initial=target, verbose=False,
                 guide=guide, seed=2))
             gate = 6 * max(out.e_err, 1e-4) + 1e-3
@@ -1529,7 +1567,7 @@ def phase_ct_and_proposal_oracles(dev, heg14, heg14_trial):
                          r_initiator=0.0, **kw)
         t0 = time.time()
         out, c = _counted(lambda: run_walk(
-            s, trial, cfg, nstep=nstep, nblk=5, nblk_eq=2, w_abs_begin=1500.0,
+            s, trial, cfg, nstep=nstep, nblk=3, nblk_eq=2, w_abs_begin=1500.0,
             e_trial_initial=e0, verbose=False, max_eq_extensions=0, seed=1))
         gate = 6 * max(out.e_err, 5e-6) + floor
         log(f"phase 7c {name}: tau={cfg.tau:g} e0={e0:.9f} "
@@ -1545,7 +1583,7 @@ def phase_ct_and_proposal_oracles(dev, heg14, heg14_trial):
                      has_singles=False, proposal="uniform")
     t0 = time.time()
     out, c = _counted(lambda: run_walk(
-        heg14, heg14_trial, cfg, nstep=100, nblk=4, nblk_eq=4,
+        heg14, heg14_trial, cfg, nstep=100, nblk=3, nblk_eq=3,
         w_abs_begin=W_TARGET, e_trial_initial=heg14_trial.e_trial,
         verbose=False, max_eq_extensions=1, seed=3))
     pop, dev_, gate = _gate_walk("7c uniform heg-14", out, W_TARGET, ORACLE,
@@ -1645,6 +1683,566 @@ def phase_hubbard(dev, smi, heg14=None, heg14_trial=None):
         f"7c={time.time() - t2:.2f} seconds")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the small-model family (dense-vector walk, VMC / CPMC, restart
+# artifacts)
+# ---------------------------------------------------------------------------
+
+# Seed scatter of e_mixed on the 1x8 chain deck's configuration (standard
+# deviation over 8 seeds on the CPU, tools/chain_seed_scatter.py): the
+# blocking error bar of one run is 1.2-1.3 times too small there, so the
+# chain gates are a multiple of the scatter, not of the run's own sigma.
+CHAIN_SCATTER_DET, CHAIN_SCATTER_DENSE = 3.124e-3, 1.042e-3
+COUNTS8 = dict(seg_scan=0, spmv=0)    # phase 8's launches, path by path
+
+DENSE_WALK_CARDS = """\
+{seed} 7                               irand_seed
+100 {nblk} {nblk_eq} 0                 nstep,nblk,nblk_eq,ipr
+200000 200000 0                    w_abs_gen_begin, w_abs_gen_target, MWALK
+0.5 {tau}                          tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+{pop_ctrl} {e_trial} 0.5           population_control_expon, e_trial_initial, min_wt
+heat_bath2 {imp} 0. 0 1.           proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+{run_type}
+.false. f                          semistochastic, use_exponential_projector
+{psi_g}"""
+HUBBARD_DENSE_CARDS = """\
+'hubbard' 0                        hamiltonian_type,ipr
+3 3                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+4 4                                n_alpha, n_beta
+0                                  diagonalize_ham
+{ndet_psi_t}                       ndet_psi_t
+{iwdet} iwdet_psi_t
+{cdet} cdet_psi_t
+"""
+HUB_DENSE_NPSIT = 1000                # Psi_T dets of the 8a decks
+FICT_NDET = 16384
+FICTITIOUS_CARDS = """\
+'fictitious' 0                     hamiltonian_type,ipr
+{bosonic} 1. 0.5 0.5 0.5           bosonic, spectrum_coef, spectrum_power, ham_diag_fluc, ham_offdiag_fluc
+{ndet}                             ndet
+1                                  diagonalize_ham
+1                                  ndet_psi_t
+1                                  iwdet_psi_t
+0.0078125                          cdet_psi_t
+"""
+HUB2_VMC_DECK = """\
+7 3                                irand_seed
+100 4 2 0                          nstep,nblk,nblk_eq,ipr
+1500 3000 4096                     w_abs_gen_begin, w_abs_gen_target, MWALK
+0.3 0.02                           tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+fast_heatbath 0 0. 0 1.            proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+vmc                                run_type
+.false. f                          semistochastic, use_exponential_projector
+'hubbard2' 0                       hamiltonian_type,ipr
+4 4                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+5 5                                n_alpha, n_beta
+gutz                               wf_type
+{g}                                g
+0                                  diagonalize_ham
+"""
+
+
+def _dense_deck(system_cards, run_type, imp, seed, tau="0.", nblk=25,
+                nblk_eq=15, eps=None, e_trial="0.", pop_ctrl="10."):
+    """A dense-engine walk deck: the walk cards, then the system's.  The
+    dense engine's run_dense_walk counts nblk as all blocks, the first nblk_eq of them
+    equilibration."""
+    rt = f"{run_type:<34} run_type"
+    if eps is not None:
+        rt += f"\n{eps:<34} partial_node_eps"
+    psi_g = "0. 0.                              psi_g_energy, psi_g_epsilon\n" \
+        if imp else ""
+    return DENSE_WALK_CARDS.format(seed=seed, nblk=nblk, nblk_eq=nblk_eq,
+                                   tau=tau, imp=imp, run_type=rt,
+                                   psi_g=psi_g, e_trial=e_trial,
+                                   pop_ctrl=pop_ctrl) + system_cards
+
+
+def _dense_cli(tag, deck, workdir):
+    """Run a dense-engine deck through the CLI on the card.  Returns a dict
+    of what it printed: e_mixed, e_err, the walk's rate, the population,
+    the set-up seconds."""
+    import re
+    text, sec, c = _run_cli(tag, deck, workdir)
+    if c["seg_scan"] or c["spmv"]:
+        raise AssertionError(f"{tag}: the dense engine launched a det-walk "
+                             "kernel")
+    me = re.search(r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text)
+    m = re.search(r"dense walk: measured_gens=(\d+) gen_per_s=([0-9.]+) "
+                  r"device_ms_per_gen=([0-9.]+) w_abs=([0-9.]+)", text)
+    if not (me and m):
+        log(text[-3000:])
+        raise AssertionError(f"{tag}: the deck printed no finite e_mixed")
+    e, err = map(float, me.groups())
+    out = dict(e=e, err=err, gens=int(m.group(1)), gen_per_s=float(m.group(2)),
+               ms_per_gen=float(m.group(3)), pop=float(m.group(4)),
+               seconds=sec, text=text)
+    for key, tag_ in (("t_matrix", "fictitious matrix"),
+                      ("t_eigh", "diagonalize")):
+        mm = re.search(rf"END OF {tag_} CP, REAL TIME\s+[0-9.]+\s+([0-9.]+)",
+                       text)
+        out[key] = float(mm.group(1)) if mm else float("nan")
+    if "energy_exact=" in text:
+        out["e_exact"] = _grab(text, r"Setting e_trial \(from diagonalizing "
+                                     r"Hamiltonian\) =")
+        out["tau"] = float(re.search(r"tau_multiplier, tau=\s*[0-9.]+\s*"
+                                     r"([0-9.]+)", text).group(1))
+    return out
+
+
+def _gate_dense(tag, r, oracle, target_pop=200_000.0, lower_bound_only=False,
+                floor=2e-3):
+    import math
+    d = r["e"] - oracle
+    gate = max(5 * r["err"], floor)
+    log(f"{tag}: e_mixed={r['e']:.9f} +- {r['err']:.9f} oracle={oracle:.9f} "
+        f"diff_mHa={1e3 * d:.4f} gate_mHa={1e3 * gate:.4f} pop={r['pop']:.1f} "
+        f"measured_gens={r['gens']} gen_per_s={r['gen_per_s']:.3f} "
+        f"device_ms_per_gen={r['ms_per_gen']:.4f} deck_seconds="
+        f"{r['seconds']:.2f}")
+    if not (math.isfinite(r["e"]) and math.isfinite(r["err"])):
+        raise AssertionError(f"{tag}: non-finite energy")
+    if abs(r["pop"] - target_pop) > 0.1 * target_pop:
+        raise AssertionError(f"{tag}: population {r['pop']:.0f} not within "
+                             f"10% of {target_pop:.0f}")
+    if lower_bound_only:
+        if d < -5 * r["err"]:
+            raise AssertionError(f"{tag}: e_mixed below the exact energy by "
+                                 "more than 5 sigma")
+    elif abs(d) >= gate:
+        raise AssertionError(f"{tag}: |e_mixed - oracle| = {abs(d):.6f} >= "
+                             f"{gate:.6f}")
+
+
+def phase_dense_hubbard(dev, workdir):
+    """8a: the dense `hubbard` deck through the CLI at full width: the 3x3
+    periodic cluster, U/t = 4, 4 + 4 electrons, 126^2 = 15,876 dets (H is
+    2.02 GB in f64).  The oracle is independent of the dense code: the
+    Davidson ground state over the whole determinant space of the
+    real-space system, on the SpMV kernel."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.davidson import davidson
+    from sqmc_tpu_torch.algo.hci import _rayleigh_f64
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    from sqmc_tpu_torch.ops.spmv import BlockEllSpmv
+    from sqmc_tpu_torch.systems.hubbard.system import (
+        enumerate_dets, make_hubbard_real_system)
+
+    t0 = time.time()
+    s = make_hubbard_real_system(3, 3, 1.0, 4.0, 4, 4, device=dev)
+    up, dn = (torch.as_tensor(x, device=dev) for x in enumerate_dets(9, 4, 4))
+
+    def oracle():
+        # a random start: a single det lies in one symmetry sector of the
+        # cluster, and Davidson would stay there
+        H = build_sparse_ham(s.table, up, dn, 4, 4, 9)
+        x0 = np.random.default_rng(8).standard_normal((H.n, 1))
+        evals, evecs = davidson(H, 1, initial=x0, tol=3e-6, max_iter=400,
+                                matvec_fn=BlockEllSpmv(H))
+        return H, _rayleigh_f64(H, evecs[:, 0]), evecs[:, 0]
+
+    (H, e0, vec), c = _counted(oracle, COUNTS8)
+    n = H.n
+    # Psi_T through the cards: the 1,000 dets of largest weight in the
+    # ground state with their coefficients (det index = iup * 126 + idn,
+    # 1-based in the deck).  The guiding function equals Psi_T there and is
+    # a positive constant elsewhere.  A single-det Psi_T would do for the
+    # energy, but the population control follows the cumulative mixed
+    # estimate, which the first generations on one det would dominate.
+    top = np.argsort(-np.abs(vec))[:HUB_DENSE_NPSIT]
+    vec = vec / np.linalg.norm(vec)
+    log(f"phase 8a oracle: dets={n} nonzeros={2 * len(H.vals) + n} "
+        f"e0={e0:.9f} spmv_launches={c['spmv']} largest_coef="
+        f"{float(np.abs(vec).max()):.4f} psi_t_dets={len(top)} psi_t_norm2="
+        f"{float(np.sum(vec[top] ** 2)):.4f} seconds={time.time() - t0:.2f}")
+    if n != 15876 or c["spmv"] <= 0:
+        raise AssertionError("8a: the oracle did not run on the SpMV kernel "
+                             "over the whole space")
+    cards = HUBBARD_DENSE_CARDS.format(
+        ndet_psi_t=len(top), iwdet=" ".join(str(i + 1) for i in top),
+        cdet=" ".join(f"{vec[i]:.8f}" for i in top))
+    bytes_h = n * n * 8
+    log(f"phase 8a matvec bound: H is {bytes_h / 1e9:.3f} GB in f64, "
+        f"{bytes_h / 3.35e12 * 1e3:.3f} ms per generation at 3.35 TB/s")
+    # e_trial_initial: the oracle's energy to 3 digits, as a user's estimate
+    guess = f"{e0:.3f}"
+    r = _dense_cli("8a_hubbard_dense_none",
+                   _dense_deck(cards, "none", 0, 31, tau="0.02",
+                               e_trial=guess), workdir)
+    _gate_dense("phase 8a hubbard dense none", r, e0)
+    r = _dense_cli("8a_hubbard_dense_fixed_node1",
+                   _dense_deck(cards, "fixed_node1", 1, 32, tau="0.02",
+                               e_trial=guess), workdir)
+    _gate_dense("phase 8a hubbard dense fixed_node1", r, e0,
+                lower_bound_only=True)
+    if "ndet=          15876" not in r["text"]:
+        raise AssertionError("8a: the deck did not run at 15,876 dets")
+
+
+FICT_POP_CTRL = 250.0                 # population_control_expon of the 8b decks
+
+
+def phase_dense_fictitious(dev, workdir):
+    """8b: the `fictitious` system at ndet 16,384 (2.15 GB in f64),
+    spectrum i^0.5 with fluctuations 0.5.  Through the CLI: bosonic 1 with
+    the plain projector and bosonic 0 with partial_node (eps 0.5); each
+    deck diagonalizes its matrix on the card (torch.linalg.eigh), the
+    oracle of the exact projector.  partial_node's oracle is the same
+    projector iterated here without a random draw (min_wt = 0), on the
+    deck's matrix built again from its seed; release_node and sr (eps 0)
+    run on that matrix in this process, against the deck's exact energy.
+    tau is 0.0039 here, so the decks raise population_control_expon to
+    250: a signed walk loses about 3% of |w| a generation to cancellation,
+    and at the default 10 the population settles at 0.44 of its target."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo import densewalk as dw
+    from sqmc_tpu_torch.cli import _seed4
+    from sqmc_tpu_torch.systems.toy import make_fictitious_system
+
+    def deck(bosonic, run_type, imp, seed, **kw):
+        return _dense_deck(FICTITIOUS_CARDS.format(bosonic=bosonic,
+                                                   ndet=FICT_NDET),
+                           run_type, imp, seed, pop_ctrl=f"{FICT_POP_CTRL}",
+                           **kw)
+
+    r = _dense_cli("8b_fictitious_boson_none", deck(1, "none", 0, 41), workdir)
+    log(f"phase 8b fictitious: ndet={FICT_NDET} matrix_seconds="
+        f"{r['t_matrix']:.2f} eigh_seconds={r['t_eigh']:.2f} tau={r['tau']:.6f}")
+    if f"ndet={FICT_NDET:15d}" not in r["text"]:
+        raise AssertionError("8b: the deck did not run at full width")
+    _gate_dense("phase 8b fictitious bosonic none", r, r["e_exact"])
+
+    r = _dense_cli("8b_fictitious_fermi_partial_node",
+                   deck(0, "partial_node", 1, 42, eps=0.5), workdir)
+    t0 = time.time()
+    s = make_fictitious_system(FICT_NDET, 0, 1.0, 0.5, 0.5, 0.5,
+                               seed=_seed4(42), device=dev)
+    psi_t = np.zeros(FICT_NDET)
+    psi_t[0] = 1.0
+    psi_g = np.full(FICT_NDET, 0.0078125)
+    base = dict(ndet=FICT_NDET, tau=r["tau"], w_abs_target=2e5,
+                importance_sampling=1, pop_ctrl_exponent=FICT_POP_CTRL)
+    cfg = dw.DenseWalkConfig(run_type="partial_node", partial_node_eps=0.5,
+                             min_wt=0.0, **base)
+    tables = dw.build_dense_tables(s, cfg, psi_t, psi_g)
+    state = dw.init_dense_state(cfg, psi_t, psi_g, 2e5, r["e_exact"],
+                                device=dev)
+    state, stats = dw.dense_walk_block(state, tables, cfg, 3000)
+    e_pn = float(stats["e_gen"][-1])
+    drift = abs(e_pn - float(stats["e_gen"][-500]))
+    log(f"phase 8b partial_node oracle: deterministic limit after 3000 "
+        f"generations e={e_pn:.9f} (last 500 moved {drift:.2e}) exact e0="
+        f"{r['e_exact']:.5f} seconds={time.time() - t0:.2f}")
+    if drift > 2e-6 or e_pn < r["e_exact"] - 1e-4:
+        raise AssertionError("8b: the partial-node oracle did not converge "
+                             "or lies below e0")
+    del tables, state
+    _gate_dense("phase 8b fictitious fermi partial_node eps=0.5", r, e_pn)
+
+    for run_type, kw in (("release_node", dict(release_step=750)),
+                         ("sr", dict(partial_node_eps=0.0))):
+        cfg = dw.DenseWalkConfig(run_type=run_type, min_wt=0.5, **kw, **base)
+        t0 = time.time()
+        out = dw.run_dense_walk(s, cfg, psi_t, psi_g, nstep=100, nblk=25,
+                                nblk_eq=15, w_abs_begin=2e5,
+                                e_trial_initial=r["e_exact"], seed=43)
+        _gate_dense(f"phase 8b fictitious fermi {run_type}", dict(
+            e=out.e_mixed, err=out.e_err, gens=out.n_measured,
+            gen_per_s=out.n_measured / out.t_measured,
+            ms_per_gen=out.device_ms_per_gen,
+            pop=float(np.mean(out.w_abs_trace[-100:])),
+            seconds=time.time() - t0), r["e_exact"])
+    del s
+    torch.cuda.empty_cache()
+
+
+def phase_two_engines(dev):
+    """8c: the 1x8 open chain (784 dets, no sign violator: fixed-node is
+    exact) through both walk engines, fixed_node1, the same Gutzwiller
+    guiding function, tau and population: the two e_mixed agree within 5
+    combined sigma, and each lies within 4 seed scatters of e0."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.densewalk import DenseWalkConfig, run_dense_walk
+    from sqmc_tpu_torch.algo.guiding import (eval_guiding,
+                                             make_gutzwiller_guiding)
+    from sqmc_tpu_torch import cli
+    from sqmc_tpu_torch.config import parse_input
+    from sqmc_tpu_torch.systems.hubbard.system import (
+        enumerate_dets, make_hubbard_dense_system, make_hubbard_real_system)
+
+    s = make_hubbard_real_system(1, 8, 1.0, 4.0, 2, 2, pbc=False, device=dev)
+    guide = make_gutzwiller_guiding(s, g=0.7)
+    toy = make_hubbard_dense_system(1, 8, 1.0, 4.0, 2, 2, pbc=False,
+                                    device=dev)
+    up, dn = (torch.as_tensor(x, device=dev) for x in enumerate_dets(8, 2, 2))
+    g = eval_guiding(guide, "gutzwiller", up, dn, 8, 2, 2)
+    e0 = float(torch.linalg.eigvalsh(toy.ham)[0])
+    ht = toy.ham * (g[:, None] / g[None, :])
+    nviol = int(((ht > 0) & ~torch.eye(toy.ndet, dtype=torch.bool,
+                                       device=dev)).sum())
+    tau, pop, nstep, nblk, nblk_eq = 0.02, 3000.0, 100, 4, 2
+
+    t0 = time.time()
+    dcfg = DenseWalkConfig(ndet=toy.ndet, tau=tau, w_abs_target=pop,
+                           run_type="fixed_node1", importance_sampling=1,
+                           min_wt=0.5)
+    d = run_dense_walk(toy, dcfg, g, g, nstep=nstep, nblk=nblk + nblk_eq,
+                       nblk_eq=nblk_eq, w_abs_begin=1500.0,
+                       e_trial_initial=e0, seed=5)
+    t1 = time.time()
+    # the determinant walk as the chain deck of 7c sets it up (Psi_T of 200
+    # dets from HCI, the cards' capacities), from another seed: the seed
+    # scatter above was taken on exactly this configuration
+    cfg = dataclasses.replace(parse_input(HUB2_FN_DECK), seeds=(5, 5))
+    w, c = _counted(lambda: cli.run_from_config(cfg, verbose=False,
+                                                device=dev), COUNTS8)
+    comb = float(np.hypot(d.e_err, w.e_err))
+    log(f"phase 8c two engines on the 1x8 chain: dets={toy.ndet} violators="
+        f"{nviol} e0={e0:.6f} dense e_mixed={d.e_mixed:.6f} +- {d.e_err:.6f} "
+        f"({nstep * nblk / d.t_measured:.1f} gen/s, {t1 - t0:.1f} s) "
+        f"determinant e_mixed={w.e_mixed:.6f} +- {w.e_err:.6f} "
+        f"({w.steps_per_sec:.1f} gen/s, {time.time() - t1:.1f} s) "
+        f"difference={d.e_mixed - w.e_mixed:+.6f} combined_sigma={comb:.6f} "
+        f"seg_scan_launches={c['seg_scan']}")
+    if nviol or c["seg_scan"] <= 0 or w.capacity_grows:
+        raise AssertionError("8c: the chain has violators, or the "
+                             "determinant walk missed its kernel")
+    if not (abs(d.e_mixed - w.e_mixed) < 5 * comb
+            and abs(d.e_mixed - e0) < 4 * CHAIN_SCATTER_DENSE
+            and abs(w.e_mixed - e0) < 4 * CHAIN_SCATTER_DET):
+        raise AssertionError("8c: the two engines disagree, or one is off "
+                             "the exact energy")
+
+
+def phase_vmc_cpmc_dm(dev, workdir):
+    """8d: VMC (through the `hubbard2` deck, run_type vmc) and CPMC on the
+    4x4 periodic cluster, U/t = 4, 5 + 5 electrons; the density-matrix
+    block basis on the 4x2 cluster at 4 + 4 (4,900 dets)."""
+    import re
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.systems.hubbard import cpmc, dmbasis, meanfield, vmc
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_dense_system
+
+    e0 = -19.58094               # the cluster's exact energy (7a's cell)
+    pu, pd, _ = meanfield.hartree_fock(4, 4, 1.0, 4.0, 5, 5, True)
+    h = meanfield.hopping_matrix(4, 4, 1.0, True)
+    Pu, Pd = pu @ pu.T, pd @ pd.T
+    # at g = 1 the wavefunction is one Slater determinant: Wick's theorem
+    e_slater = float(np.trace(h @ Pu) + np.trace(h @ Pd)
+                     + 4.0 * np.sum(np.diag(Pu) * np.diag(Pd)))
+    # g = 1 in this process (the deck's call: 256 walkers, 200 sweeps of 10
+    # steps), the deck's g = 0.7 through the CLI
+    t0 = time.time()
+    e1, err1 = vmc.run_vmc(4, 4, 1.0, 4.0, 5, 5, g=1.0, seed=7, device=dev)
+    sec = time.time() - t0
+    log(f"phase 8d vmc g=1.0: e_vmc={e1:.6f} +- {err1:.6f} slater_energy="
+        f"{e_slater:.6f} walkers=256 sweeps_per_s={200 / sec:.3f} "
+        f"seconds={sec:.2f}")
+    text, sec, _ = _run_cli("8d_hubbard2_vmc_g0.7",
+                            HUB2_VMC_DECK.format(g="0.7"), workdir)
+    eg, errg = map(float, re.search(
+        r"e_vmc=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text).groups())
+    log(f"phase 8d vmc g=0.7 cli: e_vmc={eg:.6f} +- {errg:.6f} e0={e0:.5f} "
+        f"walkers=256 sweeps_per_s={_grab(text, r'sweeps_per_s='):.3f} "
+        f"deck_seconds={sec:.2f}")
+    if not abs(e1 - e_slater) < 5 * err1:
+        raise AssertionError("8d: VMC at g = 1 missed the Slater energy")
+    if not e0 < eg < e_slater:
+        raise AssertionError("8d: VMC at g = 0.7 is not between e0 and the "
+                             "Slater energy")
+
+    # the orthonormalization: many small QR factorizations against
+    # Cholesky-QR in batched tensor operations
+    p = torch.randn(1024, 16, 5, dtype=torch.float64, device=dev)
+    ortho_ms = {m: _median_ms(lambda m=m: cpmc._orthonormalize(p, m), reps=5,
+                              warm=1) for m in ("cholesky", "qr")}
+    cfg = cpmc.CpmcConfig(4, 4, 1.0, 4.0, 5, 5, tau=0.05, n_walkers=1024)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    e, err = cpmc.run_cpmc(cfg, n_blocks=20, nstep=20, n_eq=5, seed=0,
+                           verbose=True, device=dev)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    log(f"phase 8d cpmc: e={e:.6f} +- {err:.6f} e0={e0:.5f} rel_diff="
+        f"{abs(e - e0) / abs(e0):.5f} walkers=1024 steps_per_s="
+        f"{400 / sec:.1f} seconds={sec:.2f} orthonormalize_ms cholesky="
+        f"{ortho_ms['cholesky']:.3f} qr={ortho_ms['qr']:.3f}")
+    if not abs(e - e0) < 0.01 * abs(e0):
+        raise AssertionError("8d: CPMC is not within 1% of e0")
+
+    # hubbarddm: the exact rotation keeps the real-space spectrum and a
+    # truncated basis is variational.  The patch density matrix comes from
+    # the 12-site embedding at 2 + 2 electrons, not at the matched 6 + 6
+    # filling (853,776 dets, whose sort-join does not fit the card).
+    t0 = time.time()
+    rho = dmbasis.patch_density_matrix(dmbasis.CROSS_BONDS,
+                                       dmbasis.CROSS_NSITES, 1.0, 4.0, 2, 2,
+                                       device=dev)
+    u, su, sd, _ = dmbasis.block_rotation(rho)
+    H_dm, _ = dmbasis.dm_basis_hamiltonian(4, 2, 1.0, 4.0, 4, 4, u, su, sd,
+                                           device=dev)
+    H_tr, _ = dmbasis.dm_basis_hamiltonian(4, 2, 1.0, 4.0, 4, 4, u, su, sd,
+                                           keep_per_sector=3, device=dev)
+    toy = make_hubbard_dense_system(4, 2, 1.0, 4.0, 4, 4, device=dev)
+    w_real = torch.linalg.eigvalsh(toy.ham)
+    diff = float((torch.linalg.eigvalsh(H_dm) - w_real).abs().max())
+    e_tr = float(torch.linalg.eigvalsh(H_tr)[0])
+    log(f"phase 8d hubbarddm 4x2 4+4: dets={toy.ndet} exact_rotation_"
+        f"spectrum_diff={diff:.2e} truncated_basis={H_tr.shape[0]} "
+        f"e_truncated={e_tr:.6f} e0={float(w_real[0]):.6f} "
+        f"seconds={time.time() - t0:.2f}")
+    if H_dm.shape[0] != 4900 or diff > 1e-9 or e_tr < float(w_real[0]) - 1e-10:
+        raise AssertionError("8d: the density-matrix basis missed its oracle")
+
+
+HEG_DUMP_DECK = HEG_DECK.replace(
+    "f                                  dump_wf_var",
+    "t                                  dump_wf_var")
+
+
+def phase_restart(dev, workdir, heg14, res, trial):
+    """8e: restart artifacts on HEG-14.  The HCI deck with dump_wf_var, run
+    twice in one fresh directory: the second run reads the cache, skips the
+    variational stage and prints the same energies.  Reference-format files
+    round-trip; a walk writes its walkalize trace."""
+    import re
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.semistoch import (build_trial_wavefunction,
+                                               load_trial_from_reference)
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    from sqmc_tpu_torch.utils import refio
+
+    runs = []
+    for k in (1, 2):
+        text, sec, c = _run_cli(f"8e_heg14_dump_wf_var_run{k}", HEG_DUMP_DECK,
+                                workdir)
+        # cpu seconds between the BEG and END lines (the first number of a
+        # timer line is the process's cpu time so far; the card's work is
+        # synchronized, so it counts)
+        mark = {k: float(v) for k, v in re.findall(
+            r"(BEG|END) OF variational part CP, REAL TIME\s+([0-9.]+)", text)}
+        t_var = mark["END"] - mark["BEG"]
+        runs.append((text, sec, c, t_var))
+        log(f"phase 8e dump_wf_var run {k}: "
+            f"{re.search(r'^Variational energy=.*$', text, re.M).group(0)} "
+            f"variational_part_cpu_seconds={t_var:.2f} deck_seconds={sec:.2f} "
+            f"spmv_launches={c['spmv']} wrote={'Writing variational' in text} "
+            f"read={'Reading variational' in text}")
+    (t1, _, _, _), (t2, _, c2, _) = runs
+    lines = [re.findall(r"^(?:Variational energy|Second-order PT energy "
+                        r"lowering|Total energy \(includ. Madelung\))=.*$", t,
+                        re.M)[-3:] for t in (t1, t2)]
+    if ("Writing variational wavefn" not in t1
+            or "Reading variational wavefn" not in t2
+            or "Iteration   1" in t2 or lines[0] != lines[1] or c2["spmv"]
+            or abs(_grab(t2, r"Variational energy=") - GOLD_EVAR) > 1e-6):
+        raise AssertionError("8e: the second run did not restart from the "
+                             "wavefunction cache with the same energies")
+
+    t0 = time.time()
+    p = os.path.join(workdir, "wf_eps_var_reference_format")
+    refio.write_wf_eps_var(p, res.up, res.dn, res.wts, res.energies)
+    up, dn, wts, en = refio.read_wf_eps_var(p, heg14.norb)
+    ok = (np.array_equal(up, res.up.cpu().numpy())
+          and np.array_equal(dn, res.dn.cpu().numpy())
+          and np.array_equal(wts, res.wts) and np.array_equal(en, res.energies))
+    pc, pd_ = (os.path.join(workdir, x) for x in ("psit_connections",
+                                                  "dtm_projector"))
+    n = (heg14.nup, heg14.ndn, heg14.norb)
+    # the text files are written and parsed line by line on the host: a
+    # trial of 100 Psi_T dets and 1,000 D dets keeps that to seconds
+    small = build_trial_wavefunction(heg14, eps_var=EPS_VAR, n_psi_t=100,
+                                     n_imp=1000)
+    refio.write_psit_connections(pc, small.ct_up, small.ct_dn, small.ct_num,
+                                 small.ct_den, *n)
+    refio.write_dtm_projector(pd_, small.imp_up, small.imp_dn, small.imp_ham,
+                              *n)
+    back = load_trial_from_reference(heg14, pc, pd_)
+    keep = small.ct_num.abs() > 1e-10
+    ok_trial = (torch.equal(back.imp_up, small.imp_up)
+                and torch.equal(back.psit_up, small.psit_up)
+                and torch.equal(back.ct_up, small.ct_up[keep])
+                and float((back.ct_num - small.ct_num[keep]).abs().max()) < 1e-12
+                and float((back.imp_ham.dense() - small.imp_ham.dense()
+                           ).abs().max()) < 1e-12
+                and back.imp_up.device == small.imp_up.device)
+    log(f"phase 8e reference-format round trips: wf_eps_var dets={len(up)} "
+        f"equal={ok}; psit_connections rows={int(keep.sum())} dtm_projector "
+        f"dets={len(small.imp_up)} nonzeros={len(small.imp_ham.vals)} "
+        f"trial_equal={ok_trial} seconds={time.time() - t0:.2f}")
+    if not (ok and ok_trial):
+        raise AssertionError("8e: a reference-format round trip changed "
+                             "the data")
+
+    cfg = WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=heg14.norb,
+                     nup=heg14.nup, ndn=heg14.ndn, n_words=heg14.n_words,
+                     tau=2e-3, w_abs_target=W_TARGET, spawn_granularity=2.0,
+                     min_wt=0.5, r_initiator=0.5, f32_state=True,
+                     has_singles=False)
+    path = os.path.join(workdir, "walkalize")
+    out, c = _counted(lambda: run_walk(
+        heg14, trial, cfg, nstep=100, nblk=1, nblk_eq=1, w_abs_begin=W_BEGIN,
+        e_trial_initial=trial.e_trial, verbose=False, max_eq_extensions=0,
+        seed=3, walkalize_file=path), COUNTS8)
+    with open(path) as f:
+        rows = f.read().splitlines()
+    fmt = re.compile(r"^ {0,9}\d{1,10} {1,6}\d\.\d{6} \d\.\d{6}e[+-]\d\d"
+                     r" {1,8}-?\d+\.\d{12} {0,8}\d+$")
+    good = sum(bool(fmt.match(r)) for r in rows)
+    log(f"phase 8e walkalize: lines={len(rows)} well_formed={good} last="
+        f"{rows[-1]!r} seg_scan_launches={c['seg_scan']}")
+    if len(rows) != 200 or good != 200 or c["seg_scan"] != 200 \
+            or int(rows[-1].split()[0]) != 200:
+        raise AssertionError("8e: the walkalize trace is not 200 "
+                             "well-formed lines")
+
+
+def phase_dense(dev, heg14=None, res=None, trial=None):
+    """Phase 8: 8a-8e; every path's kernel counts set to 0 just before it
+    and read just after, summed into COUNTS8."""
+    workdir = os.path.join(HERE, "build", "smoke_phase8")
+    os.makedirs(workdir, exist_ok=True)
+    for name in os.listdir(workdir):
+        os.remove(os.path.join(workdir, name))
+    stamps = [time.time()]
+    phase_dense_hubbard(dev, workdir)
+    stamps.append(time.time())
+    phase_dense_fictitious(dev, workdir)
+    stamps.append(time.time())
+    phase_two_engines(dev)
+    stamps.append(time.time())
+    phase_vmc_cpmc_dm(dev, workdir)
+    stamps.append(time.time())
+    if heg14 is None:
+        from sqmc_tpu_torch.algo.hci import run_hci
+        from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+        from sqmc_tpu_torch.systems.heg.system import make_heg_system
+        heg14 = make_heg_system(*HEG, device=dev)
+        res = run_hci(heg14, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                      verbose=False)
+        trial = build_trial_wavefunction(heg14, eps_var=EPS_VAR, n_psi_t=2000,
+                                         n_imp=20000)
+    phase_restart(dev, workdir, heg14, res, trial)
+    stamps.append(time.time())
+    log(f"phase 8 launches: {COUNTS8}")
+    log("phase 8 stages: " + " ".join(
+        f"8{x}={b - a:.2f}" for x, a, b in zip("abcde", stamps, stamps[1:]))
+        + " seconds")
+
+
 def phase_build():
     """Both kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1677,6 +2275,10 @@ def main():
         phase_hubbard(dev, smi)
         raise SystemExit("chip_smoke: --hubbard ran phases 0, 1 and 7 only; "
                          "no result")
+    if "--dense" in sys.argv[1:]:
+        phase_dense(dev)
+        raise SystemExit("chip_smoke: --dense ran phases 0, 1 and 8 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     kernel_us = phase_kernel_rows()
@@ -1691,8 +2293,9 @@ def main():
     phase_f64_walk(dev, system, trial)
     phase_cli(dev)
     phase_hubbard(dev, smi, system, trial)
-    launches += COUNTS7["seg_scan"]
-    sp_launches += COUNTS7["spmv"]
+    phase_dense(dev, system, res, trial)
+    launches += COUNTS7["seg_scan"] + COUNTS8["seg_scan"]
+    sp_launches += COUNTS7["spmv"] + COUNTS8["spmv"]
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,

@@ -11,14 +11,18 @@ chemistry.f90:7043) and exit criteria 1 (det-count growth < 1e-5) and 2
 refinement; :func:`run_eps_series` and :func:`extrapolate_energy` give
 the eps_var series and its extrapolation.
 
-Not ported (each raises ValueError): the mesh (ROADMAP A7), the
-wavefunction cache, the active space and the ARPACK diagonalizer
-(ROADMAP A8).
+``wf_cache_dir`` / ``dump_wf_var`` read and write the variational
+wavefunction cache (utils/checkpoint.py; a reference-written unformatted
+cache is read through utils/refio.py).
+
+Not ported (each raises ValueError): the mesh (ROADMAP A7), the active
+space and the ARPACK diagonalizer (ROADMAP A8c).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -92,32 +96,66 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
             max_iters: int = 50, verbose: bool = True,
             device_davidson: bool = False, mesh=None,
             wf_cache_dir: str | None = None, active_space=None,
-            diagonalizer: str = "davidson") -> HCIResult:
+            diagonalizer: str = "davidson",
+            dump_wf_var: bool = False) -> HCIResult:
     """Variational HCI on `system` (its tables' device does the work).
 
     device_davidson: for H.n >= 2000, Davidson runs on the float32
     block-ELL SpMV (tol 3e-6) and each converged eigenvalue is refined by
-    a float64 Rayleigh quotient, as in sqmc_tpu's run_hci."""
+    a float64 Rayleigh quotient, as in sqmc_tpu's run_hci.
+    wf_cache_dir: a wf_eps_var=<eps> cache found there (an .npz of either
+    package, or the reference's unformatted file) with enough states is
+    returned in place of the variational stage (n_iters = 0); with
+    dump_wf_var the result is written there."""
     if mesh is not None:
         raise ValueError("run_hci(mesh=...) is not ported (ROADMAP A7)")
-    if wf_cache_dir is not None:
-        raise ValueError("the wavefunction cache is not ported (ROADMAP A8)")
     if active_space is not None:
         raise ValueError("the variational active space is not ported "
-                         "(ROADMAP A8)")
+                         "(ROADMAP A8c)")
     if diagonalizer != "davidson":
         raise ValueError("only the Davidson diagonalizer is ported; ARPACK "
-                         "is ROADMAP A8")
+                         "is ROADMAP A8c")
     full_fp32_matmul()
     nup, ndn, norb = system.nup, system.ndn, system.norb
     dev = system.device
+    ts = dict(time_sym=system.time_sym, z=system.z)
+
+    cache_name = None
+    if wf_cache_dir is not None:
+        from ..utils.checkpoint import load_wf_var, wf_var_filename
+        cache_name = wf_var_filename(min(eps_var_sched or [eps_var]),
+                                     wf_cache_dir)
+        cached = load_wf_var(cache_name)
+        if cached is None and os.path.exists(cache_name):
+            # a reference-written unformatted cache: read it, sort it and
+            # compute the diagonal here
+            from ..utils.refio import read_wf_eps_var
+            u_r, d_r, w_r, e_r = read_wf_eps_var(cache_name, norb)
+            u_r = torch.as_tensor(u_r, device=dev)
+            d_r = torch.as_tensor(d_r, device=dev)
+            order = setalg.lexsort_dets(u_r, d_r)
+            H_r = build_sparse_ham(system.table, u_r[order], d_r[order], nup,
+                                   ndn, norb, **ts)
+            cached = dict(up=u_r[order], dn=d_r[order],
+                          wts=w_r[order.cpu().numpy()], energies=e_r,
+                          diag=H_r.diag.cpu().numpy())
+        if cached is not None and cached["wts"].shape[1] >= n_states:
+            if verbose:
+                print(f"Reading variational wavefn from {cache_name}",
+                      flush=True)
+            return HCIResult(
+                up=torch.as_tensor(cached["up"], device=dev),
+                dn=torch.as_tensor(cached["dn"], device=dev),
+                wts=np.asarray(cached["wts"][:, :n_states], np.float64),
+                energies=np.asarray(cached["energies"][:n_states]),
+                diag=np.asarray(cached["diag"], np.float64), n_iters=0)
+
     up = torch.as_tensor(system.hf_up[None, :], device=dev)
     dn = torch.as_tensor(system.hf_dn[None, :], device=dev)
     wts = np.zeros((1, n_states))
     wts[0, 0] = 1.0
     min_H_done = np.full(1, 1e99)
 
-    ts = dict(time_sym=system.time_sym, z=system.z)
     H = build_sparse_ham(system.table, up, dn, nup, ndn, norb, **ts)
     energies = np.full(n_states, float(H.diag[0]))
     if verbose:
@@ -216,5 +254,11 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
               + " ".join(f"{e:16.9f}" for e in energies), flush=True)
         print("Variational energy=" + f"{energies[0]:26.9f}".rjust(15),
               flush=True)
+    diag = H.diag.cpu().numpy()
+    if dump_wf_var and cache_name is not None:
+        from ..utils.checkpoint import save_wf_var
+        save_wf_var(cache_name, up, dn, wts, energies, diag)
+        if verbose:
+            print(f"Writing variational wavefn to {cache_name}", flush=True)
     return HCIResult(up=up, dn=dn, wts=wts, energies=np.asarray(energies),
-                     diag=H.diag.cpu().numpy(), n_iters=n_iter_done)
+                     diag=diag, n_iters=n_iter_done)

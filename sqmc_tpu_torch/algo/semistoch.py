@@ -10,7 +10,8 @@ generate_psi_t_connected_e_loc:27).
     and e_loc_den(j) = c_j
 
 Every H is built in the system's basis (time-symmetrized when it is).
-Not ported: ``load_trial_from_reference`` (reference binaries; ROADMAP A8).
+:func:`load_trial_from_reference` builds the same object from the
+reference's restart files (utils/refio.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dets import host_u64 as _u64
 from ..ops import setalg
 from .connect import generate_connections
 from .hci import run_hci
@@ -200,6 +202,61 @@ def build_trial_from_cards(system, trial_wf_iters: int, norb_trial_wf,
     return _assemble_trial(system, up, dn, coefs, n_psi_t, iu, idn)
 
 
+def load_trial_from_reference(system, psit_con_file: str,
+                              dtm_file: str | None = None,
+                              n_imp: int = 1) -> TrialWavefunction:
+    """TrialWavefunction on the system's device from reference-written
+    restart artifacts (interop, SURVEY 5.4): psit_connections supplies
+    Psi_T and the C(T) local-energy cache (ref do_walk.f90:687-878),
+    dtm_projector supplies the deterministic space + its Hamiltonian (ref
+    :887-1012).  Without a dtm file, the top-|c| n_imp Psi_T dets form the
+    space and H is built here."""
+    from ..utils.refio import read_dtm_projector, read_psit_connections
+
+    dev = system.device
+
+    def on(x):
+        return torch.as_tensor(x, device=dev)
+
+    d = read_psit_connections(psit_con_file, system.nup, system.ndn,
+                              system.norb)
+    cu, cd = on(d["ct_up"]), on(d["ct_dn"])
+    order = setalg.lexsort_dets(cu, cd)
+    cu, cd = cu[order], cd[order]
+    num, den = on(d["ct_num"])[order], on(d["ct_den"])[order]
+    pu, pd_ = on(d["psit_up"]), on(d["psit_dn"])
+    po = setalg.lexsort_dets(pu, pd_)
+    pu, pd_, pc = pu[po], pd_[po], on(d["psit_coef"])[po]
+
+    if dtm_file is not None:
+        iu, idn, imp_ham = read_dtm_projector(dtm_file, system.nup,
+                                              system.ndn, system.norb,
+                                              device=dev)
+        iu, idn = on(iu), on(idn)
+        io = setalg.lexsort_dets(iu, idn)
+        # re-sort the COO to the sorted det order (restore rows < cols)
+        inv = torch.empty_like(io)
+        inv[io] = torch.arange(len(io), device=dev)
+        r2, c2 = inv[imp_ham.rows], inv[imp_ham.cols]
+        rows, cols = torch.minimum(r2, c2), torch.maximum(r2, c2)
+        so = torch.argsort(rows * imp_ham.n + cols, stable=True)
+        imp_ham = SparseHam(n=imp_ham.n, rows=rows[so], cols=cols[so],
+                            vals=imp_ham.vals[so], diag=imp_ham.diag[io])
+        iu, idn = iu[io], idn[io]
+    else:
+        iu, idn, _ = _top_by_coef(pu, pd_, pc, n_imp)
+        imp_ham = _ham(system, iu, idn)
+
+    e_trial = d["e_trial"]
+    if not np.isfinite(e_trial):
+        e_trial = float(num[0] / den[0]) if float(den[0]) else 0.0
+    return TrialWavefunction(psit_up=pu, psit_dn=pd_,
+                             psit_coef=pc / torch.linalg.norm(pc),
+                             e_trial=float(e_trial), ct_up=cu, ct_dn=cd,
+                             ct_num=num, ct_den=den, imp_up=iu, imp_dn=idn,
+                             imp_ham=imp_ham)
+
+
 def ensure_psit_in_imp(system, trial: TrialWavefunction,
                        verbose: bool = False) -> TrialWavefunction:
     """Force Psi_T into the deterministic space D (the semantics of the
@@ -223,10 +280,6 @@ def ensure_psit_in_imp(system, trial: TrialWavefunction,
               "(do_walk.f90:2281-2296)")
     return dataclasses.replace(trial, imp_up=iu, imp_dn=idn,
                                imp_ham=_ham(system, iu, idn))
-
-
-def _u64(words: torch.Tensor) -> np.ndarray:
-    return words.cpu().numpy().view(np.uint64)
 
 
 def save_trial(trial: TrialWavefunction, path: str):

@@ -1394,10 +1394,19 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
             else:                               # fixed_node1 / fixed_node4
                 redirect = viol
             # redirect to the parent det: an unbiased estimate of the
-            # fixed-node diagonal dump sum_viol Ht_ij.  imp is forced to the
-            # largest distance so that a D parent's redirected dump is not
-            # discarded by the D->D rule (the exact projection carries only
-            # the D-internal part of the dump)
+            # fixed-node diagonal dump sum_viol Ht_ij.  The exact projection
+            # on D already carries the D-internal part of the dump
+            # (build_walk_tables), so a D parent's violating spawn whose
+            # target lies in D is not redirected: it stays a D -> D spawn
+            # and the merge drops it like every other.  The rest of a D
+            # parent's dump (targets outside D) is kept: imp is forced to
+            # the largest distance so that the D -> D rule does not discard
+            # it
+            if proj:
+                tgt_in_d = _search_sorted_dets(cfg, tables.imp_up,
+                                               tables.imp_dn, spawn_up,
+                                               spawn_dn) >= 0
+                redirect = redirect & ~((par_imp == 0) & tgt_in_d)
             spawn_up = torch.where(redirect[:, None], up_w, spawn_up)
             spawn_dn = torch.where(redirect[:, None], dn_w, spawn_dn)
             child_imp = torch.where(redirect, 126, child_imp)
@@ -1853,7 +1862,8 @@ def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     return _walk_step_impl(state, tables, cfg, gen)
 
 
-_TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn")
+_TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
+               "reweight_factor_inv")
 
 
 def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
@@ -1930,7 +1940,8 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
              max_eq_extensions: int = 3, tables: WalkTables | None = None,
              state: WalkState | None = None, guide=None,
              checkpoint_file: str | None = None,
-             resume_state: WalkState | None = None) -> WalkResult:
+             resume_state: WalkState | None = None,
+             walkalize_file: str | None = None) -> WalkResult:
     """Block driver with equilibration and capacity escalation (ref:
     do_walk.f90:2113).  The device work of a block runs without a host
     sync; the driver reads the overflow flag and the block's trace once
@@ -1942,7 +1953,10 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
     accumulators rolled, generator state attached) is written there
     (utils/checkpoint.save_walker_state).  resume_state: continue from
     such a state instead of the initial population, drawing on from its
-    generator state when it has one."""
+    generator state when it has one.  walkalize_file: the per-generation
+    trace `step 1/reweight w_abs e_gen nwalk` for external blocking tools
+    (ref: do_walk.f90:1675,2930), appended block by block from the trace
+    this function already reads once a block."""
     if tables is None:
         tables = build_walk_tables(system, trial, cfg, guide=guide)
     if resume_state is not None:
@@ -2013,6 +2027,14 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
         w_trace.extend(trace["w_abs_gen"].tolist())
         n_trace.extend(trace["nwalk"].astype(np.int64).tolist())
         spawn_hist += trace["spawn_hist"].astype(np.int64)
+        if walkalize_file is not None:
+            from ..utils.blocking import write_walkalize
+            den = trace["e_den_gen"]
+            write_walkalize(
+                walkalize_file, trace["w_abs_gen"],
+                trace["e_num_gen"] / np.where(den == 0, TINY, den),
+                trace["nwalk"], trace["reweight_factor_inv"],
+                start=len(w_trace) - nstep, append=len(w_trace) > nstep)
         e_blk = blk_num / blk_den if blk_den != 0 else np.nan
         (eq_energies if equil else e_blocks).append(e_blk)
         if verbose:

@@ -7,18 +7,24 @@ included ("Variational energy=", "Second-order PT energy lowering=",
 "Total energy=", "Total energy (includ. Madelung)=", "e_mixed=... +-...").
 The work runs on the card; ``--cpu`` runs it on the CPU instead.
 
-Ported: hamiltonian_type ``chem`` (FCIDUMP, &hf_det, point groups,
-hf_symmetry, time-reversal symmetry), ``heg``, ``hubbardk`` (momentum
-space) and ``hubbard2`` (real space), with run_type ``hci`` (HCI + PT per
-state) or a walk: the plain projector (``none`` and every name outside
-the fixed-node family), ``fixed_node1``-``4``, ``partial_node``,
-``release_node`` and ``sr`` with a Gutzwiller guiding function (also
-under ``importance_sampling``), the three proposal methods and the
-exponential projector.  Psi_T and D come from the deck's trial_wf or
-diff_from_psi_t cards, hf_to_psit, tau from tau_multiplier, MWALK and
-spawn capacity sized from the population.  Every other card raises
-ValueError naming its ROADMAP item.  The last line is the kernels' launch
-counts (``Kernel launches: seg_scan=... spmv=...``).
+Determinant systems: hamiltonian_type ``chem`` (FCIDUMP, &hf_det, point
+groups, hf_symmetry, time-reversal symmetry), ``heg``, ``hubbardk``
+(momentum space) and ``hubbard2`` (real space), with run_type ``hci`` (HCI
++ PT per state; ``dump_wf_var`` and the ``wf_eps_var=...`` cache in the
+working directory), ``vmc`` on ``hubbard2`` (Gutzwiller VMC) or a walk:
+the plain projector (``none`` and every name outside the fixed-node
+family), ``fixed_node1``-``4``, ``partial_node``, ``release_node`` and
+``sr`` with a Gutzwiller guiding function (also under
+``importance_sampling``), the three proposal methods and the exponential
+projector.  Psi_T and D come from the deck's trial_wf or diff_from_psi_t
+cards, hf_to_psit, tau from tau_multiplier, MWALK and spawn capacity sized
+from the population.  The dense toy types ``fictitious``, ``read`` and
+``hubbard`` run through the dense-vector walk engine (:func:`run_toy`)
+with every run type of algo/densewalk.py.  ``hubbarddm`` has no card path
+in either package (its API is systems/hubbard/dmbasis.py); the legacy CI
+run types, &natorb, &greens_function and &active_space raise ValueError
+naming their ROADMAP item.  The last line is the kernels' launch counts
+(``Kernel launches: seg_scan=... spmv=...``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import numpy as np
 from .config import parse_input
 from .utils.timers import my_second
 
+_TOY_TYPES = ("fictitious", "read", "hubbard")
+
 _FIXED_NODE = ("fixed_node1", "fixed_node2", "fixed_node3", "fixed_node4",
                "partial_node", "release_node", "sr")
 
@@ -42,32 +50,110 @@ def _refuse(what: str, item: str):
 def check_ported(cfg):
     """Raise ValueError for every card this port does not run."""
     ht = cfg.hamiltonian_type
-    if ht in ("fictitious", "read", "hubbard"):
-        _refuse(f"hamiltonian_type {ht!r} (the dense toy systems)", "A8")
+    if ht in _TOY_TYPES:
+        return            # the dense engine takes every run type it knows
     if ht == "hubbarddm":
-        _refuse("hamiltonian_type 'hubbarddm' (the density-matrix basis)",
-                "A8")
+        raise ValueError(
+            "hamiltonian_type 'hubbarddm' has no card-input path (the "
+            "sqmc_tpu CLI has none either); build the density-matrix basis "
+            "with sqmc_tpu_torch.systems.hubbard.dmbasis."
+            "make_hubbarddm_dense and drive it with run_dense_walk")
     if ht not in ("chem", "heg", "hubbardk", "hubbard2"):
         raise ValueError(f"unknown hamiltonian_type {ht!r}")
     if cfg.run_type in ("selected_ci", "trunc_lanc"):
-        _refuse(f"run_type {cfg.run_type!r} (algo/legacy_ci.py)", "A8")
-    if cfg.run_type == "vmc":
-        _refuse("run_type 'vmc' (systems/hubbard/vmc.py)", "A8")
+        _refuse(f"run_type {cfg.run_type!r} (algo/legacy_ci.py)", "A8c")
     if cfg.get_natorbs:
-        _refuse("&natorb get_natorbs (algo/rdm.py)", "A8")
+        _refuse("&natorb get_natorbs (algo/rdm.py)", "A8c")
     if cfg.get_greens_function:
-        _refuse("&greens_function (algo/greens.py)", "A8")
+        _refuse("&greens_function (algo/greens.py)", "A8c")
     if cfg.active_space is not None:
-        _refuse("&active_space", "A8")
-    if cfg.dump_wf_var:
-        _refuse("dump_wf_var (the variational wavefunction cache)", "A8")
+        _refuse("&active_space", "A8c")
 
 
-def _wf_cache_name(eps_var: float) -> str:
-    """The reference's cache file name, wf_eps_var=<eps in es7.2e1>, which
-    the JAX package's CLI reads from the working directory."""
-    return f"wf_eps_var={eps_var:7.2e}".replace("e-0", "E-0").replace(
-        "e+0", "E+0")
+def _seed4(seed: int):
+    """Split an integer seed into rannyu's 4x12-bit state."""
+    return ((seed >> 36) & 0xFFF, (seed >> 24) & 0xFFF,
+            (seed >> 12) & 0xFFF, seed & 0xFFF)
+
+
+def run_toy(cfg, verbose: bool = True, device="cuda"):
+    """Toy dense-matrix path: `fictitious`, `read`, and dense `hubbard`
+    (ref: hamiltonian_mod.f90:81-92,273-344,393-410) driven through the
+    dense-vector walk engine on `device` with the requested run_type."""
+    from .algo.densewalk import DenseWalkConfig, run_dense_walk
+    from .systems.toy import (make_fictitious_system, make_read_system,
+                              toy_psi_t)
+
+    if cfg.hamiltonian_type == "fictitious":
+        print(f"bosonic, spectrum_coef, spectrum_power, ham_diag_fluc, "
+              f"ham_offdiag_fluc ={cfg.bosonic:2d}{cfg.spectrum_coef:8.3f}"
+              f"{cfg.spectrum_power:8.3f}{cfg.ham_diag_fluc:8.3f}"
+              f"{cfg.ham_offdiag_fluc:8.3f}")
+        my_second("BEG", "fictitious matrix")
+        system = make_fictitious_system(
+            cfg.ndet_toy, cfg.bosonic, cfg.spectrum_coef, cfg.spectrum_power,
+            cfg.ham_diag_fluc, cfg.ham_offdiag_fluc,
+            seed=_seed4(cfg.seeds[0]), device=device)
+        my_second("END", "fictitious matrix")
+    elif cfg.hamiltonian_type == "read":
+        system = make_read_system("hamiltonian", device=device)
+    else:  # dense hubbard toy
+        from .systems.hubbard.system import make_hubbard_dense_system
+        system = make_hubbard_dense_system(cfg.l_x, cfg.l_y, cfg.t_hub,
+                                           cfg.u_hub, cfg.nup,
+                                           cfg.nelec - cfg.nup, pbc=cfg.pbc,
+                                           device=device)
+    ndet = system.ndet
+    print(f"ndet={ndet:15d}")
+
+    e_trial = cfg.e_trial_initial
+    if cfg.diagonalize_ham:
+        my_second("BEG", "diagonalize")
+        # the spectrum line has ndet entries: printed for small systems only
+        w, _ = system.diagonalize(verbose=verbose and ndet <= 1000)
+        my_second("END", "diagonalize")
+        print(f"Setting e_trial (from diagonalizing Hamiltonian) ="
+              f"{float(w[0]):10.5f}")
+        print(f"energy_exact={float(w[0]):10.5f}")
+        e_trial = float(w[0])
+
+    if cfg.ndet_psi_t > 0:
+        psi_t, psi_g = toy_psi_t(ndet, cfg.iwdet_psi_t, cfg.cdet_psi_t)
+    else:
+        psi_t = np.zeros(ndet)
+        psi_t[0] = 1.0
+        psi_g = np.full(ndet, 1.0 / np.sqrt(ndet))
+
+    tau = cfg.tau
+    if tau == 0.0:
+        _, _, tau = system.tau_optimal(cfg.tau_multiplier)
+        print(f"tau_multiplier, tau={cfg.tau_multiplier:10.6f}{tau:10.6f}")
+
+    run_type = "none" if cfg.run_type in ("no_fixed_node",) else cfg.run_type
+    wcfg = DenseWalkConfig(
+        ndet=ndet, tau=tau, w_abs_target=cfg.w_abs_target,
+        run_type=run_type, importance_sampling=cfg.importance_sampling,
+        partial_node_eps=cfg.partial_node_eps,
+        release_step=cfg.nstep * cfg.nblk_eq // 2 or 1,
+        min_wt=cfg.min_wt, pop_ctrl_exponent=cfg.population_control_exponent,
+        reweight_factor_inv_max=cfg.reweight_factor_inv_max)
+    my_second("BEG", "walk")
+    out = run_dense_walk(system, wcfg, psi_t, psi_g, nstep=cfg.nstep,
+                         nblk=cfg.nblk, nblk_eq=cfg.nblk_eq,
+                         w_abs_begin=cfg.w_abs_begin,
+                         e_trial_initial=e_trial if e_trial else None,
+                         seed=cfg.seeds[0], verbose=verbose)
+    my_second("END", "walk")
+    if verbose and out.t_measured:
+        ms = "" if out.device_ms_per_gen is None else \
+            f" device_ms_per_gen={out.device_ms_per_gen:.4f}"
+        print(f"dense walk: measured_gens={out.n_measured} "
+              f"gen_per_s={out.n_measured / out.t_measured:.3f}{ms} "
+              f"w_abs={float(out.state.w_abs_gen):.1f}")
+    print(f"e_mixed={out.e_mixed:26.9f} +-{out.e_err:.9f}")
+    if system.energy_exact is not None:
+        print(f"error vs exact={out.e_mixed - system.energy_exact:14.9f}")
+    return out
 
 
 def make_system(cfg, fcidump: str | None, device):
@@ -249,7 +335,8 @@ def run_hci_pt(cfg, system, verbose: bool = True):
     my_second("BEG", "variational part")
     res = run_hci(system, eps_var=cfg.eps_var,
                   eps_var_sched=cfg.eps_var_sched, n_states=cfg.n_states,
-                  verbose=verbose)
+                  verbose=verbose, dump_wf_var=cfg.dump_wf_var,
+                  wf_cache_dir=".")
     my_second("END", "variational part")
     print(f"Variational energy={res.energies[0]:26.9f}")
 
@@ -286,10 +373,27 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
                     device="cuda"):
     """Run a parsed deck on `device`."""
     check_ported(cfg)
-    if cfg.run_type == "hci" and os.path.exists(
-            _wf_cache_name(min(cfg.eps_var_sched))):
-        _refuse(f"reading the wavefunction cache "
-                f"{_wf_cache_name(min(cfg.eps_var_sched))}", "A8")
+    if cfg.hamiltonian_type in _TOY_TYPES:
+        return run_toy(cfg, verbose=verbose, device=device)
+    if cfg.run_type == "vmc" and cfg.hamiltonian_type == "hubbard2":
+        # Gutzwiller VMC with Sherman-Morrison ratios (ref run_type 'vmc'
+        # -> compute_vmc_energy_gutz_wf, hubbard.f90:1061)
+        import time
+        from .systems.hubbard.vmc import run_vmc
+        my_second("BEG", "vmc")
+        t0 = time.time()
+        n_sweeps = 200
+        e, err = run_vmc(cfg.l_x, cfg.l_y, cfg.t_hub, cfg.u_hub, cfg.nup,
+                         cfg.nelec - cfg.nup, g=cfg.gutz_g, pbc=cfg.pbc,
+                         n_sweeps=n_sweeps, seed=cfg.seeds[0] & 0xFFFF,
+                         device=device)
+        dt = time.time() - t0
+        my_second("END", "vmc")
+        if verbose:
+            print(f"vmc: sweeps={n_sweeps} sweeps_per_s={n_sweeps / dt:.3f}")
+        print(f"e_vmc={e:26.9f} +-{err:.9f}")
+        print(f"e_mixed={e:26.9f} +-{err:.9f}")
+        return e, err
     system = make_system(cfg, fcidump, device)
     if cfg.run_type != "hci":
         my_second("BEG", "walk")

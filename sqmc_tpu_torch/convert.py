@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .algo.densewalk import DenseTables, DenseWalkState
 from .algo.hci import HCIResult
 from .algo.semistoch import TrialWavefunction, load_trial, trial_from_arrays
 from .algo.sparseham import SparseHam
@@ -26,6 +27,9 @@ from .systems.base import FermionSystem
 from .systems.chem.integrals import IntegralTable
 from .systems.chem.pointgroup import PointGroup
 from .systems.heatbath import heatbath_from_arrays
+from .systems.hubbard.cpmc import CpmcState
+from .systems.hubbard.vmc import VmcState
+from .systems.toy import ToySystem
 
 
 def words_to_torch(words, device="cuda") -> torch.Tensor:
@@ -164,3 +168,71 @@ def walk_state_from_numpy(st, f32_state: bool = False,
         w_abs_gen=f64(st.w_abs_gen), overflow=flag(st.overflow),
         step=torch.tensor(int(np.asarray(st.step)), dtype=torch.int32,
                           device=device))
+
+
+def _f64(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float64), device=device)
+
+
+def _seeded_rng_state(seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen.get_state()
+
+
+def toy_system_from_numpy(s, device="cuda") -> ToySystem:
+    """ToySystem from an object with the sqmc_tpu ToySystem fields; a
+    spectrum already computed there comes along."""
+    def opt(x):
+        return None if x is None else _f64(x, device)
+
+    return ToySystem(ham=_f64(s.ham, device), kind=s.kind,
+                     energy_exact=s.energy_exact,
+                     eigvec_exact=opt(s.eigvec_exact), eigvals=opt(s.eigvals))
+
+
+def dense_tables_from_numpy(t, device="cuda") -> DenseTables:
+    """DenseTables from an object with the sqmc_tpu DenseTables fields."""
+    return DenseTables(*(_f64(getattr(t, k), device)
+                         for k in DenseTables._fields))
+
+
+def dense_state_from_numpy(st, seed: int = 0,
+                           device="cuda") -> DenseWalkState:
+    """DenseWalkState from an object with the sqmc_tpu DenseWalkState
+    fields (the PRNG key is dropped: the port's state carries a torch
+    generator state, seeded from `seed`)."""
+    def sc(x):
+        return torch.tensor(float(np.asarray(x)), dtype=torch.float64,
+                            device=device)
+
+    return DenseWalkState(
+        w=_f64(st.w, device), step=int(np.asarray(st.step)),
+        e_trial=sc(st.e_trial), e_est=sc(st.e_est),
+        reweight_factor_inv=sc(st.reweight_factor_inv),
+        equilibrated=bool(np.asarray(st.equilibrated)),
+        e_num_blkabs_cum=sc(st.e_num_blkabs_cum),
+        e_den_blkabs_cum=sc(st.e_den_blkabs_cum),
+        e_num_blk=sc(st.e_num_blk), e_den_blk=sc(st.e_den_blk),
+        w_abs_gen=sc(st.w_abs_gen),
+        rng_state=_seeded_rng_state(seed, device))
+
+
+def vmc_state_from_numpy(st, seed: int = 0, device="cuda") -> VmcState:
+    """VmcState from an object with the sqmc_tpu VmcState fields (its key
+    is dropped, as above)."""
+    def idx(x):
+        return torch.as_tensor(np.array(x, dtype=np.int64), device=device)
+
+    return VmcState(idx(st.r_up), idx(st.r_dn), _f64(st.minv_up, device),
+                    _f64(st.minv_dn, device), _seeded_rng_state(seed, device))
+
+
+def cpmc_state_from_numpy(st, seed: int = 0, device="cuda") -> CpmcState:
+    """CpmcState from an object with the sqmc_tpu CpmcState fields (its key
+    is dropped, as above)."""
+    return CpmcState(
+        phi_up=_f64(st.phi_up, device), phi_dn=_f64(st.phi_dn, device),
+        logw=_f64(st.logw, device),
+        alive=torch.as_tensor(np.array(st.alive, dtype=bool), device=device),
+        rng_state=_seeded_rng_state(seed, device))

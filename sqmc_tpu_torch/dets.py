@@ -61,6 +61,15 @@ def orbs_from_det(words, norb: int) -> list:
             if (int(w[o // BITS_PER_WORD]) >> (o % BITS_PER_WORD)) & 1]
 
 
+def host_u64(words) -> np.ndarray:
+    """Det words (int64 or uint64, tensor or array) as a host uint64 array
+    with the same bits: the JAX package's and the reference files' type."""
+    if isinstance(words, torch.Tensor):
+        words = words.detach().cpu().numpy()
+    w = np.ascontiguousarray(words)
+    return w.view(np.uint64) if w.dtype == np.int64 else w.astype(np.uint64)
+
+
 # ---------------------------------------------------------------------------
 # Batched tensor ops
 # ---------------------------------------------------------------------------

@@ -109,3 +109,34 @@ def make_hubbard_real_system(l_x: int, l_y: int, t: float, U: float,
         hf_up=dets.det_from_orbs(range(nup), nsites),
         hf_dn=dets.det_from_orbs(range(ndn), nsites),
         extra=dict(l_x=l_x, l_y=l_y, t=t, U=U, pbc=pbc))
+
+
+def enumerate_dets(nsites: int, nup: int, ndn: int):
+    """Every (up, dn) det of the sector as int64 words [n, W] (host
+    numpy): det index = iup * len(dns) + idn, both spin strings in
+    lexicographic orbital order."""
+    import itertools
+    ups = np.stack([dets.det_from_orbs(c, nsites)
+                    for c in itertools.combinations(range(nsites), nup)])
+    dns = np.stack([dets.det_from_orbs(c, nsites)
+                    for c in itertools.combinations(range(nsites), ndn)])
+    return np.repeat(ups, len(dns), axis=0), np.tile(dns, (len(ups), 1))
+
+
+def make_hubbard_dense_system(l_x: int, l_y: int, t: float, U: float,
+                              nup: int, ndn: int, pbc: bool = True,
+                              device="cuda"):
+    """The reference's `hubbard` toy type: the full Hilbert-space dense
+    Hamiltonian of a small real-space lattice (ref: hamiltonian_mod.f90:
+    273-301, make_hubbard_matrix_2d:937), as a ToySystem on `device` for
+    the dense-vector walk engine (algo/densewalk.py)."""
+    from ...algo.sparseham import build_sparse_ham
+    from ..toy import ToySystem
+
+    sysr = make_hubbard_real_system(l_x, l_y, t, U, nup, ndn, pbc=pbc,
+                                    with_heatbath=False, device=device)
+    nsites = l_x * l_y
+    up, dn = enumerate_dets(nsites, nup, ndn)
+    sp = build_sparse_ham(sysr.table, torch.as_tensor(up, device=device),
+                          torch.as_tensor(dn, device=device), nup, ndn, nsites)
+    return ToySystem(ham=sp.dense(), kind="hubbard-dense")

@@ -1,6 +1,5 @@
 """Blocking statistics and autocorrelation analysis for MC energy traces
-(numpy; port of sqmc_tpu/utils/blocking.py without the walkalize trace
-writer, which the port's run_walk does not offer).
+(numpy; port of sqmc_tpu/utils/blocking.py).
 
 Re-design of the reference's end-of-run statistics (ref: do_walk.f90
 2952-3190): ratio-of-means energy with covariance-corrected error, the
@@ -73,3 +72,15 @@ def reblock(series: np.ndarray, max_levels: int = 16):
         size *= 2
     return out
 
+
+def write_walkalize(path: str, w_abs, e_gen, nwalk, reweight_inv,
+                    start: int = 0, append: bool = False):
+    """Per-step trace file consumed by external blocking tools
+    (ref: do_walk.f90:2930 'walkalize' unit-1 trace): one line per
+    generation, `step 1/reweight w_abs e_gen nwalk`.  `start` is the
+    number of generations already written and `append` adds to the file,
+    so a caller can write the trace block by block."""
+    with open(path, "a" if append else "w") as f:
+        for i in range(len(w_abs)):
+            f.write(f"{start + i + 1:10d}{1.0 / reweight_inv[i]:12.6f}"
+                    f"{w_abs[i]:13.6e}{e_gen[i]:19.12f}{int(nwalk[i]):9d}\n")

@@ -1,8 +1,14 @@
-"""Mid-walk walker checkpoints (port of the walker part of
-sqmc_tpu/utils/checkpoint.py; the reference had no mid-walk checkpoint).
+"""Checkpoint / resume artifacts (port of sqmc_tpu/utils/checkpoint.py).
 
-The file is the JAX package's npz layout - det words as uint64, the
-C(T) index as int32 - so a state saved by either package loads in the
+  * the variational wavefunction cache ``wf_eps_var=<eps>`` written after
+    the variational stage and read on startup to skip it entirely (ref:
+    hci.f90:194-259, 602-625): an .npz with dets, weights, energies and
+    diagonal elements;
+  * per-block walker-state checkpoints for the walk (the reference had no
+    mid-walk checkpoint).
+
+Both files are the JAX package's npz layouts - det words as uint64, the
+C(T) index as int32 - so a file saved by either package loads in the
 other.  The JAX package's PRNG key has no counterpart here: a zero key is
 written in its place, and this package's generator state rides along
 under ``torch_rng`` (the JAX loader ignores it).
@@ -10,12 +16,45 @@ under ``torch_rng`` (the JAX loader ignores it).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 
 def _npz(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def wf_var_filename(eps_var: float, directory: str = ".") -> str:
+    """Reference-compatible name: wf_eps_var=<eps in es7.2e1>
+    (ref: hci.f90 write(fmt,'(es7.2e1)'))."""
+    return os.path.join(directory, f"wf_eps_var={eps_var:7.2e}".replace(
+        "e-0", "E-0").replace("e+0", "E+0"))
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def save_wf_var(path: str, up, dn, wts, energies, diag):
+    """Write the variational wavefunction to `path`(.npz); det words
+    (tensors or arrays, int64 or uint64) are stored as uint64."""
+    from ..dets import host_u64
+    np.savez_compressed(_npz(path), up=host_u64(up), dn=host_u64(dn),
+                        wts=_host(wts), energies=_host(energies),
+                        diag=_host(diag))
+
+
+def load_wf_var(path: str):
+    """The cache as a dict of host arrays (det words int64 with the stored
+    bits), or None when `path`(.npz) does not exist."""
+    p = _npz(path)
+    if not os.path.exists(p):
+        return None
+    z = np.load(p)
+    return dict(up=z["up"].view(np.int64), dn=z["dn"].view(np.int64),
+                wts=z["wts"], energies=z["energies"], diag=z["diag"])
 
 
 def save_walker_state(path: str, state):

@@ -4,8 +4,10 @@ inline deck, the same printed energies (to 1e-9) on a time-symmetrized
 chem HCI+PT deck with d2h, hf_symmetry and two states and on an electron
 gas deck, walk decks run through the cards on the CPU (time-symmetrized
 chem, momentum-space Hubbard HCI, a fixed-node Gutzwiller walk on
-real-space Hubbard), and a ValueError naming its ROADMAP item for every
-card the port does not run."""
+real-space Hubbard), the dense toy decks (`fictitious`, `read`, dense
+`hubbard`) with tests/test_cli.py's gates, the `vmc` deck, the
+`dump_wf_var` deck run twice, and a ValueError naming its ROADMAP item for
+every card the port does not run."""
 
 import dataclasses
 import os
@@ -45,6 +47,27 @@ none                               run_type
 2                                  ndet_psi_t
 1 2                                iwdet_psi_t
 0.9 0.3                            cdet_psi_t
+"""
+
+HUBBARD_TOY = """\
+42 7                               irand_seed
+80 6 2 0                           nstep,nblk,nblk_eq,ipr
+300 1500 0                         w_abs_gen_begin, w_abs_gen_target, MWALK
+0.3 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.25                        population_control_expon, e_trial_initial, min_wt
+heat_bath2 0 1. 0 1.               proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+none                               run_type
+.false. f                          semistochastic, use_exponential_projector
+'hubbard' 0                        hamiltonian_type,ipr
+2 2                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+1 1                                n_alpha, n_beta
+1                                  diagonalize_ham
+1                                  ndet_psi_t
+1                                  iwdet_psi_t
+1.0                                cdet_psi_t
 """
 
 HUBBARDK = """\
@@ -176,7 +199,24 @@ t                                  time_sym
 0                                  diagonalize_ham
 """
 
-DECKS = dict(fictitious=FICTITIOUS, hubbardk=HUBBARDK, hubbard2_fn=HUBBARD2_FN,
+# the fixed_node1 variant of tests/test_cli.py:135-148: importance sampling
+# adds the psi_g card after the semistochastic one
+FICTITIOUS_FN = FICTITIOUS.replace(
+    "heat_bath2 0 1. 0 1.", "heat_bath2 1 0. 0 1.").replace(
+    "none                               run_type",
+    "fixed_node1                        run_type").replace(
+    ".false. f                          semistochastic, use_exponential_projector",
+    ".false. f                          semistochastic, use_exponential_projector\n"
+    "0. 0.                              psi_g_energy, psi_g_epsilon")
+
+HUBBARD2_VMC = HUBBARD2_FN.replace("1 8 ", "2 2 ").replace(
+    "f f                                pbc", "t f                                pbc"
+).replace("fixed_node1                        run_type",
+          "vmc                                run_type")
+
+DECKS = dict(fictitious=FICTITIOUS, fictitious_fn=FICTITIOUS_FN,
+             hubbard_toy=HUBBARD_TOY, hubbard2_vmc=HUBBARD2_VMC,
+             hubbardk=HUBBARDK, hubbard2_fn=HUBBARD2_FN,
              chem_walk=CHEM_WALK, observables=OBSERVABLES, ts_hci=TS_HCI,
              heg_hci=HEG_HCI, ts_walk=TS_WALK,
              partial_node=FICTITIOUS.replace(
@@ -335,6 +375,126 @@ def test_cli_hubbard2_fixed_node_deck_on_cpu(tmp_path):
     assert np.isfinite(err) and abs(e - e0) < max(6 * err, 5e-3), (e, e0, err)
 
 
+E_MIXED = r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)"
+E_EXACT = r"Setting e_trial \(from diagonalizing Hamiltonian\) =\s*([-+0-9.]+)"
+
+
+def _toy_run(deck, tmp_path):
+    to = _run("sqmc_tpu_torch", deck, tmp_path, "--cpu")
+    assert to.returncode == 0, to.stderr[-2000:]
+    text = to.stdout
+    e_exact = float(re.search(E_EXACT, text).group(1))
+    e, err = map(float, re.search(E_MIXED, text).groups())
+    for line in ("ndet=", "energy_exact=", "tau_multiplier, tau=",
+                 "error vs exact=", "END OF walk",
+                 "Kernel launches: seg_scan=0 spmv=0"):
+        assert line in text, line
+    return text, e_exact, e, err
+
+
+def test_cli_fictitious_deck_on_cpu(tmp_path):
+    """FICTITIOUS_INPUT of tests/test_cli.py through the port's CLI, with
+    that test's gate; the printed lines carry the JAX CLI's digit formats
+    (the matrix is bit-identical, so the exact energy is the same line)."""
+    text, e_exact, e, err = _toy_run(FICTITIOUS, tmp_path)
+    assert abs(e - e_exact) < max(5 * err, 0.05), (e, e_exact, err)
+    jo = _run("sqmc_tpu", FICTITIOUS, tmp_path, "--cpu")
+    assert jo.returncode == 0, jo.stderr[-2000:]
+    for pat in (r"^bosonic, spectrum_coef.*$", r"^ndet=.*$", r"^eigval=.*$",
+                r"^Fraction of walkers.*$", r"^Setting e_trial.*$",
+                r"^energy_exact=.*$", r"^tau_multiplier, tau=.*$"):
+        a = re.search(pat, text, re.M)
+        b = re.search(pat, jo.stdout, re.M)
+        assert a and b and a.group(0) == b.group(0), pat
+    assert re.search(r"^e_mixed= {14}-?\d+\.\d{9} \+-\d+\.\d{9}$", text, re.M)
+    assert re.search(r"^error vs exact= *-?\d+\.\d{9}$", text, re.M)
+
+
+def test_cli_fictitious_fixed_node_deck_on_cpu(tmp_path):
+    """fixed_node1 with importance sampling on the fictitious matrix
+    (tests/test_cli.py:135-162): the fixed-node energy is an upper bound
+    and stays within 0.5 of ED here."""
+    _, e_exact, e, _ = _toy_run(FICTITIOUS_FN, tmp_path)
+    assert e >= e_exact - 0.02 and abs(e - e_exact) < 0.5
+
+
+def test_cli_hubbard_dense_toy_deck_on_cpu(tmp_path):
+    """HUBBARD_TOY_INPUT of tests/test_cli.py (the dense `hubbard` type)."""
+    text, e_exact, e, err = _toy_run(HUBBARD_TOY, tmp_path)
+    assert "ndet=             16" in text
+    assert abs(e - e_exact) < max(6 * err, 0.1), (e, e_exact, err)
+
+
+def test_cli_read_deck_on_cpu(tmp_path):
+    """hamiltonian_type 'read': the matrix comes from ./hamiltonian."""
+    from sqmc_tpu.systems.toy import make_fictitious_system
+    ham = make_fictitious_system(12, bosonic=1, ham_diag_fluc=0.5,
+                                 ham_offdiag_fluc=1.0).ham
+    with open(tmp_path / "hamiltonian", "w") as f:
+        f.write("12\n" + "\n".join(" ".join(f"{x:.17g}" for x in row)
+                                    for row in ham))
+    deck = "\n".join(line for line in FICTITIOUS.replace(
+        "'fictitious' 0", "'read' 0").splitlines()
+        if "bosonic" not in line and not line.endswith(" ndet")) + "\n"
+    cfg = t_parse(deck)
+    assert cfg.hamiltonian_type == "read" and cfg.diagonalize_ham == 1
+    text, e_exact, e, err = _toy_run(deck, tmp_path)
+    assert "ndet=             12" in text
+    assert e_exact == pytest.approx(np.linalg.eigvalsh(ham)[0], abs=1e-5)
+    assert abs(e - e_exact) < max(5 * err, 0.05), (e, e_exact, err)
+
+
+def test_cli_vmc_deck_on_cpu(tmp_path):
+    """run_type vmc on hubbard2: the Gutzwiller VMC energy lands on the
+    brute-force energy of the same wavefunction (mean-field orbitals, the
+    deck's g)."""
+    from sqmc_tpu_torch.systems.hubbard.meanfield import hartree_fock
+    from sqmc_tpu_torch.systems.hubbard.vmc import exact_vmc_energy
+    to = _run("sqmc_tpu_torch", HUBBARD2_VMC, tmp_path, "--cpu")
+    assert to.returncode == 0, to.stderr[-2000:]
+    text = to.stdout
+    for line in ("BEG OF vmc", "END OF vmc", "e_vmc=", "sweeps_per_s="):
+        assert line in text, line
+    e, err = map(float, re.search(E_MIXED, text).groups())
+    assert f"e_vmc={e:26.9f} +-{err:.9f}" in text
+    pu, pd, _ = hartree_fock(2, 2, 1.0, 4.0, 2, 2, True)
+    want = exact_vmc_energy(2, 2, 1.0, 4.0, 2, 2, 0.7, pu, pd)
+    assert abs(e - want) < max(5 * err, 0.05), (e, want, err)
+
+
+def test_cli_dump_wf_var_deck_twice(fcidump, tmp_path):
+    """The time-symmetrized HCI deck with dump_wf_var: the first run writes
+    wf_eps_var=... into the working directory, the second reads it, skips
+    the variational stage and prints the same energies; the JAX CLI reads
+    the port's file too."""
+    deck = TS_HCI.replace("f                                  dump_wf_var",
+                          "t                                  dump_wf_var")
+    assert t_parse(deck).dump_wf_var
+    first = _run("sqmc_tpu_torch", deck, tmp_path, "-f", fcidump, "--cpu")
+    assert first.returncode == 0, first.stderr[-2000:]
+    assert "Writing variational wavefn to ./wf_eps_var=1.00E-03" in first.stdout
+    assert (tmp_path / "wf_eps_var=1.00E-03.npz").exists()
+    second = _run("sqmc_tpu_torch", deck, tmp_path, "-f", fcidump, "--cpu")
+    assert second.returncode == 0, second.stderr[-2000:]
+    assert "Reading variational wavefn from" in second.stdout
+    assert "Iteration   1" not in second.stdout
+    third = _run("sqmc_tpu", deck, tmp_path, "-f", fcidump, "--cpu")
+    assert third.returncode == 0, third.stderr[-2000:]
+    assert "Reading variational wavefn from" in third.stdout
+    e1 = _energies(first.stdout)
+    for other in (second, third):
+        e2 = _energies(other.stdout)
+        # run_hci prints its own "Variational energy=" line only when it
+        # runs the variational stage: compare what follows it
+        for p in ENERGY_LINES:
+            n = len(e2[p])
+            assert n > 0 or not e1[p], p
+            np.testing.assert_allclose(e2[p], e1[p][len(e1[p]) - n:], rtol=0,
+                                       atol=1.01e-9, err_msg=p)
+        assert len(e2[ENERGY_LINES[0]]) == len(e1[ENERGY_LINES[0]]) - 1
+    assert len(e1[ENERGY_LINES[2]]) == 2
+
+
 def _cfg(deck, **kw):
     return dataclasses.replace(t_parse(DECKS[deck]), **kw)
 
@@ -342,15 +502,18 @@ def _cfg(deck, **kw):
 # name: (deck config, ROADMAP item of the refusal; None = the card is ported
 # now, and check_ported must let it through; "" = an unknown type)
 UNPORTED = {
-    "fictitious": (lambda: _cfg("fictitious"), "A8"),
-    "read": (lambda: _cfg("fictitious", hamiltonian_type="read"), "A8"),
-    "hubbard": (lambda: _cfg("fictitious", hamiltonian_type="hubbard"), "A8"),
-    "hubbarddm": (lambda: _cfg("hubbardk", hamiltonian_type="hubbarddm"), "A8"),
+    "fictitious": (lambda: _cfg("fictitious"), None),
+    "read": (lambda: _cfg("fictitious", hamiltonian_type="read"), None),
+    "hubbard": (lambda: _cfg("hubbard_toy"), None),
+    "hubbarddm": (lambda: _cfg("hubbardk", hamiltonian_type="hubbarddm"),
+                  "no card-input path"),
     "hubbardk": (lambda: _cfg("hubbardk"), None),
     "hubbard2": (lambda: _cfg("hubbard2_fn"), None),
-    "selected_ci": (lambda: _cfg("ts_hci", run_type="selected_ci"), "A8"),
-    "trunc_lanc": (lambda: _cfg("ts_hci", run_type="trunc_lanc"), "A8"),
-    "vmc": (lambda: _cfg("ts_hci", run_type="vmc"), "A8"),
+    "selected_ci": (lambda: _cfg("ts_hci", run_type="selected_ci"),
+                    "ROADMAP A8c"),
+    "trunc_lanc": (lambda: _cfg("ts_hci", run_type="trunc_lanc"),
+                   "ROADMAP A8c"),
+    "vmc": (lambda: _cfg("hubbard2_vmc"), None),
     "fixed_node": (lambda: _cfg("ts_walk", run_type="fixed_node1"), None),
     "guiding": (lambda: _cfg("ts_walk", importance_sampling=1), None),
     "uniform": (lambda: _cfg("ts_walk", proposal_method="uniform"), None),
@@ -358,34 +521,54 @@ UNPORTED = {
                                     proposal_method="CauchySchwarz"), None),
     "exponential": (lambda: _cfg("ts_walk", use_exponential_projector=True),
                     None),
-    "natorbs": (lambda: _cfg("ts_hci", get_natorbs=True), "A8"),
-    "greens": (lambda: _cfg("ts_hci", get_greens_function=True), "A8"),
-    "active_space": (lambda: _cfg("ts_hci", active_space=(2, 2, 4)), "A8"),
-    "dump_wf_var": (lambda: _cfg("ts_hci", dump_wf_var=True), "A8"),
-    "unknown": (lambda: _cfg("ts_hci", hamiltonian_type="spin"), ""),
+    "natorbs": (lambda: _cfg("ts_hci", get_natorbs=True), "ROADMAP A8c"),
+    "greens": (lambda: _cfg("ts_hci", get_greens_function=True),
+               "ROADMAP A8c"),
+    "active_space": (lambda: _cfg("ts_hci", active_space=(2, 2, 4)),
+                     "ROADMAP A8c"),
+    "dump_wf_var": (lambda: _cfg("ts_hci", dump_wf_var=True), None),
+    "unknown": (lambda: _cfg("ts_hci", hamiltonian_type="spin"),
+                "hamiltonian_type"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_cards_raise(name, fcidump):
     """Every card the port does not run raises ValueError naming its
-    ROADMAP item; the cards ported since (Hubbard systems, fixed-node run
-    types, guiding, the other proposals, the exponential projector) pass
-    the check."""
+    ROADMAP item (`hubbarddm` has no card path in either package and says
+    so); the cards ported since (Hubbard systems, fixed-node run types,
+    guiding, the other proposals, the exponential projector, the dense toy
+    types, vmc, dump_wf_var) pass the check."""
     make, item = UNPORTED[name]
     if item is None:
         cli.check_ported(make())
         return
-    with pytest.raises(ValueError, match=f"ROADMAP {item}" if item else
-                       "hamiltonian_type"):
+    with pytest.raises(ValueError, match=item):
         cli.run_from_config(make(), fcidump=fcidump, device="cpu")
 
 
+def test_run_hci_refusals_name_their_items(fcidump):
+    """run_hci's own refusals: the mesh (A7), the active space and ARPACK
+    (A8c)."""
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.base import make_chem_system
+    s = make_chem_system(fcidump, device="cpu")
+    for kw, item in ((dict(mesh=object()), "ROADMAP A7"),
+                     (dict(active_space=(2, 2, 4)), "ROADMAP A8c"),
+                     (dict(diagonalizer="arpack"), "ROADMAP A8c")):
+        with pytest.raises(ValueError, match=item):
+            run_hci(s, eps_var=1e-3, verbose=False, **kw)
+
+
 def test_wavefunction_cache_raises(fcidump, tmp_path, monkeypatch):
-    """The JAX CLI reads a wf_eps_var=... cache from the working
-    directory; the port refuses it instead of ignoring it."""
+    """Both CLIs read a wf_eps_var=... cache from the working directory.
+    A file of that name that is neither package's .npz nor a
+    reference-format record file raises instead of being ignored."""
+    from sqmc_tpu_torch.utils.checkpoint import wf_var_filename
     monkeypatch.chdir(tmp_path)
     cfg = _cfg("ts_hci")
-    (tmp_path / cli._wf_cache_name(min(cfg.eps_var_sched))).write_text("x")
-    with pytest.raises(ValueError, match="ROADMAP A8"):
+    name = wf_var_filename(min(cfg.eps_var_sched))
+    assert name == "./wf_eps_var=1.00E-03"
+    (tmp_path / name).write_text("x")
+    with pytest.raises((EOFError, IOError)):
         cli.run_from_config(cfg, fcidump=fcidump, device="cpu")

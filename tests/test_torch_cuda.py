@@ -751,3 +751,43 @@ def test_fixed_node_walk_on_card_matches_cpu():
     card = trace(dev)
     assert tseg.launches == before + 6 and tspmv.launches == sp_before + 6
     np.testing.assert_allclose(card, trace("cpu"), rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_type,imp", [("none", 0), ("fixed_node1", 1),
+                                          ("partial_node", 1), ("vmc", 1)])
+def test_dense_tables_and_generation_on_card_match_cpu(run_type, imp):
+    """The dense engine's tables built on the card and one
+    deterministic-limit generation (min_wt = 0: no draw) equal the CPU's
+    to 1e-12."""
+    from sqmc_tpu_torch.algo import densewalk as dw
+    from sqmc_tpu_torch.systems.toy import make_fictitious_system
+    dev = _device()
+    kw = dict(bosonic=0, ham_diag_fluc=0.5, ham_offdiag_fluc=1.5,
+              seed=(1, 2, 3, 5))
+    cpu = make_fictitious_system(64, device="cpu", **kw)
+    gpu = make_fictitious_system(64, device=dev, **kw)
+    assert torch.equal(gpu.ham.cpu(), cpu.ham)
+    w, g = cpu.diagonalize()
+    rng = np.random.default_rng(0)
+    psi_g = g.numpy() + 0.25 * rng.standard_normal(64) * g.abs().mean().item()
+    psi_g[np.abs(psi_g) < 1e-3] = 1e-3
+    cfg = dw.DenseWalkConfig(ndet=64, tau=0.01, w_abs_target=1000.0,
+                             run_type=run_type, importance_sampling=imp,
+                             partial_node_eps=0.6, min_wt=0.0)
+    tc = dw.build_dense_tables(cpu, cfg, g, psi_g)
+    tg = dw.build_dense_tables(gpu, cfg, g, psi_g)
+    for name in dw.DenseTables._fields:
+        a, b = getattr(tg, name), getattr(tc, name)
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) < 1e-12, name
+    sc = dw.init_dense_state(cfg, g, psi_g, 700.0, float(w[0]), device="cpu")
+    sg = dw.init_dense_state(cfg, g, psi_g, 700.0, float(w[0]), device=dev)
+    sc, stc = dw.dense_walk_block(sc, tc, cfg, 1)
+    sg, stg = dw.dense_walk_block(sg, tg, cfg, 1)
+    assert float((sg.w.cpu() - sc.w).abs().max()) < 1e-12 * 700.0
+    for f in ("e_trial", "e_est", "reweight_factor_inv", "w_abs_gen"):
+        a, b = float(getattr(sg, f)), float(getattr(sc, f))
+        assert abs(a - b) < 1e-12 * max(1.0, abs(b)), f
+    for k in stc:
+        assert float((stg[k].cpu() - stc[k]).abs().max()) < 1e-9, k

@@ -16,7 +16,15 @@ def test_port_imports_without_jax():
             for m in mods]
     for new in ("sqmc_tpu_torch.algo.guiding",
                 "sqmc_tpu_torch.systems.hubbard.system",
-                "sqmc_tpu_torch.utils.checkpoint"):
+                "sqmc_tpu_torch.utils.checkpoint",
+                "sqmc_tpu_torch.systems.toy",
+                "sqmc_tpu_torch.algo.densewalk",
+                "sqmc_tpu_torch.systems.hubbard.meanfield",
+                "sqmc_tpu_torch.systems.hubbard.vmc",
+                "sqmc_tpu_torch.systems.hubbard.cpmc",
+                "sqmc_tpu_torch.systems.hubbard.symmetry",
+                "sqmc_tpu_torch.systems.hubbard.dmbasis",
+                "sqmc_tpu_torch.utils.refio"):
         assert new in mods, new
     code = (
         "import sys\n"
@@ -34,4 +42,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(mods) >= 19
+    assert int(out.stdout.strip()) == len(mods) >= 47

@@ -140,8 +140,9 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 
 def test_unported_options_raise(fcidump):
-    """Options that stay unported raise ValueError: the mesh, the
-    wavefunction cache, the active space and ARPACK in run_hci; in
+    """Options that stay unported raise ValueError: the mesh, the active
+    space and ARPACK in run_hci (the wavefunction cache is ported: an
+    empty cache directory changes nothing); in
     WalkConfig the sharding and the JAX package's capacity workarounds,
     and (as in the JAX package) an unknown name, a fixed-node run without
     a guiding function or a sector other than +1 / -1.  The exponential
@@ -150,10 +151,14 @@ def test_unported_options_raise(fcidump):
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
     s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
-    for kw in (dict(mesh=object()), dict(wf_cache_dir="wf"),
-               dict(active_space=(1, 1, 4)), dict(diagonalizer="arpack")):
+    for kw in (dict(mesh=object()), dict(active_space=(1, 1, 4)),
+               dict(diagonalizer="arpack")):
         with pytest.raises(ValueError):
             TH.run_hci(s, eps_var=1e-3, verbose=False, **kw)
+    plain = TH.run_hci(s, eps_var=1e-3, verbose=False)
+    cached = TH.run_hci(s, eps_var=1e-3, verbose=False, wf_cache_dir="absent")
+    assert cached.n_iters == plain.n_iters > 0
+    assert cached.energies[0] == plain.energies[0]
     c = t_chem(fcidump, device="cpu", time_sym=True, point_group="d2h")
     base = dict(norb=c.norb, nup=c.nup, ndn=c.ndn, n_words=1, mwalk=1024,
                 cap_spawn=4096, tau=5e-3, w_abs_target=500.0, time_sym=True)

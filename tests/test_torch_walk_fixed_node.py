@@ -214,3 +214,83 @@ def test_table_guiding_follows_gutzwiller_trajectory(lattice):
                              w_abs_begin=500.0, e_trial_initial=-3.0,
                              verbose=False, guide=gd, seed=7))
     np.testing.assert_allclose(outs[0].e_blocks, outs[1].e_blocks, rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# violators inside D; the dense engine as an independent witness
+# ---------------------------------------------------------------------------
+
+def test_fixed_node_dump_inside_d_is_counted_once(lattice):
+    """D = the whole 2x3 space (225 dets, 240 sign violators, all of them
+    inside D).  Every spawn is then D -> D and dropped, so the walk is the
+    exact fixed-node projection on D and e_mixed must equal the dense
+    fixed-node oracle up to the power iteration's convergence.  A D
+    parent's violating spawn into D must not be redirected on top of it:
+    the exact projector already holds that part of the dump (with the
+    redirect kept, this walk sat 6.6e-2 above the oracle, more than the
+    fixed-node error of 5.6e-2 itself)."""
+    s, guide, up, dn, H, g, _, _ = lattice
+    trial = build_trial_wavefunction(s, eps_var=1e-9, n_psi_t=40, n_imp=225)
+    assert len(trial.imp_up) == 225 and _n_violators(H, g) == 240
+    vec = np.zeros(len(up))
+    order = setalg.lexsort_dets(up, dn)
+    pos = setalg.search_dets(up[order], dn[order], trial.psit_up, trial.psit_dn)
+    vec[order[pos].numpy()] = trial.psit_coef.numpy()
+    e0 = float(np.linalg.eigvalsh(H)[0])
+    target = _fn_oracle(H, g, vec, 1.0)[1]
+    assert target > e0 + 5e-2
+    out = _guided_walk((s, guide, up, dn, H, g, trial, vec), "fixed_node1",
+                       target, seed=2, nblk=6, nblk_eq=3)
+    assert abs(out.e_mixed - target) < 1e-5, (out.e_mixed, target)
+
+
+def test_fixed_node_dump_partly_inside_d(lattice):
+    """D = the 150 largest dets of the same lattice: violating pairs lie
+    inside D, across its border and outside it.  fixed_node1 lands on the
+    dense fixed-node oracle within the file's statistical bound."""
+    s, guide, up, dn, H, g, _, vec = lattice
+    trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=40, n_imp=150)
+    assert len(trial.imp_up) == 150
+    target = _fn_oracle(H, g, vec, 1.0)[1]
+    out = _guided_walk((s, guide, up, dn, H, g, trial, vec), "fixed_node1",
+                       target, seed=3, nblk=6, nblk_eq=2)
+    assert abs(out.e_mixed - target) < _tol(out, 1e-4, 1e-3), \
+        (out.e_mixed, target, out.e_err)
+
+
+def test_chain_dense_engine_fixed_node_energy_is_e0():
+    """The 1x8 open chain, 2 + 2 electrons (784 dets), Gutzwiller guiding
+    g = 0.7 on the lattice's own orbitals, as a card deck builds it: no
+    transformed element violates the sign rule, so the dense engine's
+    fixed_node1 projector is the exact one, and at min_wt = 0 (no random
+    draw) it power-iterates to e0 = -5.634427.  An unbiased fixed-node
+    walk on this system therefore has e0 as its target."""
+    from sqmc_tpu_torch.algo.densewalk import (DenseWalkConfig,
+                                               build_dense_tables,
+                                               dense_walk_block,
+                                               init_dense_state)
+    from sqmc_tpu_torch.systems.hubbard.system import (
+        enumerate_dets, make_hubbard_dense_system)
+    L = 8
+    s = make_hubbard_real_system(1, L, 1.0, U, NUP, NDN, pbc=False,
+                                 device="cpu")
+    guide = make_gutzwiller_guiding(s, g=GUTZ_G)
+    toy = make_hubbard_dense_system(1, L, 1.0, U, NUP, NDN, pbc=False,
+                                    device="cpu")
+    up, dn = (torch.as_tensor(x) for x in enumerate_dets(L, NUP, NDN))
+    g = eval_guiding(guide, "gutzwiller", up, dn, L, NUP, NDN)
+    assert toy.ndet == 784 and float(g.abs().min()) > 1e-6
+    assert _n_violators(toy.ham.numpy(), g.numpy()) == 0
+    e0 = float(torch.linalg.eigvalsh(toy.ham)[0])
+    assert abs(e0 - (-5.634427)) < 1e-6
+    cfg = DenseWalkConfig(ndet=784, tau=0.05, w_abs_target=1000.0,
+                          run_type="fixed_node1", importance_sampling=1,
+                          min_wt=0.0)
+    psi_t = torch.zeros(784, dtype=torch.float64)
+    psi_t[int(g.abs().argmax())] = 1.0
+    tables = build_dense_tables(toy, cfg, psi_t, g)
+    assert torch.equal(tables.p_off, tables.p_off_exact)
+    state = init_dense_state(cfg, psi_t, g, 1000.0, e0, device="cpu")
+    state, stats = dense_walk_block(state, tables, cfg, 3000)
+    assert abs(float(stats["e_gen"][-1]) - e0) < 1e-6
+    assert abs(float(stats["e_gen"][-1]) - (-5.634427)) < 1e-6
