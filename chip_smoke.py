@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels   # phases 0-2c only, then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
+    python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -127,11 +128,39 @@ Phases, each reported on its own line; any failure exits nonzero:
      twice in a fresh directory (the second run reads the cache, skips
      the variational stage and prints the same energies), the
      reference-format files written and read back, a 200-generation walk
-     writing its walkalize trace.
+     writing its walkalize trace;
+  9. the legacy CI and the SHCI observables (decks and logs in
+     build/smoke_phase9/; the seven CLI decks of 9a and 9c run beside
+     each other and beside 9a's in-process work, none beside 9b):
+     9a on 6b's synthetic FCIDUMP, 6b's deck through the CLI with
+     &natorb (use_pt .false., and .true. with eps_pt_big 3e-5) and
+     &greens_function (n_w = 50), each FCIDUMP.natorb then run as the
+     same HCI + PT deck (within max(5 sigma, 2 mHa) of the deck's E_var +
+     PT), and with &active_space (3, 3, 20) (E_var not below the
+     unrestricted one); in this process on the same system the active
+     space's frozen orbitals (0 occupied, 21-25 empty in every det),
+     run_hci(diagonalizer="arpack") on K2 in float64 (E_var within 1e-8 of
+     the Davidson's), the seconds and peak memory of the 1-RDM, the PT
+     vector, the RDM with PT, the rotation and the write (trace 8 and
+     occupations in [0, 2] within 1e-10), the Green's function sum rules
+     at w = 1e8 (1e-5); the CAS(4e,12o) fold of the file (n_core 2,
+     n_act 12, 4,356 dets), whose HCI at eps_var -> 0 selects the whole HF
+     symmetry sector and equals torch.linalg.eigh of it on the card
+     (1e-8); MP2 of the 26-orbital system;
+     9b hubbard_lanczos_full on the 4x4 periodic real-space cluster (5 +
+     5, U/t = 4, 19,079,424 dets) matrix-free on the card from a seeded
+     random start: within 1e-4 of -19.58094 (the oracle of 7a and 8d) and
+     not above 7a's HCI E_var; prints the iterations, the seconds per H
+     application, the residual and the peak memory;
+     9c on 7a's cluster (momentum space) the matrix-free Lanczos over the
+     29,850 HCI dets against the float64 COO Davidson (1e-8), then the
+     selected_ci (4 iterations) and trunc_lanc (8) decks through the CLI
+     with n_truncate_det 10,000: both not below 9b's energy, selected CI
+     below its first iteration, truncated Lanczos below the HF energy.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
-launches from phases 3, 7 and 8, spmv's from phases 4, 7 and 8, each path
+launches from phases 3, 7 and 8, spmv's from phases 4, 7, 8 and 9, each path
 counted from 0; errors and times measured
 here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
 m = 1 shape) and ``{"ok": true, "device": {...}}``.
@@ -152,8 +181,9 @@ EPS_VAR = 1e-3
 GOLD_NDET, GOLD_EVAR = 9475, 58.276906085
 ORACLE = 58.275966889                 # E_var + deterministic PT (eps_pt 2e-7)
 W_TARGET, W_BEGIN = 200_000.0, 140_000.0
-NSTEP, NBLK_EQ, NBLK = 100, 12, 10    # 1,200 equilibration + 1,000 measured
+NSTEP, NBLK_EQ, NBLK = 100, 12, 5     # 1,200 equilibration + 500 measured
 MERGE_N = 458_752 + 262_144           # walk merge rows: mwalk + cap_spawn
+GUIDED_NSTEP = 50                     # 7c's guided walks: 2 + 2 blocks of it
 
 
 def log(msg):
@@ -902,32 +932,74 @@ def write_c2_fcidump(path, scale=C2_SCALE, seed=C2_SEED):
     return h, eri
 
 
-def _run_cli(tag, deck, workdir, *extra):
-    """python -m sqmc_tpu_torch -i deck on the card, in a subprocess whose
-    exit code becomes the smoke's.  The whole output goes to
-    <workdir>/<tag>.log; returns (stdout, seconds, {kernel: launches})."""
-    import re
+CLI_JOBS = []                         # decks started and not yet finished
+
+
+def _start_cli(tag, deck, workdir, *extra):
+    """Start python -m sqmc_tpu_torch -i deck on the card in a subprocess
+    (stdout and stderr to files, so that several can run at once); returns
+    the job for :func:`_finish_cli`."""
     deck_path = os.path.join(workdir, f"{tag}.deck")
     with open(deck_path, "w") as f:
         f.write(deck)
-    t0 = time.time()
-    out = subprocess.run([sys.executable, "-m", "sqmc_tpu_torch", "-i",
-                          deck_path, *extra], capture_output=True, text=True,
-                         cwd=workdir, timeout=600,
-                         env=dict(os.environ, PYTHONPATH=HERE))
+    out = [open(os.path.join(workdir, f"{tag}.{s}"), "w+")
+           for s in ("stdout", "stderr")]
+    proc = subprocess.Popen([sys.executable, "-m", "sqmc_tpu_torch", "-i",
+                             deck_path, *extra], stdout=out[0], stderr=out[1],
+                            text=True, cwd=workdir,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    job = (tag, proc, out, workdir, time.time())
+    CLI_JOBS.append(job)
+    return job
+
+
+def _finish_cli(job):
+    """Wait for a deck started by :func:`_start_cli`, whose exit code becomes
+    the smoke's.  The whole output goes to <workdir>/<tag>.log; returns
+    (stdout, seconds from its start, {kernel: launches})."""
+    import re
+    tag, proc, files, workdir, t0 = job
+    try:
+        rc = proc.wait(timeout=max(1.0, 600 - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
     sec = time.time() - t0
+    CLI_JOBS.remove(job)
+    stdout, stderr = [], []
+    for f, text in zip(files, (stdout, stderr)):
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+        os.remove(f.name)
+    stdout, stderr = stdout[0], stderr[0]
     with open(os.path.join(workdir, f"{tag}.log"), "w") as f:
-        f.write(out.stdout + out.stderr)
-    if out.returncode != 0:
-        log(out.stdout[-3000:] + out.stderr[-3000:])
-        log(f"cli deck {tag}: python -m sqmc_tpu_torch exited "
-            f"{out.returncode}")
-        sys.exit(out.returncode)
-    m = re.search(r"Kernel launches: seg_scan=(\d+) spmv=(\d+)", out.stdout)
+        f.write(stdout + stderr)
+    if rc != 0:
+        log(stdout[-3000:] + stderr[-3000:])
+        log(f"cli deck {tag}: python -m sqmc_tpu_torch exited {rc}")
+        sys.exit(rc if rc > 0 else 1)
+    m = re.search(r"Kernel launches: seg_scan=(\d+) spmv=(\d+)", stdout)
     counts = dict(seg_scan=int(m.group(1)), spmv=int(m.group(2)))
     log(f"cli deck {tag}: seconds={sec:.2f} seg_scan_launches="
         f"{counts['seg_scan']} spmv_launches={counts['spmv']}")
-    return out.stdout, sec, counts
+    return stdout, sec, counts
+
+
+def _stop_cli_jobs():
+    """Kill every deck still running (a phase failed before waiting)."""
+    while CLI_JOBS:
+        _, proc, files, _, _ = CLI_JOBS.pop()
+        proc.kill()
+        proc.wait()
+        for f in files:
+            f.close()
+
+
+def _run_cli(tag, deck, workdir, *extra):
+    """python -m sqmc_tpu_torch -i deck on the card, alone; see
+    :func:`_finish_cli`."""
+    return _finish_cli(_start_cli(tag, deck, workdir, *extra))
 
 
 def _grab(text, pattern, every=False):
@@ -1293,6 +1365,7 @@ def phase_hubbard_k(dev, workdir, smi):
             f"spmv_launches={c['spmv']} seconds={time.time() - t0:.1f} [{smi}]")
         if c["seg_scan"] <= 0:
             raise AssertionError(f"7a {name}: the walk never launched K1")
+    HUB_RESULTS.update(e_var=e_var, e_tot=e_tot)
     return e_tot
 
 
@@ -1509,7 +1582,7 @@ def phase_fixed_node_oracles(dev, workdir):
                              guiding="gutzwiller", **opts)
             t0 = time.time()
             out, c = _counted(lambda: run_walk(
-                s, trial, cfg, nstep=100, nblk=2, nblk_eq=2,
+                s, trial, cfg, nstep=GUIDED_NSTEP, nblk=2, nblk_eq=2,
                 w_abs_begin=1500.0, e_trial_initial=target, verbose=False,
                 guide=guide, seed=2))
             gate = 6 * max(out.e_err, 1e-4) + 1e-3
@@ -2243,6 +2316,417 @@ def phase_dense(dev, heg14=None, res=None, trial=None):
         + " seconds")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the legacy CI and the SHCI observables
+# ---------------------------------------------------------------------------
+
+COUNTS9 = dict(seg_scan=0, spmv=0)    # phase 9's launches, path by path
+HUB_RESULTS = {}                      # 7a's E_var and E_var + PT, when run
+HUB_E0 = -19.58094                    # 7a's and 8d's oracle for the cluster
+C2_SCHED = [2e-3, 2e-3, 1e-3]         # the C2 decks' eps_var schedule
+C2_ACTIVE = (3, 3, 20)                # n_var_e_up, n_var_e_dn, n_var_orbs
+NATORB_EPS_PT_BIG = 3e-5              # the PT vector's screen (~1e5 dets)
+CAS_CORE, CAS_ACT = 2, 12             # CAS(4e,12o) of the synthetic file
+LANCZOS_ITERS = 150
+LANCZOS_TOL = 1e-9                    # 9b's stop: |dE| between iterations
+LEGACY_ITERS = dict(selected_ci=4, trunc_lanc=8)
+LEGACY_NTRUNC = 10_000
+HUBK_LEGACY_DECK = """\
+1 1                                irand_seed
+100 {iters} {iters} 0                          nstep,nblk,nblk_eq,ipr
+1000 2000 0                        w_abs_gen_begin, w_abs_gen_target, MWALK
+0.1 0.                             tau_multiplier, tau
+1. 2.                              reweight_factor_inv_max_multiplier, reweight_factor_inv_max
+10. 0. 0.5                         population_control_expon, e_trial_initial, min_wt
+heat_bath2 0 1. 0 1.               proposal_method, importance_sampling, r_initiator, initiator_power, initiator_rescale_power
+{run_type}                         run_type
+.false. f                          semistochastic, use_exponential_projector
+{n_trunc}                              n_truncate_det
+'hubbardk' 0                       hamiltonian_type,ipr
+4 4                                l_x, l_y
+t f                                pbc, neel_up_only
+1. 4.                              t, U
+5 5                                n_alpha, n_beta
+"""
+
+
+def _timed(fn, dev):
+    """(fn(), seconds, peak GB of device memory allocated during it)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return (out, time.time() - t0,
+            (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+
+
+def _tot_and_err(text):
+    """State 1's E_var + PT of a CLI log and its error bar (0 if the PT
+    was deterministic)."""
+    import re
+    tot = _grab(text, r"Total energy\(1\)=")
+    m = re.search(r"Second-order PT energy lowering=\s*[-+0-9.eE]+\s*\+-\s*"
+                  r"([0-9.eE+-]+)", text)
+    return tot, float(m.group(1)) if m else 0.0
+
+
+def _natorb_decks():
+    """6b's deck with &natorb use_pt .false. and &greens_function, and with
+    &natorb use_pt .true.; eps_pt_big defaults to eps_var, where HCI has
+    already taken every det the PT vector would hold, so the second
+    screens it at NATORB_EPS_PT_BIG."""
+    no_pt = (C2_HCI_DECK + "&natorb get_natorbs=.true. use_pt=.false. /\n"
+             "&greens_function get_greens_function=.true. n_w=50 "
+             "w_min=-2. w_max=2. /\n")
+    pt = C2_HCI_DECK.replace(
+        "&selected_ci eps_var_sched=2*2e-3 /",
+        f"&selected_ci eps_var_sched=2*2e-3 eps_pt_big={NATORB_EPS_PT_BIG:g} /"
+    ) + "&natorb get_natorbs=.true. use_pt=.true. /\n"
+    return {False: no_pt, True: pt}
+
+
+def start_c2_decks(workdir, fcidump):
+    """Start 9a's first decks together: both &natorb decks (each in its own
+    directory, as each writes FCIDUMP.natorb) and &active_space."""
+    jobs = {}
+    for use_pt, deck in _natorb_decks().items():
+        d = os.path.join(workdir, "natorb_pt" if use_pt else "natorb_no_pt")
+        os.makedirs(d, exist_ok=True)
+        jobs[use_pt] = _start_cli("9a_c2_natorb" + ("_pt" if use_pt else
+                                                    "_greens"), deck, d,
+                                  "-f", fcidump)
+    jobs["active_space"] = _start_cli(
+        "9a_c2_active_space", C2_HCI_DECK + "&active_space n_var_e_up=3 "
+        "n_var_e_dn=3 n_var_orbs=20 /\n", workdir, "-f", fcidump)
+    return jobs
+
+
+def phase_c2_observables(dev, workdir, fcidump, jobs):
+    """9a (i)-(iii): the &natorb (both branches), &greens_function and
+    &active_space decks through the CLI on the synthetic C2-shaped file
+    (`jobs`, from start_c2_decks), the natural-orbital FCIDUMPs run again
+    as HCI + PT decks, and in this process the active space, ARPACK, the
+    1-RDM, the PT vector, the rotation and the Green's function sum rules
+    on the same system.  The decks run two or three at a time, beside this
+    process's work: their seconds include that contention."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo import rdm
+    from sqmc_tpu_torch.algo.greens import greens_function_g0
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.base import make_chem_system
+
+    # (ii) + (iii) through the CLI; E_var and E_var + PT are 6b's
+    text, sec_a, c_a = _finish_cli(jobs[False])
+    e_var = _grab(text, r"Variational energy=")
+    e_tot, e_err = _tot_and_err(text)
+    g0 = _grab(text, r"trace=", every=True)
+    if "Wrote FCIDUMP.natorb" not in text or len(g0) != 50 \
+            or not np.all(np.isfinite(g0)):
+        raise AssertionError("the &natorb / &greens_function deck is off")
+    text, sec_c, c_c = _finish_cli(jobs[True])
+    if abs(_grab(text, r"Variational energy=") - e_var) > 1e-9 \
+            or "Wrote FCIDUMP.natorb" not in text:
+        raise AssertionError("the &natorb use_pt deck is off")
+    secs = dict(natorb_greens=sec_a, natorb_pt=sec_c)
+    reruns = {}
+    for use_pt in (False, True):
+        name = "natorb_pt" if use_pt else "natorb_no_pt"
+        path = os.path.join(workdir, f"FCIDUMP.{name}")
+        os.replace(os.path.join(workdir, name, "FCIDUMP.natorb"), path)
+        reruns[use_pt] = _start_cli(f"9a_c2_on_{name}", C2_HCI_DECK, workdir,
+                                    "-f", path)
+
+    # (i) in this process: the active space's dets, ARPACK on K2 in f64
+    system = make_chem_system(fcidump, time_sym=True, z=1, point_group="d2h",
+                              hf_symmetry=1, device=dev)
+    kw = dict(eps_var=1e-3, eps_var_sched=C2_SCHED, n_states=2, verbose=False)
+    (full, t_full, _), c_full = _counted(
+        lambda: _timed(lambda: run_hci(system, device_davidson=True, **kw),
+                       dev), COUNTS9)
+    (act, t_act, _), c_act = _counted(
+        lambda: _timed(lambda: run_hci(system, device_davidson=True,
+                                       active_space=C2_ACTIVE, **kw), dev),
+        COUNTS9)
+    (arp, t_arp, _), c_arp = _counted(
+        lambda: _timed(lambda: run_hci(system, diagonalizer="arpack", **kw),
+                       dev), COUNTS9)
+    # (i) through the CLI
+    text, secs["active_space"], _ = _finish_cli(jobs["active_space"])
+    e_act = _grab(text, r"Variational energy=")
+    if e_act < e_var - 1e-9:
+        raise AssertionError("the active-space E_var lies below the "
+                             "unrestricted one")
+    bu, bd = (dets.to_bits(w, system.norb) for w in (act.up, act.dn))
+    frozen_ok = bool((bu[:, 0] == 1).all() and (bd[:, 0] == 1).all()
+                     and (bu[:, 21:] == 0).all() and (bd[:, 21:] == 0).all())
+    log(f"phase 9a c2 in process: device_davidson ndets={len(full.up)} "
+        f"e_var={full.energies[0]:.9f} ({t_full:.2f} s, spmv {c_full['spmv']}); "
+        f"active_space ndets={len(act.up)} e_var={act.energies[0]:.9f} "
+        f"frozen_ok={frozen_ok} ({t_act:.2f} s, spmv {c_act['spmv']}); "
+        f"arpack ndets={len(arp.up)} e_var={arp.energies[0]:.12f} "
+        f"vs_cli_davidson={arp.energies[0] - e_var:.3e} ({t_arp:.2f} s, "
+        f"spmv {c_arp['spmv']})")
+    if not frozen_ok or abs(act.energies[0] - e_act) > 1e-6:
+        raise AssertionError("the active space broke its frozen orbitals or "
+                             "disagrees with the CLI")
+    if abs(arp.energies[0] - e_var) > 1e-8 or c_arp["spmv"] <= 0:
+        raise AssertionError("ARPACK on K2 disagrees with Davidson")
+    if abs(full.energies[0] - e_var) > 1e-6 or c_full["spmv"] <= 0:
+        raise AssertionError("device-Davidson HCI disagrees with the CLI")
+
+    # (ii) in this process: each stage's seconds and peak memory
+    c0 = full.wts[:, 0]
+    e0 = float(full.energies[0])
+    sym = np.asarray(system.table.orb_sym)
+    gamma, t_rdm, m_rdm = _timed(
+        lambda: rdm.get_1rdm(system, full.up, full.dn, c0), dev)
+    (pu, _, _), t_pt, m_pt = _timed(lambda: rdm.first_order_pt_vector(
+        system, full.up, full.dn, c0, e0, NATORB_EPS_PT_BIG), dev)
+    gamma_pt, t_rdm_pt, m_rdm_pt = _timed(lambda: rdm.get_1rdm_with_pt(
+        system, full.up, full.dn, c0, e0, NATORB_EPS_PT_BIG), dev)
+    stats = []
+    for name, g in (("rdm", gamma), ("rdm_with_pt", gamma_pt)):
+        occ, U = rdm.natural_orbitals(g, sym)
+        stats.append((name, float(np.trace(g)), float(occ.min()),
+                      float(occ.max())))
+    (h2, eri2), t_rot, m_rot = _timed(
+        lambda: rdm.rotate_integrals(system.table, U), dev)
+    t0 = time.time()
+    rdm.write_fcidump(os.path.join(workdir, "FCIDUMP.natorb_in_process"), h2,
+                      eri2, system.table.core_energy, sym, nelec=8)
+    t_write = time.time() - t0
+    log(f"phase 9a natorb stages: rdm {t_rdm:.3f} s {m_rdm:.3f} GB; "
+        f"pt_vector eps_pt_big={NATORB_EPS_PT_BIG:g} pt_dets={len(pu)} "
+        f"{t_pt:.3f} s {m_pt:.3f} GB; rdm_with_pt {t_rdm_pt:.3f} s "
+        f"{m_rdm_pt:.3f} GB; rotation {t_rot:.3f} s {m_rot:.3f} GB; write "
+        f"{t_write:.3f} s; trace / occupation min / max: {stats}")
+    for name, tr, lo, hi in stats:
+        if abs(tr - 8.0) > 1e-10 or lo < -1e-10 or hi > 2.0 + 1e-10:
+            raise AssertionError(f"{name}: trace {tr!r} or occupations "
+                                 f"[{lo!r}, {hi!r}] out of range")
+
+    # (iii) the sum rules at w = 1e8: w G+ -> 2 I - gamma, w G- -> gamma
+    (gp, gm), t_g, m_g = _timed(lambda: greens_function_g0(
+        system, full.up, full.dn, c0, e0, np.array([1e8])), dev)
+    err_p = float(np.abs(1e8 * gp[0].real - (2 * np.eye(system.norb) - gamma)
+                         ).max())
+    err_m = float(np.abs(1e8 * gm[0].real - gamma).max())
+    log(f"phase 9a greens sum rules: |w G+ - (2 - gamma)|={err_p:.3e} "
+        f"|w G- - gamma|={err_m:.3e} seconds={t_g:.3f} peak_gb={m_g:.3f}")
+    if err_p > 1e-5 or err_m > 1e-5:
+        raise AssertionError("the Green's function misses its sum rules")
+
+    # (ii) each FCIDUMP.natorb as 6b's HCI + PT deck
+    for use_pt, job in reruns.items():
+        text, sec, _ = _finish_cli(job)
+        secs["on_natorb" + ("_pt" if use_pt else "_no_pt")] = sec
+        tot, err = _tot_and_err(text)
+        gate = max(5 * np.hypot(err, e_err), 2e-3)
+        log(f"phase 9a natorb use_pt={use_pt}: e_var="
+            f"{_grab(text, 'Variational energy='):.9f} e_var_plus_pt={tot:.9f} "
+            f"vs_deck_mHa={1e3 * (tot - e_tot):.4f} gate_mHa={1e3 * gate:.4f}")
+        if abs(tot - e_tot) > gate:
+            raise AssertionError("HCI + PT in the natural orbitals is not "
+                                 "within max(5 sigma, 2 mHa) of the deck")
+    log(f"phase 9a c2 decks: e_var={e_var:.9f} e_var_plus_pt={e_tot:.9f} "
+        f"e_var_active={e_act:.9f} seconds={secs} launches="
+        f"{dict(natorb_greens=c_a, natorb_pt=c_c)}")
+    return e_var
+
+
+def phase_cas_anchor(dev, workdir, fcidump):
+    """9a (iv): CAS(4e,12o) of the synthetic file by the frozen-core fold;
+    HCI at eps_var -> 0 selects the whole HF symmetry sector and equals a
+    dense eigh of that sector on the card; MP2 of the 26-orbital system."""
+    from itertools import combinations
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    from sqmc_tpu_torch.ops import setalg
+    from sqmc_tpu_torch.systems.base import make_chem_system
+    from sqmc_tpu_torch.systems.chem.cas import write_cas_fcidump
+    from sqmc_tpu_torch.systems.chem.mp2 import mp2_deterministic
+
+    t0 = time.time()
+    cas_path = os.path.join(workdir, "FCIDUMP_cas_4e12o")
+    info = write_cas_fcidump(fcidump, CAS_CORE, CAS_ACT, cas_path)
+    s = make_chem_system(cas_path, point_group="d2h", device=dev)
+    res = run_hci(s, eps_var=1e-14, eps_var_sched=[1e-14], verbose=False)
+    t_hci = time.time() - t0
+    norb, nup, ndn = s.norb, s.nup, s.ndn
+    ups = torch.as_tensor(np.stack([dets.det_from_orbs(o, norb) for o in
+                                    combinations(range(norb), nup)]),
+                          device=dev)
+    dns = torch.as_tensor(np.stack([dets.det_from_orbs(o, norb) for o in
+                                    combinations(range(norb), ndn)]),
+                          device=dev)
+    up = ups.repeat_interleave(len(dns), dim=0)
+    dn = dns.repeat(len(ups), 1)
+    irrep = s.orb_sym_arr.to(torch.int64) - 1
+
+    def det_irrep(bu, bd):
+        occ = (bu + bd).to(torch.int64) % 2          # doubly occupied cancel
+        out = torch.zeros(len(bu), dtype=torch.int64, device=dev)
+        for p in range(norb):
+            out ^= occ[:, p] * irrep[p]
+        return out
+    sector = det_irrep(dets.to_bits(up, norb), dets.to_bits(dn, norb))
+    hf = det_irrep(*(dets.to_bits(torch.as_tensor(w[None], device=dev), norb)
+                     for w in (s.hf_up, s.hf_dn)))
+    keep = sector == hf
+    up, dn = up[keep], dn[keep]
+    o = setalg.lexsort_dets(up, dn)
+    up, dn = up[o], dn[o]
+    t1 = time.time()
+    H = build_sparse_ham(s.table, up, dn, nup, ndn, norb).dense()
+    e_eigh = float(torch.linalg.eigvalsh(H)[0])
+    torch.cuda.synchronize(dev)
+    t_eigh = time.time() - t1
+    same = len(up) == len(res.up) and bool((up == res.up).all()
+                                           and (dn == res.dn).all())
+    t2 = time.time()
+    plain = make_chem_system(fcidump, point_group="d2h", device=dev)
+    e_mp2, _ = mp2_deterministic(plain)
+    t_mp2 = time.time() - t2
+    log(f"phase 9a cas anchor: CAS({info['nelec']}e,{info['norb']}o) "
+        f"space={len(ups) * len(dns)} sector={len(up)} hci_ndets="
+        f"{len(res.up)} same_dets={same} e_hci={res.energies[0]:.12f} "
+        f"e_eigh={e_eigh:.12f} diff={res.energies[0] - e_eigh:.3e} "
+        f"hci_seconds={t_hci:.2f} eigh_seconds={t_eigh:.2f}; mp2 of the "
+        f"26-orbital system={e_mp2:.12f} ({t_mp2:.2f} s)")
+    if len(ups) * len(dns) != 4356 or not same \
+            or abs(res.energies[0] - e_eigh) > 1e-8:
+        raise AssertionError("HCI at eps_var -> 0 on the CAS is not the "
+                             "sector's exact energy")
+    if not (np.isfinite(e_mp2) and e_mp2 < 0):
+        raise AssertionError("MP2 of the synthetic system is not negative")
+
+
+def phase_lanczos_full(dev, e_var_hci):
+    """9b: hubbard_lanczos_full on the 4x4 periodic real-space cluster
+    (5 + 5, U/t = 4, 19,079,424 dets), matrix-free on the card from a
+    seeded random start (a single det can miss the ground state's sector);
+    |E - HUB_E0| < 1e-4 and E <= the HCI E_var of 7a's system."""
+    import contextlib
+    import io
+    import torch
+    from sqmc_tpu_torch.algo import legacy_ci as L
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_real_system
+
+    s = make_hubbard_real_system(*HUB, pbc=True, device=dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (e, vec, up, dn), sec, peak = _timed(lambda: L.hubbard_lanczos_full(
+            s, iters=LANCZOS_ITERS, tol=LANCZOS_TOL, verbose=True,
+            random_start=True), dev)
+    its = buf.getvalue().strip().splitlines()
+    diag = L._diag_elements(s, up, dn)
+    hv, t_apply, m_apply = _timed(lambda: L.apply_h_on_the_fly(
+        s, up, dn, vec, diag=diag), dev)
+    resid = float(torch.linalg.norm(hv - e * vec))
+    log(f"phase 9b lanczos full: dets={len(up)} iterations={len(its)} "
+        f"e={e:.10f} vs_oracle={e - HUB_E0:.3e} residual={resid:.3e} "
+        f"seconds={sec:.2f} seconds_per_h_application={t_apply:.3f} "
+        f"apply_peak_gb={m_apply:.3f} peak_gb={peak:.3f} [{nvidia_smi_line()}]")
+    log(f"phase 9b the cluster's exact energy {e:.10f}: 7a's HCI e_var "
+        f"{HUB_RESULTS.get('e_var', e_var_hci):.9f}, 7a's e_var + pt "
+        f"{HUB_RESULTS.get('e_tot', float('nan')):.9f}, the oracle of 7a "
+        f"and 8d {HUB_E0}")
+    if len(up) != 19_079_424 or abs(e - HUB_E0) > 1e-4 or e > e_var_hci:
+        raise AssertionError("the full-space Lanczos missed the 4x4 "
+                             "cluster's exact energy")
+    return e
+
+
+def start_legacy_decks(workdir):
+    """Start 9c's selected_ci and trunc_lanc decks together."""
+    return {run_type: _start_cli(f"9c_hubbardk_{run_type}",
+                                 HUBK_LEGACY_DECK.format(
+                                     run_type=run_type, iters=iters,
+                                     n_trunc=LEGACY_NTRUNC), workdir)
+            for run_type, iters in LEGACY_ITERS.items()}
+
+
+def phase_legacy_ci(dev, jobs):
+    """9c and 9b: 7a's HCI list under the matrix-free Lanczos, the full
+    space, then the selected_ci and trunc_lanc decks through the CLI
+    (`jobs`, from start_legacy_decks; they ran beside 9a)."""
+    import torch
+    from sqmc_tpu_torch.algo import legacy_ci as L
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
+
+    s = make_hubbard_k_system(*HUB, device=dev)
+    t0 = time.time()
+    res = run_hci(s, eps_var=1e-3, eps_var_sched=[2e-3, 2e-3, 1e-3],
+                  verbose=False)
+    t_hci = time.time() - t0
+    (e_l, _), t_l, _ = _timed(lambda: L.matrix_lanczos_on_the_fly(
+        s, res.up, res.dn, iters=300, tol=1e-12), dev)
+    log(f"phase 9c lanczos on the HCI list: ndets={len(res.up)} "
+        f"e_davidson={res.energies[0]:.12f} e_lanczos={e_l:.12f} "
+        f"diff={e_l - res.energies[0]:.3e} hci_seconds={t_hci:.2f} "
+        f"lanczos_seconds={t_l:.2f}")
+    if abs(e_l - res.energies[0]) > 1e-8:
+        raise AssertionError("the matrix-free Lanczos disagrees with the COO "
+                             "Davidson on the HCI list")
+    done = {k: _finish_cli(job) for k, job in jobs.items()}
+    e_exact = phase_lanczos_full(dev, float(res.energies[0]))
+    e_hf = float(L._diag_elements(s, torch.as_tensor(s.hf_up[None], device=dev),
+                                  torch.as_tensor(s.hf_dn[None], device=dev))[0])
+    for run_type, iters in LEGACY_ITERS.items():
+        text, sec, c = done[run_type]
+        if run_type == "selected_ci":
+            e = _grab(text, r"Selected CI energy=")
+            its = _grab(text, r"selected_ci iter \d+: ndet=\d+ E=", every=True)
+            ok = len(its) == iters and e < its[0]
+        else:
+            e = _grab(text, r"Truncated Lanczos energy=")
+            its = _grab(text, r"trunc_lanc iter \d+: ndet=\d+ E=", every=True)
+            ok = e < e_hf
+        log(f"phase 9c {run_type} cli: e={e:.9f} per_iteration={its} "
+            f"vs_exact_mHa={1e3 * (e - e_exact):.4f} e_hf={e_hf:.9f} "
+            f"seconds={sec:.2f} launches={c}")
+        if e < e_exact - 1e-9 or not ok:
+            raise AssertionError(f"{run_type} broke its variational or "
+                                 "progress gate")
+    return e_exact
+
+
+def phase_legacy(dev):
+    """Phase 9: the CLI decks of 9a and 9c start together; 9a's CAS anchor
+    and in-process checks run beside them; then 9c with 9b inside it, with
+    no deck left running.  Every in-process path's kernel counts are set
+    to 0 just before it and read just after, summed into COUNTS9."""
+    import shutil
+    workdir = os.path.join(HERE, "build", "smoke_phase9")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    fcidump = os.path.join(workdir, "FCIDUMP_c2_synthetic")
+    write_c2_fcidump(fcidump)
+    t0 = time.time()
+    try:
+        c2_jobs = start_c2_decks(workdir, fcidump)
+        legacy_jobs = start_legacy_decks(workdir)
+        phase_cas_anchor(dev, workdir, fcidump)
+        t1 = time.time()
+        phase_c2_observables(dev, workdir, fcidump, c2_jobs)
+        t2 = time.time()
+        phase_legacy_ci(dev, legacy_jobs)
+    finally:
+        _stop_cli_jobs()
+    log(f"phase 9 launches: {COUNTS9}")
+    log(f"phase 9 stages: 9a_cas={t1 - t0:.2f} 9a_decks_and_observables="
+        f"{t2 - t1:.2f} 9bc={time.time() - t2:.2f} seconds")
+
+
 def phase_build():
     """Both kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2279,6 +2763,10 @@ def main():
         phase_dense(dev)
         raise SystemExit("chip_smoke: --dense ran phases 0, 1 and 8 only; "
                          "no result")
+    if "--legacy" in sys.argv[1:]:
+        phase_legacy(dev)
+        raise SystemExit("chip_smoke: --legacy ran phases 0, 1 and 9 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     kernel_us = phase_kernel_rows()
@@ -2294,8 +2782,9 @@ def main():
     phase_cli(dev)
     phase_hubbard(dev, smi, system, trial)
     phase_dense(dev, system, res, trial)
-    launches += COUNTS7["seg_scan"] + COUNTS8["seg_scan"]
-    sp_launches += COUNTS7["spmv"] + COUNTS8["spmv"]
+    phase_legacy(dev)
+    launches += COUNTS7["seg_scan"] + COUNTS8["seg_scan"] + COUNTS9["seg_scan"]
+    sp_launches += COUNTS7["spmv"] + COUNTS8["spmv"] + COUNTS9["spmv"]
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,

@@ -160,14 +160,35 @@ def emit_doubles(hb, ref_up, ref_dn, n_emit, lo, desc, *, total: int,
     return dict(new_up=new_up, new_dn=new_dn, ref=bi, helem=helem, valid=valid)
 
 
+def _single_targets(table, orb_sym, norb: int):
+    """For each orbital p, the targets r (ascending, padded to the longest
+    row) of the singles p -> r that can be nonzero: same irrep, r != p,
+    and h[p, r] or some (pr|qq) or (pq|qr) nonzero.  Every other single's
+    element is exactly 0 whatever the occupations, so leaving it out of
+    the emission drops only rows the filter would drop (the survivors keep
+    their order).  Returns (R [norb, K] int64, ok [norb, K] bool)."""
+    dev = table.h.device
+    can = ((table.h.reshape(-1) != 0) | (table.sing_dir != 0).any(dim=1)
+           | (table.sing_exch != 0).any(dim=1)).reshape(norb, norb)
+    can &= orb_sym[:, None] == orb_sym[None, :]
+    can &= ~torch.eye(norb, dtype=torch.bool, device=dev)
+    k = max(int(can.sum(dim=1).max()), 1)
+    R = torch.argsort((~can).to(torch.int8), dim=1, stable=True)[:, :k]
+    return R, can.gather(1, R)
+
+
 def emit_singles(table, orb_sym, ref_up, ref_dn, eps, min_H, *, nup: int,
                  ndn: int, norb: int):
     """All symmetry-allowed singles with eps <= |H| <= min_H (ref:
     chemistry.f90:6903-6992): element(p->r) = h[p,r] + sum_q n_q (pr|qq)
-    - sum_{q same spin} n_q (pq|qr), for all (p, r) as matmuls."""
+    - sum_{q same spin} n_q (pq|qr), for all (p, r) as matmuls; the
+    candidates are the targets of :func:`_single_targets` (on a Hubbard
+    lattice the neighbours, not every orbital)."""
     nelec = nup + ndn
     B = ref_up.shape[0]
     dev = ref_up.device
+    R, R_ok = _single_targets(table, orb_sym, norb)
+    K = R.shape[1]
     bits_up = dets.to_bits(ref_up, norb)
     bits_dn = dets.to_bits(ref_dn, norb)
     occ = torch.cat([dets.occ_orbitals(bits_up, nup),
@@ -185,13 +206,14 @@ def emit_singles(table, orb_sym, ref_up, ref_dn, eps, min_H, *, nup: int,
 
     pref_up, pref_dn = prefix(bits_up), prefix(bits_dn)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
-    pb = ar(B).repeat_interleave(nelec * norb)
-    pe = ar(nelec).repeat_interleave(norb).repeat(B)
-    rr = ar(norb).repeat(B * nelec)
+    pb = ar(B).repeat_interleave(nelec * K)
+    pe = ar(nelec).repeat_interleave(K).repeat(B)
+    kk = ar(K).repeat(B * nelec)
     p = occ[pb, pe]
+    rr = R[p, kk]
     up_sel = pe < nup
     r_occ = torch.where(up_sel, bits_up[pb, rr] != 0, bits_dn[pb, rr] != 0)
-    valid = (~r_occ) & (orb_sym[p] == orb_sym[rr]) & (p != rr)
+    valid = (~r_occ) & R_ok[p, kk]
     unsigned = torch.where(up_sel, M_up[pb, p * norb + rr],
                            M_dn[pb, p * norb + rr])
     lo_ = torch.minimum(p, rr)

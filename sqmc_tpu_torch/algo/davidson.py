@@ -6,6 +6,10 @@ Hamiltonian's device (both orientations of the stored upper triangle plus
 the diagonal), or the caller's ``matvec_fn`` (device HCI passes the
 float32 block-ELL SpMV); the small Rayleigh-Ritz algebra runs on the host
 in numpy, exactly as in the JAX package.
+
+:func:`arpack_diagonalize` is the ARPACK alternative (scipy ``eigsh``,
+the library the reference's optional PARPACK build wraps): its operator
+is the float64 block-ELL SpMV, the hand kernel on the card.
 """
 
 from __future__ import annotations
@@ -115,3 +119,36 @@ def davidson(H: SparseHam, n_states: int = 1,
         V = np.concatenate([V, T], axis=1)
         W = np.concatenate([W, HT], axis=1)
     return np.asarray(evals), np.asarray(X)
+
+
+def arpack_diagonalize(H: SparseHam, n_states: int = 1,
+                       initial: np.ndarray | None = None, tol: float = 0.0):
+    """ARPACK alternative diagonalizer (ref: parpack_diagonalize,
+    more_tools.f90:2869; scipy bundles the same ARPACK library), with the
+    contract of davidson(): returns (evals [k], evecs [n, k]).  The
+    operator's matvec is ops.spmv.BlockEllSpmv in float64 on H's device
+    (the kernel on the card, its plain version on the CPU), called once
+    per ARPACK step from the host."""
+    from scipy.sparse.linalg import LinearOperator, eigsh
+    from ..ops.spmv import BlockEllSpmv
+
+    n, k = H.n, n_states
+    if n <= max(2 * k + 1, 16):
+        w, v = np.linalg.eigh(H.dense().cpu().numpy())
+        return w[:k], v[:, :k]
+    mv = BlockEllSpmv(H, dtype=np.float64)
+    dev = H.vals.device
+
+    def apply(x):
+        return mv(torch.as_tensor(np.asarray(x, np.float64),
+                                  device=dev)).cpu().numpy()
+
+    A = LinearOperator((n, n), matvec=apply, matmat=apply, dtype=np.float64)
+    v0 = None
+    if initial is not None and initial.shape[0] == n:
+        v0 = np.asarray(initial[:, 0], np.float64)
+        nrm = np.linalg.norm(v0)
+        v0 = v0 / nrm if nrm > 0 else None
+    w, v = eigsh(A, k=k, which="SA", v0=v0, tol=tol)
+    order = np.argsort(w)
+    return w[order], v[:, order]

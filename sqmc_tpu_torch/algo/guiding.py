@@ -44,7 +44,7 @@ class Guiding(NamedTuple):
     tab_val: torch.Tensor    # [n] f64
 
 
-def empty_guiding(device="cpu") -> Guiding:
+def empty_guiding(device="cuda") -> Guiding:
     z = torch.zeros((1, 1), dtype=F64, device=device)
     zu = torch.zeros((1, 1), dtype=torch.int64, device=device)
     return Guiding(phi_up=z, phi_dn=z,

@@ -13,10 +13,20 @@ the eps_var series and its extrapolation.
 
 ``wf_cache_dir`` / ``dump_wf_var`` read and write the variational
 wavefunction cache (utils/checkpoint.py; a reference-written unformatted
-cache is read through utils/refio.py).
+cache is read through utils/refio.py).  ``active_space`` is the
+reference's &active_space (frozen core and frozen virtuals filter the
+candidates); ``diagonalizer="arpack"`` diagonalizes with scipy's ARPACK
+on the float64 block-ELL SpMV (algo/davidson.py).
 
-Not ported (each raises ValueError): the mesh (ROADMAP A7), the active
-space and the ARPACK diagonalizer (ROADMAP A8c).
+The JAX package's device driver ``run_hci_device`` (sqmc_tpu/algo/
+devhci.py) folds into this function: its bucketed fixed shapes
+(``_bucket``, ``_fit``) and its u64 bit tables are workarounds for XLA
+recompiles and the TPU's missing 64-bit shifts, and the work it keeps on
+the device (candidates, merge, sparse H, the float32 SpMV Davidson) is
+already on the system's device here; ``device_davidson=True`` selects
+the same dets as ``run_hci_device`` (tests/test_torch_shci.py).
+
+Not ported (raises ValueError): the mesh (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -27,12 +37,13 @@ import os
 import numpy as np
 import torch
 
+from .. import dets as dets_mod
 from ..ops import setalg
 from ..ops.spmv import BlockEllSpmv
 from ..utils.precision import full_fp32_matmul
 from ..utils.timers import phase
 from .connect import generate_connections
-from .davidson import davidson, matvec
+from .davidson import arpack_diagonalize, davidson, matvec
 from .sparseham import SparseHam, build_sparse_ham
 
 
@@ -44,6 +55,29 @@ class HCIResult:
     energies: np.ndarray    # [n_states]
     diag: np.ndarray        # [n] diagonal elements
     n_iters: int
+
+
+def _active_space_mask(cu, cd, active_space, nup: int, ndn: int, norb: int):
+    """Candidate filter of the variational active space: frozen core
+    always occupied, frozen virtuals never (ref: hci.f90:149-191), word by
+    word.  cu / cd: int64 words [m, W]; returns bool [m]."""
+    n_var_e_up, n_var_e_dn, n_var_orbs = active_space
+    n_core_up = nup - n_var_e_up
+    n_core_dn = ndn - n_var_e_dn
+    core_up = dets_mod.det_from_orbs(range(n_core_up), norb)
+    core_dn = dets_mod.det_from_orbs(range(n_core_dn), norb)
+    virt_up = dets_mod.det_from_orbs(
+        range(min(n_core_up + n_var_orbs, norb), norb), norb)
+    virt_dn = dets_mod.det_from_orbs(
+        range(min(n_core_dn + n_var_orbs, norb), norb), norb)
+    ok = torch.ones(len(cu), dtype=torch.bool, device=cu.device)
+    for w in range(cu.shape[1]):
+        cu_w, cd_w = cu[:, w], cd[:, w]
+        ok &= (cu_w & int(core_up[w])) == int(core_up[w])
+        ok &= (cd_w & int(core_dn[w])) == int(core_dn[w])
+        ok &= (cu_w & int(virt_up[w])) == 0
+        ok &= (cd_w & int(virt_dn[w])) == 0
+    return ok
 
 
 def _rayleigh_f64(H: SparseHam, x) -> float:
@@ -103,18 +137,21 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     device_davidson: for H.n >= 2000, Davidson runs on the float32
     block-ELL SpMV (tol 3e-6) and each converged eigenvalue is refined by
     a float64 Rayleigh quotient, as in sqmc_tpu's run_hci.
+    diagonalizer: "davidson" or "arpack" (scipy eigsh on the float64
+    block-ELL SpMV; it takes precedence over device_davidson, as in the
+    JAX package).
+    active_space: (n_var_e_up, n_var_e_dn, n_var_orbs) of the reference's
+    &active_space: the lowest nup - n_var_e_up (ndn - n_var_e_dn) orbitals
+    are frozen core and those above core + n_var_orbs frozen virtuals;
+    candidates that break either are dropped (ref: hci.f90:384-412).
     wf_cache_dir: a wf_eps_var=<eps> cache found there (an .npz of either
     package, or the reference's unformatted file) with enough states is
     returned in place of the variational stage (n_iters = 0); with
     dump_wf_var the result is written there."""
     if mesh is not None:
         raise ValueError("run_hci(mesh=...) is not ported (ROADMAP A7)")
-    if active_space is not None:
-        raise ValueError("the variational active space is not ported "
-                         "(ROADMAP A8c)")
-    if diagonalizer != "davidson":
-        raise ValueError("only the Davidson diagonalizer is ported; ARPACK "
-                         "is ROADMAP A8c")
+    if diagonalizer not in ("davidson", "arpack"):
+        raise ValueError(f"unknown diagonalizer {diagonalizer!r}")
     full_fp32_matmul()
     nup, ndn, norb = system.nup, system.ndn, system.norb
     dev = system.device
@@ -190,6 +227,9 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
             cu, cd, _, _ = setalg.unique_dets(cu, cd)
             new_mask = setalg.setdiff_dets(cu, cd, up, dn)
             cu, cd = cu[new_mask], cd[new_mask]
+        if len(cu) and active_space is not None:
+            keep = _active_space_mask(cu, cd, active_space, nup, ndn, norb)
+            cu, cd = cu[keep], cd[keep]
         n_total = n_old + len(cu)
 
         if n_total == n_old:
@@ -226,7 +266,9 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
             if np.linalg.norm(X0[:, s]) < 1e-12:
                 X0[np.argsort(diag_np)[s], s] = 1.0
         with phase("davidson", enabled=verbose):
-            if device_davidson and H.n >= 2000:
+            if diagonalizer == "arpack":
+                evals, evecs = arpack_diagonalize(H, n_states, initial=X0)
+            elif device_davidson and H.n >= 2000:
                 evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
                                         matvec_fn=BlockEllSpmv(H))
                 evals = np.array([_rayleigh_f64(H, evecs[:, s])

@@ -20,11 +20,13 @@ projector.  Psi_T and D come from the deck's trial_wf or diff_from_psi_t
 cards, hf_to_psit, tau from tau_multiplier, MWALK and spawn capacity sized
 from the population.  The dense toy types ``fictitious``, ``read`` and
 ``hubbard`` run through the dense-vector walk engine (:func:`run_toy`)
-with every run type of algo/densewalk.py.  ``hubbarddm`` has no card path
-in either package (its API is systems/hubbard/dmbasis.py); the legacy CI
-run types, &natorb, &greens_function and &active_space raise ValueError
-naming their ROADMAP item.  The last line is the kernels' launch counts
-(``Kernel launches: seg_scan=... spmv=...``).
+with every run type of algo/densewalk.py.  The legacy CI run types
+``selected_ci`` and ``trunc_lanc`` (algo/legacy_ci.py) and, after an HCI,
+&natorb (the natural-orbital FCIDUMP.natorb, with or without the PT
+correction to the 1-RDM), &greens_function and &active_space run as in
+the JAX package.  ``hubbarddm`` has no card path in either package (its
+API is systems/hubbard/dmbasis.py).  The last line is the kernels'
+launch counts (``Kernel launches: seg_scan=... spmv=...``).
 """
 
 from __future__ import annotations
@@ -43,10 +45,6 @@ _FIXED_NODE = ("fixed_node1", "fixed_node2", "fixed_node3", "fixed_node4",
                "partial_node", "release_node", "sr")
 
 
-def _refuse(what: str, item: str):
-    raise ValueError(f"{what} is not ported to sqmc_tpu_torch (ROADMAP {item})")
-
-
 def check_ported(cfg):
     """Raise ValueError for every card this port does not run."""
     ht = cfg.hamiltonian_type
@@ -60,14 +58,6 @@ def check_ported(cfg):
             "make_hubbarddm_dense and drive it with run_dense_walk")
     if ht not in ("chem", "heg", "hubbardk", "hubbard2"):
         raise ValueError(f"unknown hamiltonian_type {ht!r}")
-    if cfg.run_type in ("selected_ci", "trunc_lanc"):
-        _refuse(f"run_type {cfg.run_type!r} (algo/legacy_ci.py)", "A8c")
-    if cfg.get_natorbs:
-        _refuse("&natorb get_natorbs (algo/rdm.py)", "A8c")
-    if cfg.get_greens_function:
-        _refuse("&greens_function (algo/greens.py)", "A8c")
-    if cfg.active_space is not None:
-        _refuse("&active_space", "A8c")
 
 
 def _seed4(seed: int):
@@ -327,8 +317,73 @@ def run_det_walk(cfg, system, verbose: bool = True):
     return out
 
 
+def run_legacy_ci(cfg, system, verbose: bool = True):
+    """run_type selected_ci or trunc_lanc (ref: hamiltonian_mod.f90:158-185):
+    iterations from nblk_eq, initiators and truncation from
+    n_truncate_det, as in the JAX package's CLI."""
+    from .algo.legacy_ci import perform_selected_ci, perform_truncated_lanczos
+    n_trunc = cfg.n_truncate_det or 1000
+    if cfg.run_type == "selected_ci":
+        my_second("BEG", "generate deterministically selected subspace")
+        res = perform_selected_ci(system, iters=cfg.nblk_eq or 4,
+                                  n_initiators=n_trunc, n_truncate=n_trunc,
+                                  verbose=verbose)
+        my_second("END", "generate deterministically selected subspace")
+        print(f"Selected CI energy={res.energy:26.9f}  ndet={len(res.up)}")
+        return res
+    my_second("BEG", "truncated lanczos")
+    res = perform_truncated_lanczos(system, iters=cfg.nblk_eq or 8,
+                                    n_initiators=n_trunc, n_truncate=n_trunc,
+                                    verbose=verbose)
+    my_second("END", "truncated lanczos")
+    print(f"Truncated Lanczos energy={res.energy:26.9f}")
+    return res
+
+
+def write_natorb_fcidump(cfg, system, res):
+    """&natorb: FCIDUMP.natorb in the natural orbitals of the variational
+    wavefunction's 1-RDM, with use_pt its first-order PT correction at
+    eps_pt_big (eps_var when unset) (ref: hci.f90:683-745,
+    generate_natorb_integrals:3554).  The wavefunction goes in as HCI
+    returns it, time-symmetrized or not, as in the JAX package's CLI."""
+    from .algo.rdm import (generate_natorb_fcidump, get_1rdm_with_pt,
+                           natural_orbitals, rotate_integrals, write_fcidump)
+    my_second("BEG", "natorb")
+    nelec = system.nup + system.ndn
+    if cfg.natorb_use_pt:
+        gamma = get_1rdm_with_pt(
+            system, res.up, res.dn, res.wts[:, 0], float(res.energies[0]),
+            eps_pt_big=cfg.eps_pt_big if cfg.eps_pt_big > 0 else cfg.eps_var)
+        sym = np.asarray(system.table.orb_sym)
+        _, U = natural_orbitals(gamma, sym)
+        h2, eri2 = rotate_integrals(system.table, U)
+        write_fcidump("FCIDUMP.natorb", h2, eri2, system.table.core_energy,
+                      sym, nelec=nelec)
+    else:
+        generate_natorb_fcidump(system, res.up, res.dn, res.wts[:, 0],
+                                "FCIDUMP.natorb", nelec=nelec)
+    print("Wrote FCIDUMP.natorb")
+    my_second("END", "natorb")
+
+
+def print_greens_function(cfg, system, res):
+    """&greens_function: the zeroth-order Green's function's trace on
+    n_w frequencies in [w_min, w_max] (ref: hci.f90:3849)."""
+    from .algo.greens import greens_function_g0
+    my_second("BEG", "greens_function")
+    w_grid = np.linspace(cfg.w_min, cfg.w_max, cfg.n_w)
+    g_np1, g_nm1 = greens_function_g0(system, res.up, res.dn, res.wts[:, 0],
+                                      float(res.energies[0]), w_grid)
+    for i, w in enumerate(w_grid):
+        tr = np.trace(g_np1[i]).real + np.trace(g_nm1[i]).real
+        print(f"G0(w={w:10.5f}): trace={tr:14.8f}")
+    my_second("END", "greens_function")
+
+
 def run_hci_pt(cfg, system, verbose: bool = True):
-    """HCI, then PT for each state (ref: hci.f90 perform_hci)."""
+    """HCI (with the deck's &active_space), the &natorb and
+    &greens_function observables, then PT for each state (ref: hci.f90
+    perform_hci)."""
     from .algo.hci import run_hci
     from .algo.pt import do_pt
 
@@ -336,9 +391,13 @@ def run_hci_pt(cfg, system, verbose: bool = True):
     res = run_hci(system, eps_var=cfg.eps_var,
                   eps_var_sched=cfg.eps_var_sched, n_states=cfg.n_states,
                   verbose=verbose, dump_wf_var=cfg.dump_wf_var,
-                  wf_cache_dir=".")
+                  wf_cache_dir=".", active_space=cfg.active_space)
     my_second("END", "variational part")
     print(f"Variational energy={res.energies[0]:26.9f}")
+    if cfg.get_natorbs:
+        write_natorb_fcidump(cfg, system, res)
+    if cfg.get_greens_function:
+        print_greens_function(cfg, system, res)
 
     outs = []
     for state in range(cfg.n_states):
@@ -395,6 +454,8 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
         print(f"e_mixed={e:26.9f} +-{err:.9f}")
         return e, err
     system = make_system(cfg, fcidump, device)
+    if cfg.run_type in ("selected_ci", "trunc_lanc"):
+        return run_legacy_ci(cfg, system, verbose=verbose)
     if cfg.run_type != "hci":
         my_second("BEG", "walk")
         out = run_det_walk(cfg, system, verbose=verbose)

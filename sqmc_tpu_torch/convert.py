@@ -19,6 +19,7 @@ import torch
 
 from .algo.densewalk import DenseTables, DenseWalkState
 from .algo.hci import HCIResult
+from .algo.legacy_ci import LegacyCIResult
 from .algo.semistoch import TrialWavefunction, load_trial, trial_from_arrays
 from .algo.sparseham import SparseHam
 from .algo.guiding import Guiding
@@ -105,6 +106,18 @@ def hci_result_from_numpy(res, device="cuda") -> HCIResult:
                      energies=np.array(res.energies, np.float64),
                      diag=np.array(res.diag, np.float64),
                      n_iters=int(res.n_iters))
+
+
+def legacy_ci_result_from_numpy(res, device="cuda") -> LegacyCIResult:
+    """LegacyCIResult from an object with the sqmc_tpu LegacyCIResult
+    fields: the dets become int64 words on `device`, the coefficients stay
+    numpy float64."""
+    return LegacyCIResult(energy=float(res.energy),
+                          up=words_to_torch(res.up, device),
+                          dn=words_to_torch(res.dn, device),
+                          coef=np.array(res.coef, np.float64),
+                          energies_per_iter=[float(e) for e in
+                                             res.energies_per_iter])
 
 
 def trial_from_npz(src, device="cuda") -> TrialWavefunction:

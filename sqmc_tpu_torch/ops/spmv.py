@@ -245,8 +245,9 @@ def spmv(x, cols, vals, row_ptr, row_nnz):
 # ---------------------------------------------------------------------------
 
 class _RowPtrSpmv:
-    """y = H x for a SparseHam in one of the layouts, on H's device, in
-    float32; x is [n] or [n, m] and y comes back in x's dtype."""
+    """y = H x for a SparseHam in one of the layouts, on H's device, in the
+    layout's value type (float32 unless asked otherwise); x is [n] or
+    [n, m] and y comes back in x's dtype."""
 
     def __call__(self, x):
         x = torch.as_tensor(x, device=self.cols.device)
@@ -275,9 +276,10 @@ class EllSpmv(_RowPtrSpmv):
 
 
 class BlockEllSpmv(_RowPtrSpmv):
-    """The 128-slot row-block layout of sqmc_tpu's BlockEllSpmv."""
+    """The 128-slot row-block layout of sqmc_tpu's BlockEllSpmv; dtype
+    np.float64 keeps the values (and the sums) in float64."""
 
-    def __init__(self, H):
+    def __init__(self, H, dtype=np.float32):
         cols, vals, _, row_ptr, row_nnz = blockell_from_coo(
-            H.n, H.rows, H.cols, H.vals, H.diag)
+            H.n, H.rows, H.cols, H.vals, H.diag, dtype=dtype)
         self._put(H, cols, vals, row_ptr, row_nnz)

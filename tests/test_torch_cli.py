@@ -7,7 +7,8 @@ chem, momentum-space Hubbard HCI, a fixed-node Gutzwiller walk on
 real-space Hubbard), the dense toy decks (`fictitious`, `read`, dense
 `hubbard`) with tests/test_cli.py's gates, the `vmc` deck, the
 `dump_wf_var` deck run twice, and a ValueError naming its ROADMAP item for
-every card the port does not run."""
+every card the port does not run (tests/test_torch_cli_observables.py
+runs the legacy CI and observable cards)."""
 
 import dataclasses
 import os
@@ -509,10 +510,8 @@ UNPORTED = {
                   "no card-input path"),
     "hubbardk": (lambda: _cfg("hubbardk"), None),
     "hubbard2": (lambda: _cfg("hubbard2_fn"), None),
-    "selected_ci": (lambda: _cfg("ts_hci", run_type="selected_ci"),
-                    "ROADMAP A8c"),
-    "trunc_lanc": (lambda: _cfg("ts_hci", run_type="trunc_lanc"),
-                   "ROADMAP A8c"),
+    "selected_ci": (lambda: _cfg("ts_hci", run_type="selected_ci"), None),
+    "trunc_lanc": (lambda: _cfg("ts_hci", run_type="trunc_lanc"), None),
     "vmc": (lambda: _cfg("hubbard2_vmc"), None),
     "fixed_node": (lambda: _cfg("ts_walk", run_type="fixed_node1"), None),
     "guiding": (lambda: _cfg("ts_walk", importance_sampling=1), None),
@@ -521,11 +520,9 @@ UNPORTED = {
                                     proposal_method="CauchySchwarz"), None),
     "exponential": (lambda: _cfg("ts_walk", use_exponential_projector=True),
                     None),
-    "natorbs": (lambda: _cfg("ts_hci", get_natorbs=True), "ROADMAP A8c"),
-    "greens": (lambda: _cfg("ts_hci", get_greens_function=True),
-               "ROADMAP A8c"),
-    "active_space": (lambda: _cfg("ts_hci", active_space=(2, 2, 4)),
-                     "ROADMAP A8c"),
+    "natorbs": (lambda: _cfg("ts_hci", get_natorbs=True), None),
+    "greens": (lambda: _cfg("ts_hci", get_greens_function=True), None),
+    "active_space": (lambda: _cfg("ts_hci", active_space=(2, 2, 4)), None),
     "dump_wf_var": (lambda: _cfg("ts_hci", dump_wf_var=True), None),
     "unknown": (lambda: _cfg("ts_hci", hamiltonian_type="spin"),
                 "hamiltonian_type"),
@@ -538,7 +535,8 @@ def test_unported_cards_raise(name, fcidump):
     ROADMAP item (`hubbarddm` has no card path in either package and says
     so); the cards ported since (Hubbard systems, fixed-node run types,
     guiding, the other proposals, the exponential projector, the dense toy
-    types, vmc, dump_wf_var) pass the check."""
+    types, vmc, dump_wf_var, the legacy CI run types, &natorb,
+    &greens_function, &active_space) pass the check."""
     make, item = UNPORTED[name]
     if item is None:
         cli.check_ported(make())
@@ -548,16 +546,12 @@ def test_unported_cards_raise(name, fcidump):
 
 
 def test_run_hci_refusals_name_their_items(fcidump):
-    """run_hci's own refusals: the mesh (A7), the active space and ARPACK
-    (A8c)."""
+    """run_hci's one refusal left: the mesh (A7)."""
     from sqmc_tpu_torch.algo.hci import run_hci
     from sqmc_tpu_torch.systems.base import make_chem_system
     s = make_chem_system(fcidump, device="cpu")
-    for kw, item in ((dict(mesh=object()), "ROADMAP A7"),
-                     (dict(active_space=(2, 2, 4)), "ROADMAP A8c"),
-                     (dict(diagonalizer="arpack"), "ROADMAP A8c")):
-        with pytest.raises(ValueError, match=item):
-            run_hci(s, eps_var=1e-3, verbose=False, **kw)
+    with pytest.raises(ValueError, match="ROADMAP A7"):
+        run_hci(s, eps_var=1e-3, verbose=False, mesh=object())
 
 
 def test_wavefunction_cache_raises(fcidump, tmp_path, monkeypatch):

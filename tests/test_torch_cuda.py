@@ -791,3 +791,102 @@ def test_dense_tables_and_generation_on_card_match_cpu(run_type, imp):
         assert abs(a - b) < 1e-12 * max(1.0, abs(b)), f
     for k in stc:
         assert float((stg[k].cpu() - stc[k]).abs().max()) < 1e-9, k
+
+
+def _heg14_hci(dev, eps=2e-3):
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    s = make_heg_system(3, 0.5, 14, 7, 1.49, device=dev)
+    return s, run_hci(s, eps_var=eps, eps_var_sched=[eps] * 5, verbose=False)
+
+
+@pytest.mark.cuda
+def test_arpack_operator_kernel_matches_plain():
+    """The ARPACK operator's matvec, K2 over the float64 block-ELL layout
+    on the card, against the plain SpMV on the same layout (1e-13 of the
+    |H| |x| bound), and the ARPACK eigenvalues on the card against the
+    CPU's (1e-10)."""
+    from sqmc_tpu_torch.algo.davidson import arpack_diagonalize
+    from sqmc_tpu_torch.algo.sparseham import build_sparse_ham
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s, res = _heg14_hci(dev)
+    H = build_sparse_ham(s.table, res.up, res.dn, s.nup, s.ndn, s.norb)
+    op = tspmv.BlockEllSpmv(H, dtype=np.float64)
+    assert op.vals.dtype == torch.float64
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(H.n),
+                        device=dev)
+    before = tspmv.launches
+    got = op(x)
+    torch.cuda.synchronize()
+    assert tspmv.launches == before + 1
+    args = (op.cols, op.vals, op.row_ptr, op.row_nnz)
+    ref = tspmv.spmv_plain(x, *args)
+    bound = tspmv.spmv_plain(x.abs(), op.cols, op.vals.abs(), op.row_ptr,
+                             op.row_nnz)
+    assert bool(((got - ref).abs() <= 1e-13 * bound).all())
+    w_card, _ = arpack_diagonalize(H, 2)
+    sc = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
+    H_cpu = build_sparse_ham(sc.table, res.up.cpu(), res.dn.cpu(), s.nup,
+                             s.ndn, s.norb)
+    w_cpu, _ = arpack_diagonalize(H_cpu, 2)
+    np.testing.assert_allclose(w_card, w_cpu, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_apply_h_on_the_fly_on_card_matches_cpu():
+    """The matrix-free H application of the legacy CI over a
+    few-thousand-det list (HEG-14's 3,265 HCI dets) on the card against
+    the CPU (1e-12)."""
+    from sqmc_tpu_torch.algo.legacy_ci import apply_h_on_the_fly
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s, res = _heg14_hci(dev)
+    x = np.random.default_rng(3).standard_normal(len(res.up))
+    y = apply_h_on_the_fly(s, res.up, res.dn, x, chunk=1000).cpu().numpy()
+    sc = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
+    yc = apply_h_on_the_fly(sc, res.up.cpu(), res.dn.cpu(), x).numpy()
+    np.testing.assert_allclose(y, yc, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_rdm_and_greens_on_card_match_cpu():
+    """get_1rdm and greens_function_g0 of HEG-14's HCI wavefunction on the
+    card against the CPU (1e-12)."""
+    from sqmc_tpu_torch.algo.greens import greens_function_g0
+    from sqmc_tpu_torch.algo.rdm import get_1rdm
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s, res = _heg14_hci(dev, eps=5e-3)
+    sc = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
+    c = res.wts[:, 0]
+    up, dn = res.up.cpu(), res.dn.cpu()
+    np.testing.assert_allclose(get_1rdm(s, res.up, res.dn, c),
+                               get_1rdm(sc, up, dn, c), rtol=0, atol=1e-12)
+    w = np.array([-1.0, 0.5, 3.0])
+    e0 = float(res.energies[0])
+    for a, b in zip(greens_function_g0(s, res.up, res.dn, c, e0, w, 0.1),
+                    greens_function_g0(sc, up, dn, c, e0, w, 0.1)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_legacy_ci_on_card_is_reproducible():
+    """The selected CI and the truncated Lanczos on the 4x4 Hubbard-k
+    cluster (5 + 5), whose truncations cut through shells of equal |c|,
+    give bitwise the same per-iteration energies and dets on two runs on
+    the card (the final energies within 1e-10: the selected CI's last
+    Davidson sums over the COO with index_add_)."""
+    from sqmc_tpu_torch.algo.legacy_ci import (perform_selected_ci,
+                                               perform_truncated_lanczos)
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
+    s = make_hubbard_k_system(4, 4, 1.0, 4.0, 5, 5, device=_device())
+    for run in (lambda: perform_selected_ci(s, iters=3, n_initiators=2000,
+                                            n_truncate=2000),
+                lambda: perform_truncated_lanczos(s, iters=4,
+                                                  n_initiators=2000,
+                                                  n_truncate=2000)):
+        a, b = run(), run()
+        assert a.energies_per_iter == b.energies_per_iter
+        assert abs(a.energy - b.energy) < 1e-10
+        assert torch.equal(a.up, b.up) and torch.equal(a.dn, b.dn)

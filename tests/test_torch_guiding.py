@@ -95,7 +95,7 @@ def test_table_guiding_matches_jax(norb):
 
 
 def test_unknown_kind_raises():
-    g = TG.empty_guiding()
+    g = TG.empty_guiding(device="cpu")
     z = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(ValueError):
         TG.eval_guiding(g, "jastrow", z, z, 4, 1, 1)

@@ -140,8 +140,8 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 
 def test_unported_options_raise(fcidump):
-    """Options that stay unported raise ValueError: the mesh, the active
-    space and ARPACK in run_hci (the wavefunction cache is ported: an
+    """Options that stay unported raise ValueError: the mesh in run_hci,
+    and an unknown diagonalizer (the wavefunction cache is ported: an
     empty cache directory changes nothing); in
     WalkConfig the sharding and the JAX package's capacity workarounds,
     and (as in the JAX package) an unknown name, a fixed-node run without
@@ -151,8 +151,7 @@ def test_unported_options_raise(fcidump):
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
     s = t_heg(3, 1.0, 4, 2, 1.6, device="cpu")
-    for kw in (dict(mesh=object()), dict(active_space=(1, 1, 4)),
-               dict(diagonalizer="arpack")):
+    for kw in (dict(mesh=object()), dict(diagonalizer="lobpcg")):
         with pytest.raises(ValueError):
             TH.run_hci(s, eps_var=1e-3, verbose=False, **kw)
     plain = TH.run_hci(s, eps_var=1e-3, verbose=False)
@@ -174,3 +173,4 @@ def test_unported_options_raise(fcidump):
         build_walk_tables(c, trial, WalkConfig(
             **base, semistochastic=False, use_exponential_projector=True,
             ct_mode="generic"))
+
