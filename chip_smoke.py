@@ -6,6 +6,7 @@
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
+    python3 chip_smoke.py --mesh      # phases 0, 1 and 10 only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -156,11 +157,31 @@ Phases, each reported on its own line; any failure exits nonzero:
      29,850 HCI dets against the float64 COO Davidson (1e-8), then the
      selected_ci (4 iterations) and trunc_lanc (8) decks through the CLI
      with n_truncate_det 10,000: both not below 9b's energy, selected CI
-     below its first iteration, truncated Lanczos below the HF energy.
+     below its first iteration, truncated Lanczos below the HF energy;
+ 10. the mesh (sqmc_tpu_torch/parallel/dist.py; decks in
+     build/smoke_phase10/): 10a phase 3's HEG-14 cell through
+     make_sharded_walk on a world of one NCCL rank at full width, gated
+     as phase 3; 10c run_hci(mesh=) and PT over that rank against the
+     serial port (the same 9,475 dets, E_var within 1e-10 of serial and
+     1e-6 of the golden, deterministic PT within 1e-12 relative with the
+     same connection count, the semistochastic difference within 1e-12
+     with the same sample count); then two gloo ranks on this card
+     (NCCL refuses two ranks on one device; collectives staged through
+     the host, transport=gloo-host), started by parallel.dist.spawn
+     after phase 1 built both kernels: 10b the sharded walk at the same
+     global population, per-rank capacities phase 3's halved, warm-
+     started from 10a's walkers (sharded by owner), f32 (dense row
+     slices) and f64 (K2 block-ELL rows, local rows and global columns),
+     each gated as phase 3, printing the per-rank nwalk, the bytes routed
+     a generation and the ms of one exchange; 10c at two ranks; 10e
+     sharded_unique_dets on 2M candidates with duplicates equal to
+     setalg.unique_dets; 10d the dry run (parallel/dryrun.py) within 4
+     combined sigma of its serial golden.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (seg_scan's
-launches from phases 3, 7 and 8, spmv's from phases 4, 7, 8 and 9, each path
+launches from phases 3, 7, 8 and 10, spmv's from phases 4, 7, 8, 9 and 10
+(every rank's counts in phase 10), each path
 counted from 0; errors and times measured
 here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
 m = 1 shape) and ``{"ok": true, "device": {...}}``.
@@ -705,7 +726,7 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
     if abs(bias) >= gate:
         raise AssertionError(f"|e_mixed - oracle| = {abs(bias):.6f} >= "
                              f"{gate:.6f}")
-    return launches, system, res, trial
+    return launches, system, res, trial, _walkers(out.state)
 
 
 # ---------------------------------------------------------------------------
@@ -838,10 +859,10 @@ f                                  dump_wf_var
 """
 
 # The C2_v2z_curve decks' orbital irreps (d2h, 26 orbitals), schedule and
-# sector; the integrals are synthetic (the C2 FCIDUMP is not in the repo).
+# sector; the integrals are synthetic (the C2 FCIDUMP is not in the repo;
+# sqmc_tpu_torch/systems/chem/synthetic.py writes the file).
 C2_SYMS = [1, 5, 3, 2, 1, 7, 6, 5, 1, 2, 3, 1, 6, 7, 5, 4, 1, 5, 3, 2, 8, 5,
            1, 7, 6, 5]
-C2_SCALE, C2_SEED, C2_CORE = 0.02, 26, -75.0
 C2_SYM_CARD = ",".join(map(str, C2_SYMS)) + ","
 C2_CHEM_CARDS = f"""\
 'chem' 0                           hamiltonian_type,ipr
@@ -887,49 +908,12 @@ f f 0.5                            hf_to_psit, c_t_initiator, always_spawn_cutof
 """
 
 
-def _sym_mask(syms, norb):
-    """Bool over the compact 8-fold two-body array: the irrep product of
-    the four orbitals is not totally symmetric (d2h labels, XOR product)."""
-    import numpy as np
-    from sqmc_tpu_torch.systems.chem.integrals import pair_index, quad_index
-    s0 = np.asarray(syms) - 1
-    npair = norb * (norb + 1) // 2
-    hi, lo = np.tril_indices(norb)
-    ph, pl = np.empty(npair, int), np.empty(npair, int)
-    ph[pair_index(hi, lo)], pl[pair_index(hi, lo)] = hi, lo
-    qa, qb = np.tril_indices(npair)
-    bad = np.zeros(npair * (npair + 1) // 2, bool)
-    bad[quad_index(qa, qb)] = (s0[ph[qa]] ^ s0[pl[qa]] ^ s0[ph[qb]]
-                               ^ s0[pl[qb]]) != 0
-    return bad
-
-
-def write_c2_fcidump(path, scale=C2_SCALE, seed=C2_SEED):
-    """A synthetic FCIDUMP at C2 CAS(8e,26o)'s shape from a seed: 26
-    orbitals with the C2 decks' d2h irreps, 8 electrons (MS2 0); every
-    integral whose irrep product is not totally symmetric is zero; the
-    diagonal h ascends (4 occupied orbitals in [-2.5, -0.8], 22 virtual in
-    [0, 3]); direct integrals (ii|jj) in [0.4, 0.5]; every other one-
-    and two-body integral normal with standard deviation `scale`, so the
-    HF det dominates."""
-    import numpy as np
-    from sqmc_tpu_torch.systems.chem.fcidump import n_eri, write_fcidump
-    from sqmc_tpu_torch.systems.chem.integrals import pair_index, quad_index
-    rng = np.random.default_rng(seed)
-    norb = len(C2_SYMS)
-    s0 = np.asarray(C2_SYMS) - 1
-    h = rng.normal(size=(norb, norb)) * scale
-    h = 0.5 * (h + h.T)
-    h[s0[:, None] != s0[None, :]] = 0.0
-    h[np.diag_indices(norb)] = np.sort(np.concatenate(
-        [rng.uniform(-2.5, -0.8, 4), rng.uniform(0.0, 3.0, norb - 4)]))
-    eri = rng.normal(size=n_eri(norb)) * scale
-    eri[_sym_mask(C2_SYMS, norb)] = 0.0
-    d = pair_index(np.arange(norb), np.arange(norb))
-    J = 0.4 + 0.1 * rng.random((norb, norb))
-    eri[quad_index(d[:, None], d[None, :])] = 0.5 * (J + J.T)
-    write_fcidump(path, h, eri, C2_CORE, C2_SYMS, nelec=8, ms2=0)
-    return h, eri
+def write_c2_fcidump(path):
+    """The synthetic C2-shaped FCIDUMP (seed 26) at `path`."""
+    from sqmc_tpu_torch.systems.chem.synthetic import C2_SYMS as syms
+    from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump as w
+    assert syms == C2_SYMS
+    return w(path)
 
 
 CLI_JOBS = []                         # decks started and not yet finished
@@ -1632,6 +1616,8 @@ def phase_ct_and_proposal_oracles(dev, heg14, heg14_trial):
         ("cauchy_schwarz chem-4", chem4, 1e-4, 10,
          dict(tau=2e-3, proposal="cauchy_schwarz"), 1e-4, 100))
     for name, s, eps, n_psi_t, kw, floor, nstep in small:
+        # the CT walks run 1 + 2 blocks (the smoke's time limit)
+        nblk, nblk_eq = (2, 1) if name.startswith("ct ") else (3, 2)
         e0 = float(run_hci(s, **exact).energies[0])
         trial = build_trial_wavefunction(s, eps_var=eps, n_psi_t=n_psi_t, n_imp=1)
         cfg = WalkConfig(mwalk=2048, cap_spawn=8192, cap_fresh=2048,
@@ -1640,7 +1626,8 @@ def phase_ct_and_proposal_oracles(dev, heg14, heg14_trial):
                          r_initiator=0.0, **kw)
         t0 = time.time()
         out, c = _counted(lambda: run_walk(
-            s, trial, cfg, nstep=nstep, nblk=3, nblk_eq=2, w_abs_begin=1500.0,
+            s, trial, cfg, nstep=nstep, nblk=nblk, nblk_eq=nblk_eq,
+            w_abs_begin=1500.0,
             e_trial_initial=e0, verbose=False, max_eq_extensions=0, seed=1))
         gate = 6 * max(out.e_err, 5e-6) + floor
         log(f"phase 7c {name}: tau={cfg.tau:g} e0={e0:.9f} "
@@ -2727,6 +2714,336 @@ def phase_legacy(dev):
         f"{t2 - t1:.2f} 9bc={time.time() - t2:.2f} seconds")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh (parallel/dist.py) on one card
+# ---------------------------------------------------------------------------
+
+COUNTS10 = dict(seg_scan=0, spmv=0)   # phase 10's launches, path by path
+MESH_RANKS = 2                        # 10b-10e: gloo ranks, both on cuda:0
+# phase 3's global cell split over the ranks: per-rank mwalk and cap_spawn
+# (each rank's spawn buckets then hold cap_spawn / ranks rows)
+MESH_MWALK, MESH_CAP = 458_752 // MESH_RANKS, 262_144 // MESH_RANKS
+MESH_EQ, MESH_F32_BLK, MESH_F64_BLK = 1, 4, 3   # blocks of NSTEP generations
+MESH_UNIQ_N = 2_000_000               # 10e's candidates
+
+
+def _heg14_walk_cfg(system, **extra):
+    """Phase 3's walk knobs (f32 state), with `extra` on top."""
+    from sqmc_tpu_torch.algo.walk import WalkConfig
+    kw = dict(mwalk=458_752, cap_spawn=262_144, norb=system.norb,
+              nup=system.nup, ndn=system.ndn, n_words=system.n_words,
+              tau=2e-3, w_abs_target=W_TARGET, spawn_granularity=2.0,
+              min_wt=0.5, r_initiator=0.5, f32_state=True, proj_bf16=False,
+              has_singles=False)
+    kw.update(extra)
+    return WalkConfig(**kw)
+
+
+def _gate_heg14(tag, out):
+    """Phase 3's gates on a HEG-14 walk: finite, no overflow or growth,
+    population within 10%, |e_mixed - oracle| < max(5 sigma, 0.3 mHa)."""
+    return _gate_walk(tag, out, W_TARGET, ORACLE, 3e-4)
+
+
+def _pt_pair(system, res, mesh):
+    """Deterministic PT at phase 4's eps_pt and the semistochastic
+    difference at phase 4's knobs over `mesh` (None: serial): (pt,
+    n_connected, pt_diff, n_samples)."""
+    from sqmc_tpu_torch.algo.pt import second_order_pt, second_order_pt_alias
+    e_var = float(res.energies[0])
+    pt, nconn = second_order_pt(system, res.up, res.dn, res.wts[:, 0], e_var,
+                                EPS_PT, verbose=False, mesh=mesh)
+    ss = second_order_pt_alias(system, res.up, res.dn, res.wts[:, 0], e_var,
+                               EPS_PT, EPS_PT_BIG, N_MC, PT_TARGET,
+                               pt_big=0.0, seed=0, verbose=False, mesh=mesh)
+    return pt, nconn, ss.pt_diff, ss.n_samples
+
+
+def _mesh_shci(system, mesh):
+    """run_hci over the mesh at phase 3's eps_var, then _pt_pair on it."""
+    from sqmc_tpu_torch.algo.hci import run_hci
+    res = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                  verbose=False, mesh=mesh)
+    return res, _pt_pair(system, res, mesh)
+
+
+def _gate_hci_pt(tag, up, dn, e_var, pts, ref):
+    """10c: the serial dets, E_var within 1e-6 of the golden and 1e-10 of
+    the serial port, deterministic PT within 1e-12 relative with the
+    same connection count, pt_diff within 1e-12 with the same sample
+    count."""
+    import numpy as np
+    pt, nconn, diff, ns = pts
+    log(f"phase 10c {tag}: ndets={len(up)} e_var={e_var:.12f} "
+        f"d_e_var_serial={e_var - ref['e_var']:.3e} pt={pt:.15f} "
+        f"rel_d_pt={(pt - ref['pt']) / abs(ref['pt']):.3e} n_connected={nconn} "
+        f"pt_diff={diff:.15e} d_pt_diff={diff - ref['diff']:.3e} "
+        f"samples={ns}")
+    if not (np.array_equal(np.asarray(up), ref["up"])
+            and np.array_equal(np.asarray(dn), ref["dn"])):
+        raise AssertionError(f"10c {tag}: dets differ from the serial HCI")
+    if abs(e_var - GOLD_EVAR) > 1e-6 or abs(e_var - ref["e_var"]) > 1e-10:
+        raise AssertionError(f"10c {tag}: E_var {e_var:.12f}")
+    if abs(pt - ref["pt"]) > 1e-12 * abs(ref["pt"]) or nconn != ref["nconn"]:
+        raise AssertionError(f"10c {tag}: deterministic PT off serial")
+    if abs(diff - ref["diff"]) > 1e-12 or ns != ref["ns"]:
+        raise AssertionError(f"10c {tag}: semistochastic PT off serial")
+
+
+def _walkers(state):
+    """A walk's occupied walkers and control scalars as host arrays (the
+    warm start of _warm_state)."""
+    import numpy as np
+    n = int(state.nwalk)
+    return dict(up=state.up[:n].cpu().numpy(), dn=state.dn[:n].cpu().numpy(),
+                wt=state.wt[:n].double().cpu().numpy(),
+                imp=state.imp[:n].cpu().numpy(),
+                init=state.init[:n].cpu().numpy(),
+                diag=state.diag[:n].double().cpu().numpy(),
+                ct=state.ct[:n].cpu().numpy().astype(np.int32),
+                e_trial=float(state.e_trial), e_est=float(state.e_est),
+                reweight=float(state.reweight_factor_inv),
+                w_abs=float(state.w_abs_gen))
+
+
+def _warm_state(state, walkers, cfg, mesh):
+    """This rank's share of 10a's equilibrated walkers (sharded by owner,
+    with their diagonal elements and C(T) indices) and 10a's control
+    scalars, in place of make_sharded_walk's initial population."""
+    import torch
+    from sqmc_tpu_torch.algo.walk import DIAG_UNKNOWN
+    from sqmc_tpu_torch.parallel.dist import shard_initial_state
+    r, dev = mesh.rank, mesh.device
+    w = walkers
+    s_up, s_dn, s_wt, s_imp, s_init, counts = shard_initial_state(
+        w["up"], w["dn"], w["wt"], w["imp"], w["init"], mesh.size, cfg.mwalk)
+    # the same layout again, carrying diag and the C(T) index
+    _, _, s_diag, _, s_ct, _ = shard_initial_state(
+        w["up"], w["dn"], w["diag"], w["imp"], w["ct"], mesh.size, cfg.mwalk)
+    n = int(counts[r])
+    live = torch.arange(cfg.mwalk, device=dev) < n
+    sdt = torch.float32 if cfg.f32_state else torch.float64
+    t = lambda x, dt=None: torch.as_tensor(x, device=dev, dtype=dt)  # noqa
+    return state._replace(
+        up=t(s_up[r]), dn=t(s_dn[r]), wt=t(s_wt[r], sdt), imp=t(s_imp[r]),
+        init=t(s_init[r]), nwalk=t(n, torch.int32),
+        diag=torch.where(live, t(s_diag[r], sdt), DIAG_UNKNOWN),
+        ct=torch.where(live, t(s_ct[r], torch.int64), -1),
+        e_trial=t(walkers["e_trial"], torch.float64),
+        e_est=t(walkers["e_est"], torch.float64),
+        tau=t(cfg.tau, torch.float64),
+        reweight_factor_inv=t(walkers["reweight"], torch.float64),
+        reached_target=t(True), w_abs_gen=t(walkers["w_abs"], torch.float64))
+
+
+def _mesh_ranks(mesh, walkers, ref, fcidump):
+    """10b-10e on one gloo rank (every rank on cuda:0; rank 0 prints).
+    Returns each path's kernel counts and numbers."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import run_walk
+    from sqmc_tpu_torch.ops import setalg
+    from sqmc_tpu_torch.parallel import dist
+    from sqmc_tpu_torch.parallel.dryrun import dryrun_rank
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    say = log if mesh.rank == 0 else (lambda msg: None)
+    dev = mesh.device
+    counts = dict(seg_scan=0, spmv=0)
+    out = dict(transport=mesh.transport)
+    system = make_heg_system(*HEG, device=dev)
+    res = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                  verbose=False)
+    trial = build_trial_wavefunction(system, eps_var=EPS_VAR, n_psi_t=2000,
+                                     n_imp=20000)
+
+    # 10b: the sharded walk, float32 (dense row slices) and float64 (K2)
+    for tag, f32, nblk in (("f32", True, MESH_F32_BLK),
+                           ("f64", False, MESH_F64_BLK)):
+        cfg = _heg14_walk_cfg(system, mwalk=MESH_MWALK, cap_spawn=MESH_CAP,
+                              f32_state=f32, axis_name="d", n_dev=mesh.size)
+        _, st0, tables = dist.make_sharded_walk(
+            system, trial, cfg, mesh, W_TARGET, walkers["e_trial"])
+        state = _warm_state(st0, walkers, cfg, mesh)
+        t0 = time.time()
+        walk, c = _counted(lambda: run_walk(
+            system, trial, cfg, nstep=NSTEP, nblk=nblk, nblk_eq=MESH_EQ,
+            w_abs_begin=W_TARGET, e_trial_initial=walkers["e_trial"],
+            verbose=False, max_eq_extensions=0, tables=tables, state=state,
+            seed=4), counts)
+        torch.cuda.synchronize(dev)
+        secs = time.time() - t0
+        # one exchange: cap_spawn rows x 6 int64 columns (up, dn, wt, imp,
+        # init, valid) to and from every rank, whatever their fill
+        buf = torch.zeros((cfg.cap_spawn, 6), dtype=torch.int64, device=dev)
+        mesh.all_to_all(buf)
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        for _ in range(20):
+            mesh.all_to_all(buf)
+        torch.cuda.synchronize(dev)
+        ms_x = (time.time() - t1) / 20 * 1e3
+        nw = [int(x) for x in mesh.all_gather(
+            walk.state.nwalk.reshape(1).to(torch.int64)).tolist()]
+        pop, dev_, gate = _gate_heg14(f"10b {tag}", walk)
+        out[tag] = dict(e=walk.e_mixed, err=walk.e_err, gens=walk.n_measured,
+                        gen_s=walk.steps_per_sec, secs=secs, nwalk=nw,
+                        bytes_gen=buf.numel() * 8, ms_x=ms_x, counts=c)
+        say(f"phase 10b {tag} walk: ranks={mesh.size} transport="
+            f"{mesh.transport} per_rank mwalk={cfg.mwalk} cap_spawn="
+            f"{cfg.cap_spawn} bucket={cfg.cap_spawn // mesh.size} "
+            f"measured_gens={walk.n_measured} gen_per_s="
+            f"{walk.steps_per_sec:.3f} seconds={secs:.1f} nwalk_per_rank={nw} "
+            f"pop={pop:.1f} e_mixed={walk.e_mixed:.9f} +- {walk.e_err:.9f} "
+            f"bias_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
+            f"bytes_routed_per_gen_per_rank={buf.numel() * 8} "
+            f"ms_per_exchange={ms_x:.3f} launches={c}")
+
+    # 10c: SHCI over the mesh
+    t0 = time.time()
+    (mres, pts), c = _counted(lambda: _mesh_shci(system, mesh), counts)
+    out["10c"] = dict(up=mres.up.cpu().numpy(), dn=mres.dn.cpu().numpy(),
+                      e_var=float(mres.energies[0]), pts=pts, counts=c,
+                      secs=time.time() - t0)
+    say(f"phase 10c {mesh.size} ranks: seconds={time.time() - t0:.2f} "
+        f"launches={c}")
+
+    # 10e: distributed dedup of ~2M candidates with duplicates
+    rng = np.random.default_rng(10)
+    pool = rng.integers(-(1 << 63), (1 << 63) - 1, (MESH_UNIQ_N // 3, 2),
+                        dtype=np.int64)
+    pick = pool[rng.integers(0, len(pool), MESH_UNIQ_N)]
+    up, dn = (torch.as_tensor(pick[:, k:k + 1], device=dev) for k in (0, 1))
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    u, d = dist.sharded_unique_dets(mesh, up, dn)
+    torch.cuda.synchronize(dev)
+    t_sh = time.time() - t0
+    t0 = time.time()
+    ru, rd, _, _ = setalg.unique_dets(up, dn)
+    torch.cuda.synchronize(dev)
+    t_ser = time.time() - t0
+    same = bool(torch.equal(u, ru) and torch.equal(d, rd))
+    out["10e"] = dict(n=MESH_UNIQ_N, n_unique=len(ru), same=same,
+                      secs=t_sh, serial_secs=t_ser)
+    say(f"phase 10e sharded_unique_dets: candidates={MESH_UNIQ_N} "
+        f"unique={len(ru)} equal_to_unique_dets={same} seconds={t_sh:.3f} "
+        f"serial_seconds={t_ser:.3f}")
+    if not same:
+        raise AssertionError("10e: sharded_unique_dets != unique_dets")
+
+    # 10d: the dry run against its golden
+    t0 = time.time()
+    dry, c = _counted(lambda: dryrun_rank(mesh, fcidump), counts)
+    out["10d"] = dict(dry, secs=time.time() - t0, counts=c)
+    say(f"phase 10d dryrun({mesh.size}): e_mixed={dry['e_mixed']:.6f} +- "
+        f"{dry['e_err']:.6f} sigma={dry['sigma']:.2f} nwalk={dry['nwalk']} "
+        f"seconds={time.time() - t0:.1f} launches={c}")
+    out["counts"] = counts
+    return out
+
+
+def phase_mesh(dev, system=None, res=None, trial=None, warm=None):
+    """Phase 10: 10a the HEG-14 cell through make_sharded_walk on a world
+    of one NCCL rank (from its initial population with phase 3's depth,
+    or, in the whole smoke, warm-started from phase 3's walkers `warm`
+    with 10b's depth); 10c's one-rank run (NCCL) of run_hci and PT over
+    the mesh against the serial port; then a world of two gloo ranks on
+    this card (NCCL refuses two ranks on one device) for 10b (the sharded
+    walk, f32 and f64, warm-started from 10a's walkers), 10c at two ranks,
+    10e (the distributed dedup) and 10d (the dry run).  Kernel counts are
+    set to 0 around each path, in every rank, and summed into COUNTS10."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo.hci import run_hci
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import run_walk
+    from sqmc_tpu_torch.parallel import dist
+    from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    t_start = time.time()
+    if system is None:
+        system = make_heg_system(*HEG, device=dev)
+        res = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
+                      verbose=False)
+        trial = build_trial_wavefunction(system, eps_var=EPS_VAR,
+                                         n_psi_t=2000, n_imp=20000)
+    mesh = dist.make_mesh(dev, backend="nccl")
+    try:
+        # 10a: one NCCL rank at full width
+        cfg = _heg14_walk_cfg(system, axis_name="d", n_dev=1)
+        _, state, tables = dist.make_sharded_walk(system, trial, cfg, mesh,
+                                                  W_BEGIN, trial.e_trial)
+        nblk, nblk_eq = NBLK, NBLK_EQ
+        if warm is not None:
+            state = _warm_state(state, warm, cfg, mesh)
+            nblk, nblk_eq = MESH_F32_BLK, MESH_EQ
+        t0 = time.time()
+        out, c = _counted(lambda: run_walk(
+            system, trial, cfg, nstep=NSTEP, nblk=nblk, nblk_eq=nblk_eq,
+            w_abs_begin=W_BEGIN, e_trial_initial=trial.e_trial,
+            verbose=False, max_eq_extensions=2, tables=tables, state=state,
+            seed=1), COUNTS10)
+        torch.cuda.synchronize(dev)
+        pop, dev_, gate = _gate_heg14("10a", out)
+        log(f"phase 10a sharded walk: ranks=1 transport={mesh.transport} "
+            f"warm_start={warm is not None} "
+            f"measured_gens={out.n_measured} gen_per_s="
+            f"{out.steps_per_sec:.3f} seconds={time.time() - t0:.1f} "
+            f"nwalk={int(out.state.nwalk)} pop={pop:.1f} "
+            f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
+            f"bias_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
+            f"launches={c}")
+        if c["seg_scan"] <= 0:
+            raise AssertionError("10a never launched the seg-scan kernel")
+        walkers = _walkers(out.state)
+
+        # 10c: serial references, then one NCCL rank
+        t0 = time.time()
+        pt, nconn, diff, ns = _pt_pair(system, res, None)
+        ref = dict(up=res.up.cpu().numpy(), dn=res.dn.cpu().numpy(),
+                   e_var=float(res.energies[0]), pt=pt, nconn=nconn,
+                   diff=diff, ns=ns)
+        t_ser = time.time() - t0
+        t0 = time.time()
+        (mres, pts), c = _counted(lambda: _mesh_shci(system, mesh), COUNTS10)
+        torch.cuda.synchronize(dev)
+        _gate_hci_pt("1 rank nccl", mres.up.cpu().numpy(),
+                     mres.dn.cpu().numpy(), float(mres.energies[0]), pts, ref)
+        log(f"phase 10c 1 rank: serial_pt_seconds={t_ser:.2f} mesh_seconds="
+            f"{time.time() - t0:.2f} launches={c}")
+        if c["spmv"] <= 0:
+            raise AssertionError("10c never launched the SpMV kernel")
+    finally:
+        mesh.close()
+
+    workdir = os.path.join(HERE, "build", "smoke_phase10")
+    os.makedirs(workdir, exist_ok=True)
+    fcidump = os.path.join(workdir, "FCIDUMP_c2_synthetic")
+    write_c2_fcidump(fcidump)
+    t0 = time.time()
+    outs = dist.spawn(_mesh_ranks, MESH_RANKS, backend="gloo", device=dev,
+                      args=(walkers, ref, fcidump), timeout=900)
+    t_ranks = time.time() - t0
+    o = outs[0]
+    for r, x in enumerate(outs):
+        _gate_hci_pt(f"{MESH_RANKS} ranks gloo (rank {r})", x["10c"]["up"],
+                     x["10c"]["dn"], x["10c"]["e_var"], x["10c"]["pts"], ref)
+        for k in COUNTS10:
+            COUNTS10[k] += x["counts"][k]
+    for tag in ("f32", "f64"):
+        if o[tag]["counts"]["seg_scan"] <= 0:
+            raise AssertionError(f"10b {tag} never launched the seg-scan kernel")
+    if o["f64"]["counts"]["spmv"] <= 0 or o["10c"]["counts"]["spmv"] <= 0:
+        raise AssertionError("10b f64 / 10c never launched the SpMV kernel")
+    log(f"phase 10 stages: ranks_seconds={t_ranks:.1f} (10b f32 "
+        f"{o['f32']['secs']:.1f}, f64 {o['f64']['secs']:.1f}, 10c "
+        f"{o['10c']['secs']:.1f}, 10e {o['10e']['secs']:.1f}, 10d "
+        f"{o['10d']['secs']:.1f}) total_seconds={time.time() - t_start:.1f} "
+        f"launches={COUNTS10}")
+
+
 def phase_build():
     """Both kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2767,6 +3084,10 @@ def main():
         phase_legacy(dev)
         raise SystemExit("chip_smoke: --legacy ran phases 0, 1 and 9 only; "
                          "no result")
+    if "--mesh" in sys.argv[1:]:
+        phase_mesh(dev)
+        raise SystemExit("chip_smoke: --mesh ran phases 0, 1 and 10 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     kernel_us = phase_kernel_rows()
@@ -2776,15 +3097,17 @@ def main():
     if "--kernels" in sys.argv[1:]:
         raise SystemExit("chip_smoke: --kernels ran phases 0-2c only; no "
                          "result")
-    launches, system, res, trial = phase_main_path(dev)
+    launches, system, res, trial, walkers = phase_main_path(dev)
     sp_launches = phase_shci(dev, system, res)
     phase_f64_walk(dev, system, trial)
     phase_cli(dev)
     phase_hubbard(dev, smi, system, trial)
     phase_dense(dev, system, res, trial)
     phase_legacy(dev)
-    launches += COUNTS7["seg_scan"] + COUNTS8["seg_scan"] + COUNTS9["seg_scan"]
-    sp_launches += COUNTS7["spmv"] + COUNTS8["spmv"] + COUNTS9["spmv"]
+    phase_mesh(dev, system, res, trial, walkers)
+    for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10):
+        launches += counts["seg_scan"]
+        sp_launches += counts["spmv"]
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,

@@ -24,3 +24,11 @@ This package never imports ``jax`` or ``sqmc_tpu``.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the mesh entry point, as sqmc_tpu exports it (imported on first use)
+    if name == "make_mesh":
+        from .parallel.dist import make_mesh
+        return make_mesh
+    raise AttributeError(f"module 'sqmc_tpu_torch' has no attribute {name!r}")

@@ -234,14 +234,19 @@ def emit_singles(table, orb_sym, ref_up, ref_dn, eps, min_H, *, nup: int,
 
 def generate_connections(system, ref_up: torch.Tensor, ref_dn: torch.Tensor,
                          eps: torch.Tensor, min_H: torch.Tensor | None = None,
-                         batch: int = 2048):
+                         batch: int = 2048, mesh=None):
     """All screened connections of a reference det list.
 
     ref_up/ref_dn: int64 words [n, W]; eps: [n] per-ref |H| thresholds
     (typically eps_var/|c_i|); min_H: optional [n] already-done thresholds
     (emit eps < |H| <= min_H).  Returns (cand_up [m,W], cand_dn [m,W],
     helem [m] float64, ref_idx [m] int64), unmerged: duplicates across
-    refs are kept and callers sort/merge."""
+    refs are kept and callers sort/merge.
+
+    mesh: a parallel.dist.Mesh - this rank generates the connections of
+    its contiguous slice of the references only (ref: the per-core
+    reference split of find_doubly_excited, semistoch.f90:1743; the JAX
+    package's ``devices=``); ref_idx still counts in the whole list."""
     n, W = ref_up.shape
     dev = ref_up.device
     norb = system.norb
@@ -249,6 +254,13 @@ def generate_connections(system, ref_up: torch.Tensor, ref_dn: torch.Tensor,
     if min_H is None:
         min_H = torch.full((n,), float("inf"), dtype=torch.float64, device=dev)
     min_H = torch.as_tensor(min_H, dtype=torch.float64, device=dev)
+    if mesh is not None:
+        from ..parallel.dist import rank_slice
+        lo, hi = rank_slice(n, mesh)
+        cu, cd, h, ref = generate_connections(
+            system, ref_up[lo:hi], ref_dn[lo:hi], eps[lo:hi], min_H[lo:hi],
+            batch=batch)
+        return cu, cd, h, ref + lo
     outs = []
     for beg in range(0, n, batch):
         end = min(beg + batch, n)

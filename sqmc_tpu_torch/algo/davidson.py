@@ -1,7 +1,7 @@
 """Block Davidson eigensolver on the sparse COO Hamiltonian (port of
 sqmc_tpu/algo/davidson.py; ref: more_tools.f90 davidson_sparse:2018).
 
-The matvec is a float64 scatter-add over the symmetric COO on the
+The matvec is a float64 ordered scatter-add over the symmetric COO on the
 Hamiltonian's device (both orientations of the stored upper triangle plus
 the diagonal), or the caller's ``matvec_fn`` (device HCI passes the
 float32 block-ELL SpMV); the small Rayleigh-Ritz algebra runs on the host
@@ -27,8 +27,11 @@ def matvec(H: SparseHam, v: torch.Tensor) -> torch.Tensor:
     if single:
         v = v[:, None]
     y = H.diag[:, None] * v
-    y.index_add_(0, H.rows, H.vals[:, None] * v[H.cols])
-    y.index_add_(0, H.cols, H.vals[:, None] * v[H.rows])
+    # index_put_(accumulate=True) sums duplicates in a sorted, fixed order
+    # on the card (index_add_ uses atomics): the same H and v give the same
+    # bits in every run, so the selection that follows repeats
+    y.index_put_((H.rows,), H.vals[:, None] * v[H.cols], accumulate=True)
+    y.index_put_((H.cols,), H.vals[:, None] * v[H.rows], accumulate=True)
     return y[:, 0] if single else y
 
 

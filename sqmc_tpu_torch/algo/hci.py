@@ -26,7 +26,12 @@ the device (candidates, merge, sparse H, the float32 SpMV Davidson) is
 already on the system's device here; ``device_davidson=True`` selects
 the same dets as ``run_hci_device`` (tests/test_torch_shci.py).
 
-Not ported (raises ValueError): the mesh (ROADMAP A7).
+``mesh`` (a parallel.dist.Mesh; every rank calls run_hci): each rank
+generates the connections of its contiguous slice of the references; the
+candidate union is deduplicated at each candidate's owner and gathered
+(parallel.dist.owner_unique_dets); with more than one rank and
+H.n >= 200 Davidson runs on parallel.dist.make_sharded_matvec.  Every
+rank ends with the same dets and energies.
 """
 
 from __future__ import annotations
@@ -147,9 +152,14 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     wf_cache_dir: a wf_eps_var=<eps> cache found there (an .npz of either
     package, or the reference's unformatted file) with enough states is
     returned in place of the variational stage (n_iters = 0); with
-    dump_wf_var the result is written there."""
+    dump_wf_var the result is written there.
+    mesh: parallel.dist.Mesh (see the module docstring); rank 0 alone
+    prints."""
     if mesh is not None:
-        raise ValueError("run_hci(mesh=...) is not ported (ROADMAP A7)")
+        from ..parallel.dist import check_mesh, make_sharded_matvec, \
+            owner_unique_dets
+        check_mesh(mesh)
+        verbose = verbose and mesh.rank == 0
     if diagonalizer not in ("davidson", "arpack"):
         raise ValueError(f"unknown diagonalizer {diagonalizer!r}")
     full_fp32_matmul()
@@ -217,14 +227,19 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
                 cu, cd, _, _ = generate_connections(
                     system, up[gm], dn[gm],
                     torch.as_tensor(eps_per_ref[gen_mask], device=dev),
-                    torch.as_tensor(min_H_done[gen_mask], device=dev))
+                    torch.as_tensor(min_H_done[gen_mask], device=dev),
+                    mesh=mesh)
             else:
                 cu = up[:0]
                 cd = dn[:0]
         min_H_done = np.minimum(min_H_done, eps_per_ref)
 
-        if len(cu):
+        if mesh is not None:
+            # the union of the ranks' candidates, unique, on every rank
+            cu, cd = owner_unique_dets(mesh, cu, cd)
+        elif len(cu):
             cu, cd, _, _ = setalg.unique_dets(cu, cd)
+        if len(cu):
             new_mask = setalg.setdiff_dets(cu, cd, up, dn)
             cu, cd = cu[new_mask], cd[new_mask]
         if len(cu) and active_space is not None:
@@ -268,11 +283,16 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
         with phase("davidson", enabled=verbose):
             if diagonalizer == "arpack":
                 evals, evecs = arpack_diagonalize(H, n_states, initial=X0)
-            elif device_davidson and H.n >= 2000:
+            elif (device_davidson and H.n >= 2000
+                  and (mesh is None or mesh.size == 1)):
+                # the whole matrix on one card: the float32 block-ELL SpMV
                 evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
                                         matvec_fn=BlockEllSpmv(H))
                 evals = np.array([_rayleigh_f64(H, evecs[:, s])
                                   for s in range(n_states)])
+            elif mesh is not None and H.n >= 200:
+                evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10,
+                                        matvec_fn=make_sharded_matvec(H, mesh))
             else:
                 evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
 
@@ -299,7 +319,11 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     diag = H.diag.cpu().numpy()
     if dump_wf_var and cache_name is not None:
         from ..utils.checkpoint import save_wf_var
-        save_wf_var(cache_name, up, dn, wts, energies, diag)
+        # every rank holds the same wavefunction: one writer
+        if mesh is None or mesh.rank == 0:
+            save_wf_var(cache_name, up, dn, wts, energies, diag)
+        if mesh is not None:
+            mesh.barrier()
         if verbose:
             print(f"Writing variational wavefn to {cache_name}", flush=True)
     return HCIResult(up=up, dn=dn, wts=wts, energies=np.asarray(energies),

@@ -14,7 +14,18 @@ Everything runs on the system's device: screened connections
 segment sums (``setalg.unique_dets``) and the external dets' diagonal
 elements (``diag_elements_batched``); the host orchestrates and reads one
 scalar per sample.  The device PT of the JAX package (``device=True``,
-devpt.py) folds into this path; it and the mesh raise ValueError.
+devpt.py) folds into this path and raises ValueError.
+
+Over a mesh (``mesh=``, a parallel.dist.Mesh; every rank calls the same
+function) each rank generates the connections of its contiguous slice of
+the references (semistochastic: of each sample's compressed references,
+drawn identically on every rank from the one shared seed); the
+per-external-det sums are merged locally, sent to the det's owner rank
+(an all_to_all with uneven splits) and merged there before they are
+squared; the owner computes the diagonal elements and the sums are
+all-reduced.  The result equals the serial one up to the order of the
+sums (ref: hci.f90:1482-1520, the reference's split of the sample
+references across cores).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch
 
 from ..ops import setalg
 from ..ops.alias import sample_alias, setup_alias_np
+from ..parallel.dist import check_mesh, det_owner, route_by_owner
 from .connect import count_doubles, generate_connections
 from .sparseham import diag_elements_batched, ts_diag_elements
 from ..utils.timers import phase
@@ -45,17 +57,30 @@ def _diag(system, up, dn) -> torch.Tensor:
     return diag_elements_batched(system.table, up, dn, system.norb)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("PT over a mesh is not ported (ROADMAP A7)")
+def _merge_by_owner(mesh, cu, cd, terms):
+    """Merge duplicate candidates and sum their terms: locally, then (over
+    a mesh) at each det's owner rank.  Returns (up, dn, sums) of the dets
+    this rank owns (all of them without a mesh)."""
+    cu, cd, terms, _ = setalg.unique_dets(cu, cd, terms)
+    if mesh is None:
+        return cu, cd, terms
+    cu, cd, terms = route_by_owner(mesh, cu, cd, terms)
+    cu, cd, terms, _ = setalg.unique_dets(cu, cd, terms)
+    return cu, cd, terms
+
+
+def _total(mesh, x: torch.Tensor) -> float:
+    """A scalar summed over the mesh's ranks."""
+    return float(x if mesh is None else mesh.all_reduce(x.reshape(1))[0])
 
 
 def second_order_pt(system, up, dn, wts, var_energy: float, eps_pt: float,
                     verbose: bool = True, batch: int = 2048, mesh=None):
     """Deterministic screened PT-2.  up/dn: sorted variational dets [n, W]
     (int64 words); wts: [n] coefficients of the state.  Returns
-    (delta_e2, n_connected)."""
-    _no_mesh(mesh)
+    (delta_e2, n_connected).  mesh: see the module docstring."""
+    check_mesh(mesh)
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     dev = system.device
     up, dn = up.to(dev), dn.to(dev)
     wts = _f64(wts, dev)
@@ -63,17 +88,24 @@ def second_order_pt(system, up, dn, wts, var_energy: float, eps_pt: float,
     coeffs = torch.where(coeffs == 0.0, 1e-300, coeffs)
     with phase("Deterministic 2nd-order PT correction", enabled=verbose):
         cu, cd, h, ref = generate_connections(system, up, dn, eps_pt / coeffs,
-                                              batch=batch)
-        cu_u, cd_u, (num,), _ = setalg.unique_dets(cu, cd, [h * wts[ref]])
+                                              batch=batch, mesh=mesh)
+        cu_u, cd_u, (num,) = _merge_by_owner(mesh, cu, cd, [h * wts[ref]])
         # connections counted as the reference does: unique candidates
         # plus the references themselves (ref:
-        # find_important_connected_dets)
-        uu, _, _, _ = setalg.unique_dets(torch.cat([cu_u, up]),
-                                         torch.cat([cd_u, dn]))
-        n_connected = len(uu)
+        # find_important_connected_dets); over a mesh each rank counts the
+        # dets it owns
+        ru, rd = up, dn
+        if mesh is not None:
+            mine = det_owner(up, dn, mesh.size) == mesh.rank
+            ru, rd = up[mine], dn[mine]
+        uu, _, _, _ = setalg.unique_dets(torch.cat([cu_u, ru]),
+                                         torch.cat([cd_u, rd]))
+        n_connected = int(_total(mesh, torch.tensor(
+            float(len(uu)), dtype=torch.float64, device=dev)))
         ext = setalg.setdiff_dets(cu_u, cd_u, up, dn)
         diag_e = _diag(system, cu_u[ext], cd_u[ext])
-        delta_e2 = float(torch.sum(num[ext] ** 2 / (var_energy - diag_e)))
+        delta_e2 = _total(mesh, torch.sum(num[ext] ** 2
+                                          / (var_energy - diag_e)))
     if verbose:
         print(f"Number of connected dets={n_connected}", flush=True)
         print(f"2nd-order PT energy lowering={delta_e2:26.9f}", flush=True)
@@ -105,8 +137,10 @@ def second_order_pt_alias(system, up, dn, wts, var_energy: float,
       sum_{a not in V} [term1^2 + term2 - term1_big^2 - term2_big]
         / (E - H_aa) / (n_mc (n_mc - 1)).
     Samples accumulate by Welford until the error is below target_error
-    (after min_samples)."""
-    _no_mesh(mesh)
+    (after min_samples).  mesh: see the module docstring; every rank gets
+    the same sample energies, so every rank stops at the same sample."""
+    check_mesh(mesh)
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     dev = system.device
     up, dn = up.to(dev), dn.to(dev)
     wts = _f64(wts, dev)
@@ -124,7 +158,7 @@ def second_order_pt_alias(system, up, dn, wts, var_energy: float,
         uniq, counts = torch.unique(idx, return_counts=True)
         w_over_p = counts.to(torch.float64) / prob[uniq]
         cu, cd, h, ref = generate_connections(system, up[uniq], dn[uniq],
-                                              eps_pt / coeffs[uniq])
+                                              eps_pt / coeffs[uniq], mesh=mesh)
         hc = h * wts[uniq][ref]
         wop = w_over_p[ref]
         t1 = hc * wop
@@ -133,13 +167,13 @@ def second_order_pt_alias(system, up, dn, wts, var_energy: float,
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         t1b = torch.where(big, t1, zero)
         t2b = torch.where(big, t2, zero)
-        cu_u, cd_u, (T1, T2, T1b, T2b), _ = setalg.unique_dets(
-            cu, cd, [t1, t2, t1b, t2b])
+        cu_u, cd_u, (T1, T2, T1b, T2b) = _merge_by_owner(
+            mesh, cu, cd, [t1, t2, t1b, t2b])
         ext = setalg.setdiff_dets(cu_u, cd_u, up, dn)
         dex = _diag(system, cu_u[ext], cd_u[ext])
         contrib = (T1[ext] ** 2 + T2[ext] - T1b[ext] ** 2 - T2b[ext]) \
             / (var_energy - dex)
-        e_sample = float(torch.sum(contrib)) / (n_mc * (n_mc - 1))
+        e_sample = _total(mesh, torch.sum(contrib)) / (n_mc * (n_mc - 1))
 
         nsamp += 1
         d = e_sample - mean
@@ -220,7 +254,8 @@ def do_pt(system, up, dn, wts, diag, var_energy: float, eps_var: float,
     if device:
         raise ValueError("device=True (devpt) folds into this path: call "
                          "do_pt on a system that lives on the card")
-    _no_mesh(mesh)
+    check_mesh(mesh)
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     if n_max_connections <= 0:
         n_max_connections = int(free_memory_bytes(system.device) * 0.4 / 48)
         if verbose:
@@ -233,7 +268,7 @@ def do_pt(system, up, dn, wts, diag, var_energy: float, eps_var: float,
 
     if n_est < n_max_connections and eps_pt_big <= 0:
         pt, n_conn = second_order_pt(system, up, dn, wts, var_energy, eps_pt,
-                                     verbose=verbose)
+                                     verbose=verbose, mesh=mesh)
         if verbose:
             print(f"Variational energy={var_energy:26.9f}")
             print(f"Total energy={var_energy + pt:26.9f}", flush=True)
@@ -255,7 +290,8 @@ def do_pt(system, up, dn, wts, diag, var_energy: float, eps_var: float,
                   f"{pt_big:.9f}", flush=True)
     elif eps_pt_big < eps_var:
         pt_big, n_conn = second_order_pt(system, up, dn, wts, var_energy,
-                                         eps_pt_big, verbose=verbose)
+                                         eps_pt_big, verbose=verbose,
+                                         mesh=mesh)
     else:
         pt_big, n_conn = 0.0, 0
 
@@ -264,7 +300,7 @@ def do_pt(system, up, dn, wts, diag, var_energy: float, eps_var: float,
     res = second_order_pt_alias(system, up, dn, wts, var_energy, eps_pt,
                                 eps_pt_big, n_mc, target_error, pt_big,
                                 seed=seed, verbose=verbose,
-                                max_samples=max_pt_samples)
+                                max_samples=max_pt_samples, mesh=mesh)
     pt_total = pt_big + res.pt_diff
     if verbose:
         print(f"Variational energy={var_energy:26.9f}")

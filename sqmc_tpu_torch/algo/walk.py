@@ -39,9 +39,22 @@ fixed-node family of run types (violating spawns flip, drop or redirect
 to the parent det; "sr" adds the Sorella comb); the C(T)-in-D estimator
 (``ct_in_d``); the full-sort or the two-level merge; "group_max" or
 "sequential" initiators; f32 or f64 state; the plain or the time-reversal
-symmetrized basis.  Sharding (``axis_name`` / ``n_dev``) and the JAX
-package's capacity workarounds (``cap_compact`` / ``cap_single``) are not
-part of the port and raise ValueError.
+symmetrized basis.  The JAX package's capacity workarounds
+(``cap_compact`` / ``cap_single``) are not part of the port and raise
+ValueError.
+
+Sharded (``axis_name`` / ``n_dev``, tables and state from
+parallel.dist.make_sharded_walk): each rank of a process group walks the
+dets it owns, with three collectives a generation, as in the JAX package:
+an all-gather of the D weights before the projection, the routing of the
+spawns to their owners before the merge (skipped on one rank), and one
+all-reduce of the control scalars before population control.  Every host
+decision of run_walk reads all-reduced values, so every rank takes the same
+branch and the collectives stay matched.  The sharded walk runs what the
+JAX package's runs: the signed projector (run_type "none"), every double
+proposal, singles, both initiator rules and merges, f32 and f64 state,
+dense or block-ELL projection and C(T)-in-D; fixed-node, guided and CT
+walks raise ValueError for n_dev > 1.
 """
 
 from __future__ import annotations
@@ -154,16 +167,19 @@ class WalkConfig:
     # chemistry.f90:1323), sector z = +1 or -1
     time_sym: bool = False
     z: int = 1
-    # --- not part of the port: must keep these values ---
+    # determinant sharding over a mesh of n_dev ranks (parallel/dist.py):
+    # with axis_name set, walkers live on their owner rank, spawns are
+    # routed to their owners, the D weights are all-gathered for the
+    # projection and the control scalars are all-reduced; mwalk and
+    # cap_spawn are per-rank capacities
     axis_name: str | None = None
     n_dev: int = 1
+    # --- not part of the port: must keep these values ---
     cap_compact: int = 0
     cap_single: int = 0
 
     def __post_init__(self):
         for name, want, why in (
-                ("axis_name", None, "multi-GPU sharding is not ported yet"),
-                ("n_dev", 1, "multi-GPU sharding is not ported yet"),
                 ("cap_compact", 0, "a TPU capacity workaround with no effect "
                                    "on results"),
                 ("cap_single", 0, "a TPU capacity workaround with no effect "
@@ -172,6 +188,23 @@ class WalkConfig:
                 raise ValueError(
                     f"WalkConfig.{name}={getattr(self, name)!r} is not part "
                     f"of sqmc_tpu_torch ({why}; only {want!r})")
+        if self.n_dev < 1 or (self.n_dev > 1 and self.axis_name is None):
+            raise ValueError(f"WalkConfig.n_dev={self.n_dev!r}: a walk over "
+                             "several ranks sets axis_name (and comes from "
+                             "parallel.dist.make_sharded_walk)")
+        if self.n_dev > 1:
+            if self.cap_spawn % self.n_dev:
+                raise ValueError(f"cap_spawn={self.cap_spawn} must split into "
+                                 f"n_dev={self.n_dev} equal spawn buckets")
+            for bad, why in (
+                    (self.fixed_node, f"run_type {self.run_type!r}: its "
+                     "redirects search only the rank's own D"),
+                    (self.guiding != "none", "guided (importance-sampled) "
+                     "walks"),
+                    (self.use_exponential_projector, "the CT chain")):
+                if bad:
+                    raise ValueError(f"{why} are not part of the sharded "
+                                     "walk, as in the JAX package (n_dev > 1)")
         allowed = ("none", "no_fixed_node", "fixed_node1", "fixed_node2",
                    "fixed_node3", "fixed_node4", "partial_node",
                    "release_node", "sr")
@@ -275,6 +308,9 @@ class WalkTables(NamedTuple):
     ct_num_imp: torch.Tensor     # [n_imp] f64
     ct_den_imp: torch.Tensor
     guide: object                # guiding.Guiding (empty when guiding == 'none')
+    # sharded walk (parallel.dist.make_sharded_walk): this rank's mesh; the
+    # imp_* and ct_*_imp fields then hold only this rank's D rows
+    mesh: object = None
 
 
 class WalkState(NamedTuple):
@@ -731,11 +767,22 @@ def init_walk_state(cfg: WalkConfig, trial, w_abs_begin: float,
     ct[:n0] = setalg.search_dets(tables.ct_up, tables.ct_dn, u, d)
     diag = torch.full((M,), DIAG_UNKNOWN, dtype=sdt, device=dev)
     diag[:n0] = _walk_diag(cfg, tables.table, u, d).to(sdt)
+    return walk_state_from_arrays(cfg, w_abs_begin, e_trial_initial, up, dn,
+                                  wt, init, imp, diag, ct, n0)
+
+
+def walk_state_from_arrays(cfg: WalkConfig, w_abs_begin: float,
+                           e_trial_initial: float, up, dn, wt, init, imp,
+                           diag, ct, nwalk: int) -> WalkState:
+    """A fresh walk's state around walker arrays already laid out (the
+    first `nwalk` slots occupied): the control scalars start as
+    init_walk_state starts them."""
+    dev = wt.device
     tau0 = cfg.tau * (1 + np.log(max(cfg.w_abs_target / max(w_abs_begin, 1.0), 1.0)))
     f = lambda x: _scalar(x, F64, dev)  # noqa: E731
     return WalkState(
         up=up, dn=dn, wt=wt, init=init, imp=imp, diag=diag, ct=ct,
-        nwalk=_scalar(n0, I32, dev), e_trial=f(e_trial_initial),
+        nwalk=_scalar(nwalk, I32, dev), e_trial=f(e_trial_initial),
         e_est=f(e_trial_initial), tau=f(tau0), reweight_factor_inv=f(1.0),
         reached_target=_scalar(False, torch.bool, dev),
         equilibrated=_scalar(False, torch.bool, dev),
@@ -1252,6 +1299,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     wdt = F32 if cfg.f32_state else F64
     tau = state.tau
     e_trial = state.e_trial
+    mesh = tables.mesh
     ar_M = torch.arange(M, dtype=I64, device=dev)
     alive = ar_M < state.nwalk
     wt = torch.where(alive, state.wt, torch.zeros((), dtype=wdt, device=dev))
@@ -1266,15 +1314,17 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         imp_pos = _compact_index(alive & (state.imp == 0), n_imp, -1)
         w_imp = torch.where(imp_pos >= 0, wt[imp_pos.clamp(min=0)],
                             torch.zeros((), dtype=wdt, device=dev))
+        # sharded: the columns index the all-gathered D-weight vector
+        w_vec = mesh.all_gather(w_imp) if mesh is not None else w_imp
         if tables.imp_dense.numel():
             A = tables.imp_dense
             if A.dtype == torch.bfloat16:
                 # bfloat16-rounded operands, float32 products and sums
-                Hw_off = A.to(F32) @ w_imp.to(torch.bfloat16).to(F32)
+                Hw_off = A.to(F32) @ w_vec.to(torch.bfloat16).to(F32)
             else:
-                Hw_off = A @ w_imp.to(F32)
+                Hw_off = A @ w_vec.to(F32)
         else:
-            Hw_off = spmv.spmv(w_imp, tables.imp_ell_cols,
+            Hw_off = spmv.spmv(w_vec, tables.imp_ell_cols,
                                tables.imp_ell_vals, tables.imp_ell_ptr,
                                tables.imp_ell_nnz)
         # difference form: both terms are O(E_corr * w), so the f32 state
@@ -1416,6 +1466,22 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     spawn_wt = spawn_wt.to(wdt)
     child_imp = torch.where(spawn_ok, child_imp, 10 ** 6).to(I32)
     child_init = torch.where(spawn_ok, child_init, 0).to(I32)
+
+    # ---------------- owner routing over the mesh (P2) ---------------------
+    # one rank owns everything: routing is the identity and is skipped
+    if mesh is not None and cfg.n_dev > 1:
+        from ..parallel.dist import det_owner, route_spawns
+        routed, spawn_ok, route_ovf = route_spawns(
+            mesh, det_owner(spawn_up, spawn_dn, cfg.n_dev), spawn_ok,
+            dict(up=spawn_up, dn=spawn_dn, wt=spawn_wt, imp=child_imp,
+                 init=child_init))
+        spawn_up = torch.where(spawn_ok[:, None], routed["up"], SENT)
+        spawn_dn = torch.where(spawn_ok[:, None], routed["dn"], SENT)
+        spawn_wt = torch.where(spawn_ok, routed["wt"],
+                               torch.zeros((), dtype=wdt, device=dev))
+        child_imp = torch.where(spawn_ok, routed["imp"], 10 ** 6).to(I32)
+        child_init = torch.where(spawn_ok, routed["init"], 0).to(I32)
+        overflow = overflow | route_ovf
 
     # ---------------- diagonal move + projection on parents ----------------
     if ct_mode:
@@ -1799,6 +1865,31 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
         e_num_gen = torch.where(match, tables.ct_num[safe] * out_wt, zero).sum(dtype=F64)
         e_den_gen = torch.where(match, tables.ct_den[safe] * out_wt, zero).sum(dtype=F64)
     w_abs_gen = out_wt.abs().sum(dtype=F64)
+    nwalk_stat = nwalk_new
+    # log2-binned |spawned weight| histogram (ref gen_hist,
+    # more_tools.f90:5449); bin i covers [2^(i-20), 2^(i-19))
+    aw = spawn_wt.abs()
+    hbin = (torch.floor(torch.log2(aw.clamp(min=TINY))) + 20.0).clamp(
+        0, N_HIST_BINS - 1).to(I64)
+    hbin = torch.where(spawn_ok & (aw > 0), hbin, N_HIST_BINS)
+    hist = torch.zeros(N_HIST_BINS + 1, dtype=I64, device=dev)
+    hist.scatter_add_(0, hbin, torch.ones_like(hbin))
+    hist = hist[:N_HIST_BINS]
+    if tables.mesh is not None:
+        # the control scalars are global: one all-reduce of one float64
+        # vector (the counts stay exact below 2^53) gives every rank the
+        # same sums, so every rank takes the same branches.  The overflow
+        # flag carries the state's too: repair_caches sets it on one rank
+        tot = tables.mesh.all_reduce(torch.cat([
+            torch.stack([e_num_gen, e_den_gen, w_abs_gen]).to(F64),
+            torch.stack([nwalk_new.to(F64),
+                         (overflow | state.overflow).to(F64),
+                         total_spawn.to(F64)]), hist.to(F64)]))
+        e_num_gen, e_den_gen, w_abs_gen = tot[0], tot[1], tot[2]
+        nwalk_stat = tot[3].to(I32)
+        overflow = tot[4] > 0
+        total_spawn = tot[5].to(I64)
+        hist = tot[6:].to(I64)
 
     e_num_blk = state.e_num_blk + e_num_gen
     e_den_blk = state.e_den_blk + e_den_gen
@@ -1832,22 +1923,14 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
         e_den_blkabs_cum=state.e_den_blkabs_cum,
         e_num_blk=e_num_blk, e_den_blk=e_den_blk, w_abs_gen=w_abs_gen,
         overflow=state.overflow | overflow, step=state.step + 1)
-    # log2-binned |spawned weight| histogram (ref gen_hist,
-    # more_tools.f90:5449); bin i covers [2^(i-20), 2^(i-19))
-    aw = spawn_wt.abs()
-    hbin = (torch.floor(torch.log2(aw.clamp(min=TINY))) + 20.0).clamp(
-        0, N_HIST_BINS - 1).to(I64)
-    hbin = torch.where(spawn_ok & (aw > 0), hbin, N_HIST_BINS)
-    hist = torch.zeros(N_HIST_BINS + 1, dtype=I64, device=dev)
-    hist.scatter_add_(0, hbin, torch.ones_like(hbin))
     stats = dict(e_num_gen=e_num_gen, e_den_gen=e_den_gen, w_abs_gen=w_abs_gen,
-                 nwalk=nwalk_new,
+                 nwalk=nwalk_stat,
                  e_gen=e_num_gen / torch.where(e_den_gen == 0,
                                                torch.full_like(e_den_gen, TINY),
                                                e_den_gen),
                  n_spawn=total_spawn,
                  reweight_factor_inv=state.reweight_factor_inv,
-                 spawn_hist=hist[:N_HIST_BINS])
+                 spawn_hist=hist)
     return new_state, stats
 
 
@@ -1855,9 +1938,19 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
 # Public step / block API
 # ---------------------------------------------------------------------------
 
+def _check_mesh(cfg: WalkConfig, tables: WalkTables) -> None:
+    mesh = tables.mesh
+    if (cfg.axis_name is None) != (mesh is None) or (
+            mesh is not None and mesh.size != cfg.n_dev):
+        raise ValueError("a sharded walk (WalkConfig.axis_name) runs on the "
+                         "tables of parallel.dist.make_sharded_walk, with "
+                         "n_dev equal to the mesh's size")
+
+
 def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
               gen: torch.Generator):
     """One MC generation.  Returns (new_state, stats dict)."""
+    _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
     return _walk_step_impl(state, tables, cfg, gen)
 
@@ -1871,6 +1964,7 @@ def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     """`nstep` generations as a Python loop with no host sync inside.
     Returns (state, stats) with stats[k] an [nstep] device tensor per
     trace key and stats["spawn_hist"] the block's summed histogram."""
+    _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
     rows, hist = [], None
     for _ in range(nstep):
@@ -1956,9 +2050,29 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
     generator state when it has one.  walkalize_file: the per-generation
     trace `step 1/reweight w_abs e_gen nwalk` for external blocking tools
     (ref: do_walk.f90:1675,2930), appended block by block from the trace
-    this function already reads once a block."""
+    this function already reads once a block.
+
+    Sharded (cfg.axis_name set): every rank calls run_walk with its own
+    tables and state from parallel.dist.make_sharded_walk; each rank draws
+    from a generator seeded from (seed, rank), the block's overflow flag
+    and trace are all-reduced values, and rank 0 alone prints and writes
+    the walkalize trace.  A checkpoint holds one process's walkers, so it
+    is refused on a mesh."""
+    if cfg.axis_name is not None and (tables is None or state is None
+                                      and resume_state is None):
+        raise ValueError("a sharded walk takes its tables and state from "
+                         "parallel.dist.make_sharded_walk")
     if tables is None:
         tables = build_walk_tables(system, trial, cfg, guide=guide)
+    mesh = tables.mesh
+    if mesh is not None:
+        from ..parallel.dist import rank_seed
+        if checkpoint_file is not None:
+            raise ValueError("checkpoint_file holds one process's walkers; "
+                             "it is not written on a mesh")
+        seed = rank_seed(seed, mesh.rank)
+        if mesh.rank != 0:
+            verbose, walkalize_file = False, None
     if resume_state is not None:
         state = resume_state
     if state is None:
@@ -2002,7 +2116,8 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
                     f"retries (mwalk={cfg.mwalk}, cap_spawn={cfg.cap_spawn})")
             grows += 1
             cfg = dataclasses.replace(cfg, mwalk=2 * cfg.mwalk,
-                                      cap_spawn=2 * cfg.cap_spawn)
+                                      cap_spawn=2 * cfg.cap_spawn,
+                                      cap_fresh=2 * cfg.cap_fresh)
             cfg_growth = cfg if cfg.full_sort_merge else \
                 dataclasses.replace(cfg, cap_new=cfg.cap_spawn)
             if verbose:

@@ -14,6 +14,8 @@ way round.
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
@@ -181,6 +183,59 @@ def walk_state_from_numpy(st, f32_state: bool = False,
         w_abs_gen=f64(st.w_abs_gen), overflow=flag(st.overflow),
         step=torch.tensor(int(np.asarray(st.step)), dtype=torch.int32,
                           device=device))
+
+
+def sharded_walk_from_numpy(st, tb, rank: int, n_dev: int, tables,
+                            f32_state: bool = False):
+    """Rank `rank`'s port (WalkState, WalkTables) from the JAX package's
+    sharded walk state and tables (or any objects with their field names),
+    stacked [n_dev * M, ...] and [n_dev * m_loc, ...] as its
+    make_sharded_walk returns them.
+
+    `tables`: the port's tables of the same walk (from its own
+    make_sharded_walk, which carries the mesh); the replicated fields and
+    the mesh are kept, and this rank's D rows are taken from the JAX
+    package's: the D dets, the dense row slice or, rebuilt from its
+    row-complete COO (local rows, global columns), K2's block-ELL rows,
+    the diagonal and the C(T)-in-D vectors.  The PRNG keys are dropped."""
+    from .parallel.dist import _blockell_local
+    dev = tables.hb_rowsum.device
+    M = np.asarray(st.up).shape[0] // n_dev
+    cut = slice(rank * M, (rank + 1) * M)
+
+    def part(x):
+        return np.asarray(x)[cut]
+
+    view = types.SimpleNamespace(**{k: getattr(st, k) for k in WalkState._fields
+                                    if hasattr(st, k)})
+    for k in ("up", "dn", "wt", "init", "imp", "diag", "ct"):
+        setattr(view, k, part(getattr(st, k)))
+    view.nwalk = np.asarray(st.nwalk)[rank]
+    state = walk_state_from_numpy(view, f32_state=f32_state, device=dev)
+    m = np.asarray(tb.imp_up).shape[0] // n_dev
+    loc = slice(rank * m, (rank + 1) * m)
+    fdt = np.float32 if f32_state else np.float64
+    ec, ev, _, ptr, nnz, diag = _blockell_local(
+        m, np.asarray(tb.imp_rows).reshape(n_dev, -1)[rank],
+        np.asarray(tb.imp_cols).reshape(n_dev, -1)[rank],
+        np.asarray(tb.imp_vals).reshape(n_dev, -1)[rank], rank * m, dtype=fdt)
+    dense = np.asarray(tb.imp_dense, np.float32)
+    dense = dense[loc] if dense.shape[0] > 0 else np.zeros((0, 0), np.float32)
+    ct_n, ct_d = (np.asarray(x, np.float64) for x in (tb.ct_num_imp,
+                                                      tb.ct_den_imp))
+    if ct_n.shape[0] > 0:
+        ct_n, ct_d = ct_n[loc], ct_d[loc]
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    return state, tables._replace(
+        imp_up=words_to_torch(np.asarray(tb.imp_up)[loc], dev),
+        imp_dn=words_to_torch(np.asarray(tb.imp_dn)[loc], dev),
+        imp_ell_cols=t(ec), imp_ell_vals=t(ev), imp_ell_ptr=t(ptr),
+        imp_ell_nnz=t(nnz), imp_diag=t(diag),
+        imp_dense=t(dense).to(tables.imp_dense.dtype),
+        ct_num_imp=t(ct_n), ct_den_imp=t(ct_d))
 
 
 def _f64(x, device) -> torch.Tensor:

@@ -55,7 +55,8 @@ def unique_dets(up, dn, payloads=None, sum_payloads: bool = True):
         p_s = p[order]
         if sum_payloads and p_s.dtype != torch.bool:
             acc = p_s.new_zeros((n_u,) + tuple(p_s.shape[1:]))
-            acc.index_add_(0, group, p_s)
+            # ordered on the card (no atomics): sums repeat bit for bit
+            acc.index_put_((group,), p_s, accumulate=True)
             outs.append(acc)
         else:
             outs.append(p_s[first])

@@ -546,11 +546,12 @@ def test_unported_cards_raise(name, fcidump):
 
 
 def test_run_hci_refusals_name_their_items(fcidump):
-    """run_hci's one refusal left: the mesh (A7)."""
+    """run_hci refuses no option any more (the mesh is ported, A7); a mesh
+    argument that is not a parallel.dist.Mesh raises, naming make_mesh."""
     from sqmc_tpu_torch.algo.hci import run_hci
     from sqmc_tpu_torch.systems.base import make_chem_system
     s = make_chem_system(fcidump, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="make_mesh"):
         run_hci(s, eps_var=1e-3, verbose=False, mesh=object())
 
 

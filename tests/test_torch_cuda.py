@@ -874,9 +874,8 @@ def test_rdm_and_greens_on_card_match_cpu():
 def test_legacy_ci_on_card_is_reproducible():
     """The selected CI and the truncated Lanczos on the 4x4 Hubbard-k
     cluster (5 + 5), whose truncations cut through shells of equal |c|,
-    give bitwise the same per-iteration energies and dets on two runs on
-    the card (the final energies within 1e-10: the selected CI's last
-    Davidson sums over the COO with index_add_)."""
+    give bitwise the same per-iteration energies, dets and final energies
+    on two runs on the card."""
     from sqmc_tpu_torch.algo.legacy_ci import (perform_selected_ci,
                                                perform_truncated_lanczos)
     from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
@@ -888,5 +887,103 @@ def test_legacy_ci_on_card_is_reproducible():
                                                   n_truncate=2000)):
         a, b = run(), run()
         assert a.energies_per_iter == b.energies_per_iter
-        assert abs(a.energy - b.energy) < 1e-10
+        # C7 repaired: the last Davidson's COO sums are ordered too
+        assert a.energy == b.energy
         assert torch.equal(a.up, b.up) and torch.equal(a.dn, b.dn)
+
+
+def _random_coo(n, nnz, dev, seed=0):
+    """A symmetric SparseHam on the card whose strictly-upper entries pile
+    many duplicates onto few rows (the case atomics reorder)."""
+    from sqmc_tpu_torch.algo.sparseham import SparseHam
+    rng = np.random.default_rng(seed)
+    r = np.minimum(rng.zipf(1.5, nnz), n - 1) - 1
+    c = rng.integers(0, n, nnz)
+    r, c = np.minimum(r, c), np.maximum(r, c)
+    keep = r < c
+    r, c = r[keep], c[keep]
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return SparseHam(n=n, rows=t(r), cols=t(c),
+                     vals=t(rng.standard_normal(len(r))),
+                     diag=t(rng.standard_normal(n) * 10.0))
+
+
+@pytest.mark.cuda
+def test_coo_davidson_and_unique_dets_on_card_are_reproducible():
+    """C7: the COO Davidson matvec and setalg.unique_dets's payload sums
+    sum in a fixed order on the card (index_put_ with accumulate, no
+    atomics): two runs in one process agree bit for bit, at a size where
+    index_add_'s atomics reorder the sums (rows with thousands of
+    duplicate entries)."""
+    from sqmc_tpu_torch.algo.davidson import davidson, matvec
+    from sqmc_tpu_torch.ops import setalg
+    dev = _device()
+    H = _random_coo(20_000, 2_000_000, dev)
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal((H.n, 2)),
+                        device=dev)
+    assert torch.equal(matvec(H, v), matvec(H, v))
+    assert torch.equal(matvec(H, v[:, 0]), matvec(H, v[:, 0]))
+    e1, x1 = davidson(H, n_states=2, tol=1e-10)
+    e2, x2 = davidson(H, n_states=2, tol=1e-10)
+    assert np.array_equal(e1, e2) and np.array_equal(x1, x2)
+    rng = np.random.default_rng(2)
+    up = torch.as_tensor(rng.integers(0, 64, (1_000_000, 1)), device=dev)
+    dn = torch.as_tensor(rng.integers(0, 64, (1_000_000, 1)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((1_000_000, 2)), device=dev)
+    a = setalg.unique_dets(up, dn, [w, w[:, 0]])
+    b = setalg.unique_dets(up, dn, [w, w[:, 0]])
+    assert len(a[0]) == 4096
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+
+@pytest.mark.cuda
+def test_spmv_kernel_at_the_sharded_layout():
+    """K2 on one rank's rows of a sharded matrix: m_loc local rows whose
+    columns index the all-gathered vector of n_glob > m_loc entries
+    (parallel.dist._blockell_local, as the sharded walk's float64
+    projection and the sharded Davidson call it), float32 and float64,
+    against the plain version."""
+    from sqmc_tpu_torch.parallel.dist import _blockell_local
+    dev = _device()
+    rng = np.random.default_rng(3)
+    n_dev, m_loc, rank = 4, 3_000, 2
+    n_glob = n_dev * m_loc
+    nnz = 400_000
+    rows = rng.integers(0, m_loc, nnz)
+    cols = rng.integers(0, n_glob, nnz)
+    vals = rng.standard_normal(nnz)
+    rows = np.concatenate([rows, np.arange(m_loc)])          # the diagonal
+    cols = np.concatenate([cols, rank * m_loc + np.arange(m_loc)])
+    vals = np.concatenate([vals, rng.standard_normal(m_loc)])
+    before = tspmv.launches
+    for dt, tol in ((np.float32, 1e-3), (np.float64, 1e-10)):
+        ec, ev, _, ptr, nnz_r, diag = _blockell_local(
+            m_loc, rows, cols, vals, rank * m_loc, dtype=dt)
+        off = cols != rank * m_loc + rows
+        assert int(nnz_r.sum()) == int(off.sum())
+        assert np.allclose(diag.sum(), vals[~off].sum())
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        x = t(rng.standard_normal(n_glob).astype(dt))
+        got = tspmv.spmv(x, t(ec), t(ev), t(ptr), t(nnz_r))
+        ref = tspmv.spmv_plain(x, t(ec), t(ev), t(ptr), t(nnz_r))
+        assert got.shape == (m_loc,)
+        assert float((got - ref).abs().max()) < tol
+    assert tspmv.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_det_owner_on_card_matches_numpy():
+    """The owner hash on int64 words on the card equals the uint64 numpy
+    one bit for bit (words with bit 63 set, W = 1 and 2, n = 1..8)."""
+    from sqmc_tpu_torch.parallel.dist import det_owner, det_owner_np
+    dev = _device()
+    rng = np.random.default_rng(4)
+    for W in (1, 2):
+        up = rng.integers(-(1 << 63), (1 << 63) - 1, (100_000, W),
+                          dtype=np.int64)
+        dn = rng.integers(-(1 << 63), (1 << 63) - 1, (100_000, W),
+                          dtype=np.int64)
+        for n in range(1, 9):
+            got = det_owner(torch.as_tensor(up, device=dev),
+                            torch.as_tensor(dn, device=dev), n)
+            assert np.array_equal(got.cpu().numpy(), det_owner_np(up, dn, n))

@@ -29,7 +29,10 @@ def test_port_imports_without_jax():
                 "sqmc_tpu_torch.algo.rdm",
                 "sqmc_tpu_torch.algo.greens",
                 "sqmc_tpu_torch.systems.chem.cas",
-                "sqmc_tpu_torch.systems.chem.mp2"):
+                "sqmc_tpu_torch.systems.chem.mp2",
+                "sqmc_tpu_torch.parallel.dist",
+                "sqmc_tpu_torch.parallel.dryrun",
+                "sqmc_tpu_torch.systems.chem.synthetic"):
         assert new in mods, new
     code = (
         "import sys\n"

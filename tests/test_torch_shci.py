@@ -140,12 +140,13 @@ def test_fcidump_hci_and_pt_match_jax(fcidump):
 
 
 def test_unported_options_raise(fcidump):
-    """Options that stay unported raise ValueError: the mesh in run_hci,
-    and an unknown diagonalizer (the wavefunction cache is ported: an
-    empty cache directory changes nothing); in
-    WalkConfig the sharding and the JAX package's capacity workarounds,
-    and (as in the JAX package) an unknown name, a fixed-node run without
-    a guiding function or a sector other than +1 / -1.  The exponential
+    """Options that stay unported raise ValueError: a mesh argument that is
+    not a parallel.dist.Mesh in run_hci, and an unknown diagonalizer (the
+    wavefunction cache is ported: an empty cache directory changes
+    nothing); in WalkConfig the JAX package's capacity workarounds, ranks
+    without an axis name or a spawn capacity that does not split into
+    them, and (as in the JAX package) an unknown name, a fixed-node run
+    without a guiding function or a sector other than +1 / -1.  The exponential
     projector on a time-symmetrized system is refused where the JAX
     package refuses it, in build_walk_tables."""
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
@@ -161,7 +162,8 @@ def test_unported_options_raise(fcidump):
     c = t_chem(fcidump, device="cpu", time_sym=True, point_group="d2h")
     base = dict(norb=c.norb, nup=c.nup, ndn=c.ndn, n_words=1, mwalk=1024,
                 cap_spawn=4096, tau=5e-3, w_abs_target=500.0, time_sym=True)
-    for kw in (dict(axis_name="d"), dict(n_dev=2), dict(cap_compact=512),
+    for kw in (dict(axis_name="d", n_dev=3), dict(n_dev=2),
+               dict(cap_compact=512),
                dict(cap_single=512), dict(run_type="fixed_node1"),
                dict(run_type="vmc"), dict(proposal="heat_bath3"),
                dict(guiding="jastrow"), dict(initiator_rule="first"),

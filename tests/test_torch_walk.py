@@ -134,11 +134,18 @@ def test_run_walk_exact_energy(exact):
 
 
 def test_unported_options_raise():
-    """Sharding and the JAX package's capacity workarounds are not part of
-    the port; an unknown name or a fixed-node run without a guide raises
-    as in the JAX package; every other option is accepted."""
+    """The JAX package's capacity workarounds are not part of the port;
+    ranks without an axis name, and fixed-node, guided or CT walks over
+    several ranks, raise; an unknown name or a fixed-node run without a
+    guide raises as in the JAX package; every other option is accepted,
+    the sharded walk included."""
     base = dict(norb=4, nup=2, ndn=2, **KW)
-    for opt in (dict(time_sym=True, z=0), dict(axis_name="d"), dict(n_dev=4),
+    sharded = dict(axis_name="d", n_dev=2)
+    for opt in (dict(time_sym=True, z=0), dict(n_dev=4),
+                dict(sharded, run_type="fixed_node1", guiding="gutzwiller"),
+                dict(sharded, guiding="gutzwiller"),
+                dict(sharded, use_exponential_projector=True,
+                     semistochastic=False),
                 dict(cap_compact=64), dict(cap_single=64),
                 dict(run_type="fixed_node1"), dict(run_type="vmc"),
                 dict(proposal="heat_bath2"), dict(initiator_rule="pairwise"),
@@ -151,5 +158,5 @@ def test_unported_options_raise():
                 dict(proposal="uniform"), dict(proposal="cauchy_schwarz"),
                 dict(ct_in_d=True), dict(full_sort_merge=False, cap_new=64),
                 dict(initiator_rule="sequential"), dict(proj_bf16=True),
-                dict(det_hash=False)):
+                dict(det_hash=False), sharded, dict(axis_name="d")):
         TW.WalkConfig(**base, **opt)
