@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sqmc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
-    python3 chip_smoke.py --kernels   # phases 0-2c only, then exit 1
+    python3 chip_smoke.py --kernels   # phases 0-2 (2, 2b, 2d, 2c), then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
@@ -14,8 +14,8 @@ Phases, each reported on its own line; any failure exits nonzero:
      back to the CPU); prints the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them, and the torch / CUDA versions;
-  1. build both kernels from sqmc_tpu_torch/csrc (segscan.cu, spmv.cu),
-     one nvcc each, started together;
+  1. build the four kernels from sqmc_tpu_torch/csrc (segscan.cu,
+     spmv.cu, hbselect.cu, slotpar.cu), one nvcc each, started together;
   2. the seg-scan kernel vs its plain PyTorch version on the card, at the
      walk's merge shape (720,896 rows x 6 fields), an f64 variant, one
      segment spanning everything, all segment starts, n = 1 and n = 127;
@@ -31,8 +31,17 @@ Phases, each reported on its own line; any failure exits nonzero:
      one PyTorch call that computes the same function where there is one
      (torch.sparse_csr_tensor(...) @ x for SpMV; torch.cumsum / cummax /
      cummin per field for the one-segment scan), timed only here;
+  2d. the walk's spawn kernels vs their plain versions: the heat-bath
+     selection (K3) at the walk's shape (262,144 slots of HEG-14 dets,
+     2n = 38, HEG-14's R2), at 6b's chem shape with singles (26 orbitals,
+     4 + 4) and with integer R2 (same bits), the slot -> parent expand
+     (K4) at the walk's shape (458,752 walkers, 262,144 slots) below and
+     above the capacity; printed as 2 and 2b print, the library calls
+     being torch.cumsum of one [262,144, 2n] row set and its
+     triangular-matmul form (K3) and torch.searchsorted (K4);
   2c. the kernels' own time per call (kernel_us) at the walk and C2
-     shapes, from one torch.profiler session;
+     shapes, from one torch.profiler session (after 2d, whose cases it
+     profiles too);
   3. the walk's main path on the 14-electron electron gas (3D HEG,
      r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
      (9475 dets, E_var = 58.276906085), the trial wavefunction with D = the
@@ -179,12 +188,13 @@ Phases, each reported on its own line; any failure exits nonzero:
      combined sigma of its serial golden.
 
 Each path's kernel counts are set to 0 just before it and read just after.
-The last two lines are a JSON object describing the kernels (seg_scan's
-launches from phases 3, 7, 8 and 10, spmv's from phases 4, 7, 8, 9 and 10
-(every rank's counts in phase 10), each path
-counted from 0; errors and times measured
-here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL float32
-m = 1 shape) and ``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object describing the kernels (the launches
+of seg_scan, hb_select and slot_parents from phases 3, 7, 8 and 10,
+spmv's from phases 4, 7, 8, 9 and 10 (every rank's counts in phase 10),
+each path counted from 0; errors and times measured here: seg_scan at the
+walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
+hb_select and slot_parents at the walk's spawn shape) and ``{"ok": true,
+"device": {...}}``.
 """
 
 import functools
@@ -219,6 +229,31 @@ def nvidia_smi_line():
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+KERNELS = ("seg_scan", "spmv", "hb_select", "slot_parents")
+
+
+def _kernel_modules():
+    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
+    return dict(zip(KERNELS, (segscan, spmv, hbselect, slotpar)))
+
+
+def _reset_counts():
+    """Every kernel's launch count set to 0."""
+    for mod in _kernel_modules().values():
+        mod.reset_launches()
+
+
+def _read_counts():
+    return {k: mod.launches for k, mod in _kernel_modules().items()}
+
+
+def _need(tag, counts, *kernels):
+    """Fail unless each named kernel was launched in `counts`."""
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: never launched {missing} ({counts})")
 
 
 # ---------------------------------------------------------------------------
@@ -358,17 +393,20 @@ def phase_kernel_rows(calls=20):
                     e.time_range.elapsed_us()
     out = {}
     for label, found in rows.items():
-        own = [us for (name, _), us in found.items()
-               if "k_seg_scan" in name or "k_spmv" in name]
+        own = [us for (name, _), us in found.items() if _own_kernel(name)]
         other = sorted({name[:24] for name, _ in found} - {
-            name[:24] for name, _ in found
-            if "k_seg_scan" in name or "k_spmv" in name})
+            name[:24] for name, _ in found if _own_kernel(name)})
         out[label] = sum(own) / calls
         log(f"phase 2c profile {label}: kernel_us={out[label]:.1f} "
             f"kernel_rows={len(own)} calls={calls} other_device_us="
             f"{(sum(found.values()) - sum(own)) / calls:.1f} other_rows="
             f"{len(found) - len(own)} {other[:3]}")
     return out
+
+
+def _own_kernel(name):
+    return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_select",
+                                   "k_slot_parents"))
 
 
 HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
@@ -641,6 +679,209 @@ def _library_spmv(x, cols, vals, row_ptr, row_nnz, ref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the spawn kernels K3 (heat-bath selection) and K4 (slot ->
+# parent) vs their plain versions
+# ---------------------------------------------------------------------------
+
+SPAWN_M, SPAWN_CAP = 458_752, 262_144  # the walk's mwalk and cap_spawn
+# (norb, nup, ndn, R2 kind, singles): the walk's selection (HEG-14's walk
+# tables), 6b's chem shape with singles (26 orbitals, 4 + 4 electrons) and
+# integer R2 at the walk's width (every running sum exact: same bits)
+HB_CASES = {"walk_heg14": (19, 7, 7, "heg14", False),
+            "chem26_singles": (26, 4, 4, "float", True),
+            "integer_norb19_singles": (19, 7, 7, "int", True)}
+
+
+def _random_dets(rng, cap, norb, nel):
+    """[cap, W] int64 words, nel random orbitals occupied per row; the
+    first 7 rows empty (slots past the spawn total)."""
+    import numpy as np
+    W = (norb + 63) // 64
+    occ = np.argsort(rng.random((cap, norb)), axis=1)[:, :nel]
+    words = np.zeros((cap, W), np.uint64)
+    for w in range(W):
+        sh = np.clip(occ - 64 * w, 0, 63).astype(np.uint64)
+        hit = (occ >= 64 * w) & (occ < 64 * (w + 1))
+        words[:, w] = np.bitwise_or.reduce(
+            np.where(hit, np.left_shift(np.uint64(1), sh), np.uint64(0)),
+            axis=1)
+    words[:7] = 0
+    return words.view(np.int64)
+
+
+def _heg14_r2(dev):
+    """R2 of HEG-14's walk tables (it does not depend on the trial)."""
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    s = make_heg_system(*HEG, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
+    cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=s.nup,
+                     ndn=s.ndn, n_words=1, tau=2e-3, w_abs_target=1e3,
+                     has_singles=False)
+    return build_walk_tables(s, trial, cfg).R2
+
+
+def _hb_compare(name, got, ref, exact):
+    """Raise unless the kernel meets the criteria against the plain
+    version; returns the largest |difference| of a float output on the
+    slots whose draws agree.  Integer R2: the same bits everywhere.  Float
+    R2 (the running sums associate differently): the draws agree on >=
+    99.99% of slots, and there the totals agree to 1e-5 relative, the
+    singles cell to 1e-6 of its row's total and p_pair_q to 4e-6 + 3e-5 p
+    (the bound that follows from each of its four cells agreeing to 1e-6 of
+    its row's total)."""
+    import torch
+    fields = [k for k, v in got._asdict().items() if v is not None]
+    if exact:
+        for k in fields:
+            g, r = getattr(got, k), getattr(ref, k)
+            if g.dtype == torch.float32:
+                g, r = g.view(torch.int32), r.view(torch.int32)
+            if not torch.equal(g, r):
+                raise AssertionError(f"2d {name}: {k} differs")
+        return 0.0
+    same = (got.o1 == ref.o1) & (got.o2 == ref.o2)
+    if got.o_s is not None:
+        same &= got.o_s == ref.o_s
+    agree = float(same.double().mean())
+    err = 0.0
+    for k in fields:
+        if getattr(got, k).dtype != torch.float32:
+            continue
+        g, r = getattr(got, k)[same].double(), getattr(ref, k)[same].double()
+        d = (g - r).abs()
+        err = max(err, float(d.max()))
+        if k == "p_pair_q":
+            bad = d > 4e-6 + 3e-5 * r.abs()
+        elif k == "c_s":
+            bad = d > 1e-6 * ref.utot[same].double()
+        else:
+            bad = d > 1e-5 * r.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"2d {name}: {k} off by {float(d.max())}")
+    if agree < 0.9999:
+        raise AssertionError(f"2d {name}: draws agree on {agree:.6f} only")
+    return err
+
+
+def _spawn_case_line(name, fn, plain, nbytes, ops, err, lib):
+    """Times of one case: wrapper_ms, device_us, bound_us, plain_ms and
+    the library calls; logs them and returns the summary dict."""
+    ms = _median_ms(fn)
+    dev_us = _device_us(fn)
+    plain_ms = _median_ms(plain, reps=5, warm=1)
+    bound_us, bound_by = _bound_us(nbytes, ops)
+    libs = {k: (_median_ms(f), _device_us(f)) for k, f in lib.items()}
+    log(f"phase 2d {name}: match max_abs_err={err:.3e} wrapper_ms={ms:.4f} "
+        f"device_us={dev_us:.1f} bound_us={bound_us:.2f} bound_by={bound_by} "
+        f"bound_MB={nbytes / 1e6:.2f} share={bound_us / dev_us:.3f} "
+        f"plain_ms={plain_ms:.4f} " + " ".join(
+            f"library_{k}_ms={a:.4f} library_{k}_device_us={b:.1f}"
+            for k, (a, b) in libs.items()))
+    first = next(iter(libs.values()), (None, None))[0]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_us=dev_us,
+                bound_us=bound_us, bound_by=bound_by, library_ms=first)
+
+
+def phase_spawn_vs_plain(dev):
+    """Phase 2d: K3 at the walk's spawn shape (CAP 262,144 slots of HEG-14
+    dets, 2n = 38, HEG-14's R2), at 6b's chem shape with singles and with
+    integer R2; K4 at the walk's shape (M 458,752 walkers, CAP 262,144
+    slots) with a spawn total below CAP and one above it.  Each case
+    prints what phase 2 prints; the library calls are, for K3, the
+    torch.cumsum of one [CAP, 2n] float32 row set (three of them ran per
+    generation before K3) and the JAX package's form of it, x @ triu(ones)
+    in full float32 (TF32 off); for K4, torch.searchsorted(cum, slots,
+    right=True).  Returns the summaries of the walk-shape cases."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.ops import hbselect, slotpar
+
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    out = {}
+    for name, (norb, nup, ndn, kind, singles) in HB_CASES.items():
+        n2, cap = 2 * norb, SPAWN_CAP
+        if kind == "heg14":
+            R2 = _heg14_r2(dev)
+        else:
+            R2 = (rng.integers(0, 16, (n2, n2)) if kind == "int"
+                  else rng.exponential(1.0, (n2, n2))).astype(np.float32)
+            np.fill_diagonal(R2, 0.0)
+            R2 = torch.as_tensor(R2, device=dev)
+        u_rowsum = None
+        if singles:
+            u_rowsum = torch.as_tensor(
+                rng.integers(1, 9, norb).astype(np.float64) if kind == "int"
+                else rng.exponential(1.0, norb), device=dev)
+        up = torch.as_tensor(_random_dets(rng, cap, norb, nup), device=dev)
+        dn = torch.as_tensor(_random_dets(rng, cap, norb, ndn), device=dev)
+        u1 = torch.as_tensor(rng.random(cap), device=dev)
+        u2 = torch.as_tensor(rng.random(cap), device=dev)
+        args = (up, dn, norb, R2, u_rowsum, u1, u2)
+        got = hbselect.hb_select(*args)
+        torch.cuda.synchronize()
+        ref = hbselect.hb_select_plain(*args)
+        err = _hb_compare(name, got, ref, exact=kind == "int")
+        again = hbselect.hb_select(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            raise AssertionError(f"2d {name}: a second call gave other bits")
+        # bytes: det words, two uniforms, R2 and u_rowsum read once; two
+        # int64 and four float32 written (singles: one int64, two float32)
+        W = up.shape[1]
+        nbytes = (cap * (2 * W * 8 + 16) + R2.numel() * 4
+                  + (norb * 8 if singles else 0)
+                  + cap * (32 + (16 if singles else 0)))
+        # float ops this input needs: mu over the occupied rows (ne adds a
+        # spin-orbital), a product and a sum per entry of each running
+        # sum, a compare per entry of each draw
+        ne = float(dets.to_bits(up, norb).sum() + dets.to_bits(dn, norb).sum())
+        nrow, ndraw = (4, 3) if singles else (3, 2)
+        ops = ne * n2 + cap * n2 * (2 * nrow + ndraw)
+        x = torch.rand((cap, n2), device=dev)
+        tri = torch.triu(torch.ones((n2, n2), device=dev))
+        fn = (lambda a=args: hbselect.hb_select(*a))
+        out[name] = _spawn_case_line(
+            f"hb_select {name} cap={cap} 2n={n2}", fn,
+            lambda a=args: hbselect.hb_select_plain(*a), nbytes, ops, err,
+            {"cumsum_rows": lambda x=x: torch.cumsum(x, dim=1),
+             "triu_matmul": lambda x=x, tri=tri: x @ tri})
+        PROFILED.append((f"hb_select {name}", fn))
+        del x, tri, got, ref, again
+
+    for name, goal in (("walk", int(0.7 * SPAWN_CAP)),
+                       ("overflow", 2 * SPAWN_CAP)):
+        nchild = rng.poisson(3.0, SPAWN_M) * (rng.random(SPAWN_M) < 0.5)
+        nchild[500] = 5000
+        cum = np.cumsum(nchild)
+        i = int(np.searchsorted(cum, goal))
+        nchild[i] -= cum[i] - goal
+        nchild[i + 1:] = 0
+        cum = torch.cumsum(torch.as_tensor(nchild, device=dev), 0)
+        got = slotpar.slot_parents(cum, SPAWN_CAP)
+        torch.cuda.synchronize()
+        if not torch.equal(got, slotpar.slot_parents_plain(cum, SPAWN_CAP)):
+            raise AssertionError(f"2d slot_parents {name}: differs")
+        slots = torch.arange(SPAWN_CAP, device=dev)
+        fn = (lambda c=cum: slotpar.slot_parents(c, SPAWN_CAP))
+        out[f"slot_{name}"] = _spawn_case_line(
+            f"slot_parents {name} M={SPAWN_M} cap={SPAWN_CAP} "
+            f"total={goal}", fn,
+            lambda c=cum: slotpar.slot_parents_plain(c, SPAWN_CAP),
+            (SPAWN_M + SPAWN_CAP) * 8,
+            SPAWN_CAP * int(np.ceil(np.log2(SPAWN_M))), 0.0,
+            {"searchsorted": lambda c=cum, s=slots:
+             torch.searchsorted(c, s, right=True)})
+        PROFILED.append((f"slot_parents {name}", fn))
+    log(f"phase 2d seconds={time.time() - t_start:.2f}")
+    return out["walk_heg14"], out["slot_walk"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -651,7 +892,6 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import (WalkConfig, build_walk_tables,
                                           init_walk_state, run_walk)
-    from sqmc_tpu_torch.ops import segscan
     from sqmc_tpu_torch.systems.heg.system import make_heg_system
 
     t0 = time.time()
@@ -689,7 +929,7 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
     log(f"phase 3 tables: dense_projector_MB="
         f"{tables.imp_dense.numel() * 4 / 1e6:.1f} seconds={t_tables:.2f}")
 
-    segscan.reset_launches()
+    _reset_counts()
     t3 = time.time()
     out = run_walk(system, trial, cfg, nstep=NSTEP, nblk=nblk,
                    nblk_eq=nblk_eq, w_abs_begin=W_BEGIN,
@@ -697,7 +937,7 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
                    max_eq_extensions=2, tables=tables, state=state, seed=1)
     torch.cuda.synchronize()
     t_walk = time.time() - t3
-    launches = segscan.launches
+    launches = _read_counts()
 
     ntail = min(1000, out.n_measured)
     pop = float(np.mean(out.w_abs_trace[-ntail:]))
@@ -712,7 +952,7 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
         f"pop={pop:.1f} nwalk={nwalk:.1f} capacity_grows={out.capacity_grows}")
     log(f"phase 3 energy: e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
         f"t_corr={out.t_corr:.1f} bias_vs_oracle_mHa={1e3 * bias:.4f} "
-        f"gate_mHa={1e3 * gate:.4f} seg_scan_launches={launches}")
+        f"gate_mHa={1e3 * gate:.4f} launches={launches}")
 
     if bool(out.state.overflow):
         raise AssertionError("unresolved capacity overflow")
@@ -721,8 +961,14 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
         raise AssertionError("non-finite walk output")
     if abs(pop - W_TARGET) > 0.1 * W_TARGET:
         raise AssertionError(f"population {pop:.0f} not within 10% of target")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the seg-scan kernel")
+    # a spawn with a runaway weight shows as a block far off the target
+    # and as a capacity overflow
+    blocks = out.w_abs_trace[-out.n_measured:].reshape(-1, NSTEP).mean(axis=1)
+    if out.capacity_grows or np.abs(blocks / W_TARGET - 1).max() > 0.2:
+        raise AssertionError(f"population bursts: block w_abs {blocks}, "
+                             f"{out.capacity_grows} capacity growths")
+    _need("phase 3 main path", launches, "seg_scan", "hb_select",
+          "slot_parents")
     if abs(bias) >= gate:
         raise AssertionError(f"|e_mixed - oracle| = {abs(bias):.6f} >= "
                              f"{gate:.6f}")
@@ -747,8 +993,7 @@ def phase_shci(dev, system, res):
     from sqmc_tpu_torch.algo.pt import do_pt, second_order_pt
     from sqmc_tpu_torch.ops import segscan, spmv
 
-    spmv.reset_launches()
-    segscan.reset_launches()
+    _reset_counts()
     t0 = time.time()
     dd = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
                  verbose=False, device_davidson=True)
@@ -810,30 +1055,27 @@ def phase_f64_walk(dev, system, trial):
     import numpy as np
     import torch
     from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
-    from sqmc_tpu_torch.ops import segscan, spmv
 
     cfg = WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=system.norb,
                      nup=system.nup, ndn=system.ndn, n_words=system.n_words,
                      tau=2e-3, w_abs_target=W_TARGET, spawn_granularity=2.0,
                      min_wt=0.5, r_initiator=0.5, f32_state=False,
                      proj_bf16=False, has_singles=False)
-    spmv.reset_launches()
-    segscan.reset_launches()
+    _reset_counts()
     t0 = time.time()
     out = run_walk(system, trial, cfg, nstep=100, nblk=2, nblk_eq=2,
                    w_abs_begin=W_TARGET, e_trial_initial=trial.e_trial,
                    verbose=False, max_eq_extensions=0, seed=2)
     torch.cuda.synchronize()
     t_walk = time.time() - t0
-    launches = spmv.launches
+    counts = _read_counts()
+    launches = counts["spmv"]
     pop = float(np.mean(out.w_abs_trace[-100:]))
     log(f"phase 5 f64 walk: gens={len(out.w_abs_trace)} "
         f"gen_per_s={out.steps_per_sec:.3f} pop={pop:.1f} "
         f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
-        f"spmv_launches={launches} seg_scan_launches={segscan.launches} "
-        f"seconds={t_walk:.1f}")
-    if launches <= 0:
-        raise AssertionError("the f64 walk never launched the SpMV kernel")
+        f"launches={counts} seconds={t_walk:.1f}")
+    _need("phase 5 f64 walk", counts, *KERNELS)
     if bool(out.state.overflow) or not (
             np.all(np.isfinite(out.w_abs_trace)) and np.isfinite(out.e_mixed)):
         raise AssertionError("non-finite or overflowing f64 walk")
@@ -963,10 +1205,10 @@ def _finish_cli(job):
         log(stdout[-3000:] + stderr[-3000:])
         log(f"cli deck {tag}: python -m sqmc_tpu_torch exited {rc}")
         sys.exit(rc if rc > 0 else 1)
-    m = re.search(r"Kernel launches: seg_scan=(\d+) spmv=(\d+)", stdout)
-    counts = dict(seg_scan=int(m.group(1)), spmv=int(m.group(2)))
-    log(f"cli deck {tag}: seconds={sec:.2f} seg_scan_launches="
-        f"{counts['seg_scan']} spmv_launches={counts['spmv']}")
+    m = re.search(r"Kernel launches: " + " ".join(
+        rf"{k}=(\d+)" for k in KERNELS), stdout)
+    counts = {k: int(v) for k, v in zip(KERNELS, m.groups())}
+    log(f"cli deck {tag}: seconds={sec:.2f} launches={counts}")
     return stdout, sec, counts
 
 
@@ -1104,8 +1346,7 @@ def phase_cli_c2(dev, workdir):
             or abs(e_mix - oracle) > gate:
         raise AssertionError("e_mixed is not within max(5 sigma, 2 mHa) of "
                              "E_var + PT")
-    if c_walk["seg_scan"] <= 0 or c_walk["spmv"] <= 0:
-        raise AssertionError("the walk deck did not run both kernels")
+    _need("phase 6b walk deck", c_walk, *KERNELS)
     log(f"phase 6b stages: fcidump={t_write:.2f} cli_hci_pt={sec_hci:.2f} "
         f"device_davidson={t_dd:.2f} cli_walk={sec_walk:.2f}")
     return dict(hci=c_hci, device_davidson=dd_launches, walk=c_walk)
@@ -1123,7 +1364,6 @@ def phase_ts_oracle(dev):
     from sqmc_tpu_torch import dets
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
-    from sqmc_tpu_torch.ops import segscan, spmv
     from sqmc_tpu_torch.systems.base import make_system_from_arrays
     from sqmc_tpu_torch.systems.chem import slater
     from sqmc_tpu_torch.systems.chem.fcidump import n_eri
@@ -1152,19 +1392,18 @@ def phase_ts_oracle(dev):
         cfg = WalkConfig(mwalk=1024, cap_spawn=4096, norb=6, nup=2, ndn=2,
                          n_words=1, tau=5e-3, w_abs_target=500.0,
                          has_singles=True, time_sym=True, z=z, cap_fresh=512)
-        segscan.reset_launches()
-        spmv.reset_launches()
+        _reset_counts()
         out = run_walk(s, trial, cfg, nstep=30, nblk=2, nblk_eq=1,
                        w_abs_begin=500.0, e_trial_initial=e0, verbose=False)
         torch.cuda.synchronize()
-        counts[z] = dict(seg_scan=segscan.launches, spmv=spmv.launches)
+        counts[z] = c = _read_counts()
         err = out.e_mixed - e0
         log(f"phase 6c ts oracle z={z:+d}: dim={n} e0={e0:.12f} "
-            f"e_mixed={out.e_mixed:.12f} err={err:.3e} "
-            f"seg_scan_launches={segscan.launches} "
-            f"spmv_launches={spmv.launches} seconds={time.time() - t0:.2f}")
-        if abs(err) > 1e-8 or segscan.launches <= 0 or spmv.launches <= 0:
+            f"e_mixed={out.e_mixed:.12f} err={err:.3e} launches={c} "
+            f"seconds={time.time() - t0:.2f}")
+        if abs(err) > 1e-8:
             raise AssertionError(f"the z={z} oracle missed e0 by {err:.3e}")
+        _need(f"phase 6c z={z}", c, *KERNELS)
     return counts
 
 
@@ -1228,18 +1467,16 @@ gutz                               wf_type
 HUB_W = 200_000.0                     # 7a walks' population
 HUB_TAU, HUB_CT_TAU = 5e-4, 5e-3      # linear projector; CT at ten times it
 HUB2_W, HUB2_TAU_MAX, HUB2_G, HUB2_EPS = 100_000.0, 1e-3, 0.6, 0.03
-COUNTS7 = dict(seg_scan=0, spmv=0)    # phase 7's launches, path by path
+COUNTS7 = dict.fromkeys(KERNELS, 0)   # phase 7's launches, path by path
 
 
 def _counted(fn, total=None):
-    """Run fn() with both kernel counts set to 0 just before and read just
+    """Run fn() with every kernel count set to 0 just before and read just
     after; adds them to `total` (COUNTS7 unless given) and returns (result,
     counts)."""
-    from sqmc_tpu_torch.ops import segscan, spmv
-    segscan.reset_launches()
-    spmv.reset_launches()
+    _reset_counts()
     out = fn()
-    c = dict(seg_scan=segscan.launches, spmv=spmv.launches)
+    c = _read_counts()
     total = COUNTS7 if total is None else total
     for k in c:
         total[k] += c[k]
@@ -1345,10 +1582,10 @@ def phase_hubbard_k(dev, workdir, smi):
             f"occupied_det_walker_steps_per_s={nwalk * out.steps_per_sec:.6g} "
             f"pop={pop:.1f} nwalk={nwalk:.1f} e_mixed={out.e_mixed:.9f} +- "
             f"{out.e_err:.9f} vs_e_var_plus_pt_mHa={1e3 * dev_:.4f} "
-            f"gate_mHa={1e3 * gate:.4f} seg_scan_launches={c['seg_scan']} "
-            f"spmv_launches={c['spmv']} seconds={time.time() - t0:.1f} [{smi}]")
-        if c["seg_scan"] <= 0:
-            raise AssertionError(f"7a {name}: the walk never launched K1")
+            f"gate_mHa={1e3 * gate:.4f} launches={c} "
+            f"seconds={time.time() - t0:.1f} [{smi}]")
+        _need(f"7a {name}", c, "seg_scan", "slot_parents",
+              *(("hb_select",) if name == "linear" else ()))
     HUB_RESULTS.update(e_var=e_var, e_tot=e_tot)
     return e_tot
 
@@ -1753,7 +1990,7 @@ def phase_hubbard(dev, smi, heg14=None, heg14_trial=None):
 # blocking error bar of one run is 1.2-1.3 times too small there, so the
 # chain gates are a multiple of the scatter, not of the run's own sigma.
 CHAIN_SCATTER_DET, CHAIN_SCATTER_DENSE = 3.124e-3, 1.042e-3
-COUNTS8 = dict(seg_scan=0, spmv=0)    # phase 8's launches, path by path
+COUNTS8 = dict.fromkeys(KERNELS, 0)   # phase 8's launches, path by path
 
 DENSE_WALK_CARDS = """\
 {seed} 7                               irand_seed
@@ -1831,7 +2068,7 @@ def _dense_cli(tag, deck, workdir):
     the set-up seconds."""
     import re
     text, sec, c = _run_cli(tag, deck, workdir)
-    if c["seg_scan"] or c["spmv"]:
+    if any(c.values()):
         raise AssertionError(f"{tag}: the dense engine launched a det-walk "
                              "kernel")
     me = re.search(r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text)
@@ -2307,7 +2544,7 @@ def phase_dense(dev, heg14=None, res=None, trial=None):
 # Phase 9: the legacy CI and the SHCI observables
 # ---------------------------------------------------------------------------
 
-COUNTS9 = dict(seg_scan=0, spmv=0)    # phase 9's launches, path by path
+COUNTS9 = dict.fromkeys(KERNELS, 0)   # phase 9's launches, path by path
 HUB_RESULTS = {}                      # 7a's E_var and E_var + PT, when run
 HUB_E0 = -19.58094                    # 7a's and 8d's oracle for the cluster
 C2_SCHED = [2e-3, 2e-3, 1e-3]         # the C2 decks' eps_var schedule
@@ -2718,7 +2955,7 @@ def phase_legacy(dev):
 # Phase 10: the mesh (parallel/dist.py) on one card
 # ---------------------------------------------------------------------------
 
-COUNTS10 = dict(seg_scan=0, spmv=0)   # phase 10's launches, path by path
+COUNTS10 = dict.fromkeys(KERNELS, 0)  # phase 10's launches, path by path
 MESH_RANKS = 2                        # 10b-10e: gloo ranks, both on cuda:0
 # phase 3's global cell split over the ranks: per-rank mwalk and cap_spawn
 # (each rank's spawn buckets then hold cap_spawn / ranks rows)
@@ -2850,7 +3087,7 @@ def _mesh_ranks(mesh, walkers, ref, fcidump):
     from sqmc_tpu_torch.systems.heg.system import make_heg_system
     say = log if mesh.rank == 0 else (lambda msg: None)
     dev = mesh.device
-    counts = dict(seg_scan=0, spmv=0)
+    counts = dict.fromkeys(KERNELS, 0)
     out = dict(transport=mesh.transport)
     system = make_heg_system(*HEG, device=dev)
     res = run_hci(system, eps_var=EPS_VAR, eps_var_sched=[EPS_VAR] * 10,
@@ -2995,8 +3232,7 @@ def phase_mesh(dev, system=None, res=None, trial=None, warm=None):
             f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
             f"bias_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
             f"launches={c}")
-        if c["seg_scan"] <= 0:
-            raise AssertionError("10a never launched the seg-scan kernel")
+        _need("10a", c, "seg_scan", "hb_select", "slot_parents")
         walkers = _walkers(out.state)
 
         # 10c: serial references, then one NCCL rank
@@ -3045,12 +3281,12 @@ def phase_mesh(dev, system=None, res=None, trial=None, warm=None):
 
 
 def phase_build():
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from sqmc_tpu_torch.ops import segscan, spmv
+    mods = _kernel_modules().values()
     t0 = time.time()
-    with ThreadPoolExecutor(2) as ex:
-        futs = [ex.submit(mod.build) for mod in (segscan, spmv)]
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = [ex.submit(mod.build) for mod in mods]
         libs = [f.result() for f in futs]
     log(f"phase 1 build: {' '.join(os.path.relpath(p, HERE) for p in libs)} "
         f"seconds={time.time() - t0:.2f}")
@@ -3090,15 +3326,18 @@ def main():
                          "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
+    hb, slot = phase_spawn_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
+    hb["kernel_us"] = kernel_us["hb_select walk_heg14"]
+    slot["kernel_us"] = kernel_us["slot_parents walk"]
     PROFILED.clear()
     if "--kernels" in sys.argv[1:]:
-        raise SystemExit("chip_smoke: --kernels ran phases 0-2c only; no "
+        raise SystemExit("chip_smoke: --kernels ran phases 0-2 only; no "
                          "result")
     launches, system, res, trial, walkers = phase_main_path(dev)
-    sp_launches = phase_shci(dev, system, res)
+    launches["spmv"] += phase_shci(dev, system, res)
     phase_f64_walk(dev, system, trial)
     phase_cli(dev)
     phase_hubbard(dev, smi, system, trial)
@@ -3106,8 +3345,8 @@ def main():
     phase_legacy(dev)
     phase_mesh(dev, system, res, trial, walkers)
     for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10):
-        launches += counts["seg_scan"]
-        sp_launches += counts["spmv"]
+        for k in KERNELS:
+            launches[k] += counts[k]
 
     def entry(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda", "source": source,
@@ -3121,9 +3360,14 @@ def main():
     log(nvidia_smi_line())
     log(json.dumps({"kernels": [
         entry("seg_scan", "sqmc_tpu_torch/csrc/segscan.cu",
-              "sqmc_tpu/ops/pscan.py:163", launches, seg),
+              "sqmc_tpu/ops/pscan.py:163", launches["seg_scan"], seg),
         entry("spmv", "sqmc_tpu_torch/csrc/spmv.cu",
-              "sqmc_tpu/ops/spmv_pallas.py:83", sp_launches, sp)]}))
+              "sqmc_tpu/ops/spmv_pallas.py:83", launches["spmv"], sp),
+        entry("hb_select", "sqmc_tpu_torch/csrc/hbselect.cu",
+              "sqmc_tpu/ops/prefix.py:53", launches["hb_select"], hb),
+        entry("slot_parents", "sqmc_tpu_torch/csrc/slotpar.cu",
+              "sqmc_tpu/algo/walk.py:1459", launches["slot_parents"],
+              slot)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

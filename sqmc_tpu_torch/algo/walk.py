@@ -68,7 +68,7 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import segscan, setalg, spmv
+from ..ops import hbselect, segscan, setalg, slotpar, spmv
 from ..ops.alias import setup_alias_np
 from ..systems.chem import slater
 from ..systems.chem.slater import SQRT2, SQRT2INV
@@ -865,19 +865,6 @@ def repair_caches(state: WalkState, tables: WalkTables, cfg) -> WalkState:
     return state._replace(diag=diag, ct=ct, overflow=state.overflow | ovf)
 
 
-def _sel_cell(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Realized cumulative cell rows[idx] - rows[idx-1] (0 before the
-    first column): the probability the count-based draw used."""
-    hi = rows.gather(1, idx[:, None])[:, 0]
-    lo = rows.gather(1, (idx - 1).clamp(min=0)[:, None])[:, 0]
-    return hi - torch.where(idx > 0, lo, torch.zeros_like(lo))
-
-
-def _count_le(rows: torch.Tensor, targ: torch.Tensor, top: int) -> torch.Tensor:
-    """Index drawn from a cumulative row: #entries <= target, capped."""
-    return (rows <= targ[:, None]).sum(dim=1).clamp(max=top)
-
-
 def _sign(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n % 2 == 0, 1.0, -1.0).to(F64)
 
@@ -1063,33 +1050,30 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
     nup, ndn = cfg.nup, cfg.ndn
     dev = up_w.device
     ub, up_, ue, ua2, ur = streams
-    bits_up_c = dets.to_bits(up_w, norb)
-    bits_dn_c = dets.to_bits(dn_w, norb)
-    n2 = 2 * norb
     ntri_s = norb * (norb - 1) // 2
-    bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)     # [CAP, 2n]
     zero64 = torch.zeros((), dtype=F64, device=dev)
-
-    if cfg.has_singles:
-        u2 = tables.u_rowsum.to(F32).repeat(2)
-        sing_rows = torch.cumsum(bits2 * u2[None, :], dim=1)
-        utot_b = sing_rows[:, -1].to(wdt)
-    else:
-        sing_rows = None
-        utot_b = torch.zeros(CAP, dtype=F64, device=dev)
+    heatbath = cfg.proposal == "fast_heatbath"
+    if cfg.has_singles or not heatbath:
+        bits_up_c = dets.to_bits(up_w, norb)
+        bits_dn_c = dets.to_bits(dn_w, norb)
 
     R2 = tables.R2
-    heatbath = cfg.proposal == "fast_heatbath"
     if heatbath:
-        # hierarchical pair selection: spin-orbital a ~ m_a = sum_occ
-        # R2[a, q], then b | a ~ R2[a, b] over occupied b; the realized
-        # unordered-pair probability is the two-path sum of realized
-        # cumulative cells
-        mu = bits2 @ R2
-        mu_rows = torch.cumsum(mu * bits2, dim=1)
-        m_tot = mu_rows[:, -1]
+        # hierarchical pair selection (and the singles draw) in one
+        # kernel: spin-orbital a ~ m_a = sum_occ R2[a, q], then b | a ~
+        # R2[a, b] over occupied b; the realized unordered-pair probability
+        # is the two-path sum of realized cumulative cells
+        sel = hbselect.hb_select(up_w, dn_w, norb, R2,
+                                 tables.u_rowsum if cfg.has_singles else None,
+                                 up_, ue)
+        o_s, utot, diff_sng = sel.o_s, sel.utot, sel.c_s
+        m_tot = sel.m_tot
         w2_b = (0.5 * m_tot).to(wdt)
     else:
+        if cfg.has_singles:
+            bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)
+            o_s, utot, diff_sng = hbselect.singles_rows(
+                bits2, tables.u_rowsum, up_)
         # uniform / cauchy_schwarz: weights per electron pair, listed as
         # up-up pairs, dn-dn pairs, then up-dn pairs
         occ_up_c = dets.occ_orbitals(bits_up_c, nup)
@@ -1114,21 +1098,15 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
                          * tables.cs_rowsum[q_pair]).to(wdt)
         pair_rows = torch.cumsum(pr_weight.to(F32), dim=1)
         w2_b = pair_rows[:, -1].to(wdt)
+    utot_b = utot.to(wdt) if cfg.has_singles else \
+        torch.zeros(CAP, dtype=F64, device=dev)
     psing_b = torch.where(utot_b + w2_b > 0, utot_b / (utot_b + w2_b), zero64)
     take_single = (ub < psing_b) if cfg.has_singles else \
         torch.zeros(CAP, dtype=torch.bool, device=dev)
 
     # ---- doubles ----
     if heatbath:
-        o1 = _count_le(mu_rows, (up_ * m_tot).to(F32), n2 - 1)
-        r1_rows = torch.cumsum(R2[o1] * bits2, dim=1)
-        s1q = r1_rows[:, -1]
-        o2 = _count_le(r1_rows, (ue * s1q).to(F32), n2 - 1)
-        r2_rows = torch.cumsum(R2[o2] * bits2, dim=1)
-        s2q = r2_rows[:, -1]
-        p_pair_q = (_sel_cell(mu_rows, o1) * _sel_cell(r1_rows, o2) / s1q.clamp(min=TINY)
-                    + _sel_cell(mu_rows, o2) * _sel_cell(r2_rows, o1) / s2q.clamp(min=TINY)
-                    ) / m_tot.clamp(min=TINY)
+        o1, o2, s1q, s2q, p_pair_q = sel.o1, sel.o2, sel.s1q, sel.s2q, sel.p_pair_q
         pair_fail = ((o1 == o2) | (m_tot <= 0) | (s1q <= 0) | (s2q <= 0)
                      | (p_pair_q <= 0))
         up1 = o1 < norb
@@ -1162,7 +1140,7 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
         s = torch.where(swp, r_tab, s_tab)
         val_tab = rv.to(F64)                     # carries the sign only
     else:
-        pair_i = _count_le(pair_rows, (up_ * w2_b).to(F32), cfg.npairs - 1)
+        pair_i = hbselect.count_le(pair_rows, (up_ * w2_b).to(F32), cfg.npairs - 1)
         pp = p_pair.gather(1, pair_i[:, None])[:, 0]
         qq = q_pair.gather(1, pair_i[:, None])[:, 0]
         kk = torch.where(pair_i < n_uu, 0,
@@ -1242,7 +1220,6 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
         return dbl_up, dbl_dn, w_dbl, dbl_ok
 
     # ---- singles (chem, real-space Hubbard) ----
-    o_s = _count_le(sing_rows, (up_ * utot_b).to(F32), n2 - 1)
     e_up = o_s < norb
     p_s = torch.where(e_up, o_s, o_s - norb)
     slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
@@ -1276,7 +1253,7 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
     # realized p(spin-orbital) = diff / Utot from the cumulative, the
     # alias draw is normalized by the exact row sum: multiply by S/diff
     S_sng = tables.u_rowsum[p_s].to(w_s.dtype)
-    diff_sng = _sel_cell(sing_rows, o_s).to(w_s.dtype)
+    diff_sng = diff_sng.to(w_s.dtype)
     w_sng = w_s * torch.where(diff_sng > 0, S_sng / diff_sng,
                               torch.ones((), dtype=w_s.dtype, device=dev))
     sng_up = torch.where(e_up[:, None],
@@ -1362,13 +1339,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                            sw / nchild.clamp(min=1).to(wdt))
     cum_child = torch.cumsum(nchild, 0)
     total_spawn = cum_child[-1]
-    off_child = cum_child - nchild
-    # slot -> parent: each walker's index at its first slot, forward-filled
-    # by a running max (walkers are ascending; among walkers sharing an
-    # offset only the last one has children)
-    seed_par = torch.full((CAP,), -1, dtype=I64, device=dev)
-    seed_par.scatter_reduce_(0, off_child.clamp(0, CAP - 1), ar_M, reduce="amax")
-    b = torch.cummax(seed_par, 0).values.clamp(0, M - 1)
+    b = slotpar.slot_parents(cum_child, CAP)          # slot -> parent walker
     slot_valid = torch.arange(CAP, dtype=I64, device=dev) < total_spawn
     overflow = total_spawn > CAP
 

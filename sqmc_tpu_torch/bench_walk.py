@@ -1,14 +1,28 @@
-"""Generations per second of the HEG-14 walk on the card, f32 and f64 state.
+"""Generations per second of the walk on the card, and where its device
+time goes.
 
     python sqmc_tpu_torch/bench_walk.py [--repo DIR] [--gens N] [--tag NAME]
+                                        [--deck c2] [--profile N]
 
-Runs the 14-electron electron gas (3D, r_s = 0.5, 19 plane waves; HCI at
-eps_var 1e-3, D = the 9,475 HCI dets, Psi_T its top 2,000) at the walk
-knobs of chip_smoke.py's phases 3 and 5 (population 2e5, mwalk 458,752,
-cap_spawn 262,144) for N generations after N / 2 of equilibration, in
-float32 state (dense projector) and in float64 state (block-ELL SpMV
-kernel), and prints one line per state with gen/s, the launches of both
-kernels and the card's nvidia-smi name and power limit.
+By default runs the 14-electron electron gas (3D, r_s = 0.5, 19 plane
+waves; HCI at eps_var 1e-3, D = the 9,475 HCI dets, Psi_T its top 2,000)
+at the walk knobs of chip_smoke.py's phases 3 and 5 (population 2e5,
+mwalk 458,752, cap_spawn 262,144) for N generations after N / 2 of
+equilibration, in float32 state (dense projector) and in float64 state
+(block-ELL SpMV kernel), and prints one line per state with gen/s, the
+launches of the package's kernels and the card's nvidia-smi name and
+power limit.
+
+--deck c2 runs chip_smoke.py's phase 6b walk deck instead (its synthetic
+C2-shaped FCIDUMP, 26 orbitals with singles, time-symmetrized, float64
+state, population 2e5, the deck's own depth) through the CLI's
+run_from_config; the FCIDUMP goes to build/bench_walk/.
+
+--profile N runs N more generations from each walk's final state twice:
+timed (CUDA-synchronized wall time) and under torch.profiler, and prints
+the kernel time a generation, the device rows (kernels, copies, sets) a
+generation, the busy share (kernel time / timed wall time) and the top
+rows by device time.
 
 --repo DIR imports the package from DIR instead of the directory above
 this file, so that two checkouts can be timed in one process-per-run
@@ -16,31 +30,79 @@ sequence on one card (old, new, new, old) with the same script.
 """
 
 import argparse
+import importlib.util
 import os
 import subprocess
 import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOP = 12                              # profile rows printed
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    ap.add_argument("--gens", type=int, default=400)
-    ap.add_argument("--tag", default="")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.repo))
+def _launch_counts():
+    """{kernel: launches} of the kernel modules the imported package has."""
+    out = {}
+    for name in ("segscan", "spmv", "hbselect", "slotpar"):
+        mod = f"sqmc_tpu_torch.ops.{name}"
+        if importlib.util.find_spec(mod) is not None:
+            out[name] = importlib.import_module(mod).launches
+    return out
 
+
+def _reset_counts():
+    for name in _launch_counts():
+        importlib.import_module(f"sqmc_tpu_torch.ops.{name}").reset_launches()
+
+
+def _profile(system, trial, cfg, state, guide, n, tag, smi):
+    """n generations from `state`, timed, then n more under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sqmc_tpu_torch.algo import walk as W
+    tables = W.build_walk_tables(system, trial, cfg, guide=guide)
+    gen = torch.Generator(device=state.wt.device).manual_seed(7)
+    state, _ = W.walk_block(state, tables, cfg, 2, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = W.walk_block(state, tables, cfg, n, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        W.walk_block(state, tables, cfg, n, gen)
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, k = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    total = sum(us for us, _ in rows.values())
+    count = sum(k for _, k in rows.values())
+    print(f"bench_walk {tag} profile: gens={n} kernel_ms_per_gen="
+          f"{total / n / 1e3:.4f} device_rows_per_gen={count / n:.1f} "
+          f"timed_ms_per_gen={wall / n * 1e3:.4f} busy_share="
+          f"{total / 1e6 / wall:.3f} [{smi}]", flush=True)
+    for name, (us, k) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"bench_walk {tag} profile row: us_per_gen={us / n:.1f} "
+              f"calls_per_gen={k / n:.2f} share={us / total:.3f} "
+              f"{name[:100]}", flush=True)
+
+
+def _report(tag, out, smi):
+    print(f"bench_walk {tag}: measured_gens={out.n_measured} "
+          f"gen_per_s={out.steps_per_sec:.3f} e_mixed={out.e_mixed:.9f} "
+          f"capacity_grows={out.capacity_grows} launches={_launch_counts()} "
+          f"[{smi}]", flush=True)
+
+
+def heg14(args, smi):
     import torch
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
-    from sqmc_tpu_torch.ops import segscan, spmv
     from sqmc_tpu_torch.systems.heg.system import make_heg_system
 
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_walk: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
     system = make_heg_system(3, 0.5, 14, 7, 1.49)
     trial = build_trial_wavefunction(system, eps_var=1e-3, n_psi_t=2000,
                                      n_imp=20000)
@@ -50,17 +112,76 @@ def main():
                          nup=7, ndn=7, n_words=1, tau=2e-3, w_abs_target=2e5,
                          spawn_granularity=2.0, min_wt=0.5, r_initiator=0.5,
                          f32_state=f32, has_singles=False)
-        segscan.reset_launches()
-        spmv.reset_launches()
+        _reset_counts()
         out = run_walk(system, trial, cfg, nstep=100, nblk=nblk,
                        nblk_eq=max(1, nblk // 2), w_abs_begin=2e5,
                        e_trial_initial=trial.e_trial, verbose=False,
                        max_eq_extensions=0, seed=1)
         torch.cuda.synchronize()
-        print(f"bench_walk {args.tag} {'f32' if f32 else 'f64'}: "
-              f"measured_gens={out.n_measured} gen_per_s={out.steps_per_sec:.3f} "
-              f"e_mixed={out.e_mixed:.9f} seg_scan_launches={segscan.launches} "
-              f"spmv_launches={spmv.launches} [{smi}]", flush=True)
+        tag = f"{args.tag} heg14 {'f32' if f32 else 'f64'}"
+        _report(tag, out, smi)
+        if args.profile:
+            _profile(system, trial, cfg, out.state, None, args.profile, tag,
+                     smi)
+
+
+def c2_deck(args, smi):
+    """chip_smoke.py's 6b walk deck through the CLI, its run_walk wrapped
+    to report and profile the walk it runs."""
+    import torch
+    from sqmc_tpu_torch import cli
+    from sqmc_tpu_torch.algo import walk as W
+    from sqmc_tpu_torch.config import parse_input
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    workdir = os.path.join(ROOT, "build", "bench_walk")
+    os.makedirs(workdir, exist_ok=True)
+    fcidump = os.path.join(workdir, "FCIDUMP_c2_synthetic")
+    smoke.write_c2_fcidump(fcidump)
+    real = W.run_walk
+
+    def run_walk(system, trial, cfg, *a, **kw):
+        out = real(system, trial, cfg, *a, **kw)
+        torch.cuda.synchronize()
+        tag = f"{args.tag} c2_deck"
+        _report(tag, out, smi)
+        if args.profile:
+            if out.capacity_grows:
+                raise SystemExit("bench_walk: the deck's walk grew its "
+                                 "capacity; no profile of its configuration")
+            _profile(system, trial, cfg, out.state, kw.get("guide"),
+                     args.profile, tag, smi)
+        return out
+
+    W.run_walk = run_walk
+    try:
+        _reset_counts()
+        cli.run_from_config(parse_input(smoke.C2_WALK_DECK), fcidump=fcidump,
+                            verbose=False, device="cuda")
+    finally:
+        W.run_walk = real
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=ROOT)
+    ap.add_argument("--gens", type=int, default=400)
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--deck", choices=("heg14", "c2"), default="heg14")
+    ap.add_argument("--profile", type=int, default=0, metavar="N")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_walk: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    (c2_deck if args.deck == "c2" else heg14)(args, smi)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,8 @@ with every run type of algo/densewalk.py.  The legacy CI run types
 correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
-launch counts (``Kernel launches: seg_scan=... spmv=...``).
+launch counts (``Kernel launches: seg_scan=... spmv=... hb_select=...
+slot_parents=...``).
 """
 
 from __future__ import annotations
@@ -466,7 +467,9 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
 
 def main(argv=None):
     import torch
-    from .ops import segscan, spmv
+    from .ops import hbselect, segscan, slotpar, spmv
+    kernels = dict(seg_scan=segscan, spmv=spmv, hb_select=hbselect,
+                   slot_parents=slotpar)
 
     p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
     p.add_argument("-i", "--input", required=True)
@@ -488,8 +491,8 @@ def main(argv=None):
     print("*" * 47)
     with open(args.input) as f:
         cfg = parse_input(f.read())
-    segscan.reset_launches()
-    spmv.reset_launches()
+    for mod in kernels.values():
+        mod.reset_launches()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
@@ -500,8 +503,8 @@ def main(argv=None):
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     else:
         run_from_config(cfg, fcidump=args.fcidump, device=device)
-    print(f"Kernel launches: seg_scan={segscan.launches} "
-          f"spmv={spmv.launches}", flush=True)
+    print("Kernel launches: " + " ".join(
+        f"{k}={mod.launches}" for k, mod in kernels.items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -987,3 +987,346 @@ def test_det_owner_on_card_matches_numpy():
             got = det_owner(torch.as_tensor(up, device=dev),
                             torch.as_tensor(dn, device=dev), n)
             assert np.array_equal(got.cpu().numpy(), det_owner_np(up, dn, n))
+
+
+# ---------------------------------------------------------------------------
+# The spawn kernels K3 (heat-bath selection) and K4 (slot -> parent)
+# ---------------------------------------------------------------------------
+
+def _random_dets(rng, cap, norb, nel):
+    """[cap, W] int64 words, nel random orbitals occupied per row; the
+    first 7 rows empty (slots past the spawn total)."""
+    W = (norb + 63) // 64
+    occ = np.argsort(rng.random((cap, norb)), axis=1)[:, :nel]
+    words = np.zeros((cap, W), np.uint64)
+    for w in range(W):
+        sh = np.clip(occ - 64 * w, 0, 63).astype(np.uint64)
+        hit = (occ >= 64 * w) & (occ < 64 * (w + 1))
+        words[:, w] = np.bitwise_or.reduce(
+            np.where(hit, np.left_shift(np.uint64(1), sh), np.uint64(0)),
+            axis=1)
+    words[:7] = 0
+    return words.view(np.int64)
+
+
+def _heg14_r2():
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    s = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
+    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
+    cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=7, ndn=7,
+                     n_words=1, tau=2e-3, w_abs_target=1e3, has_singles=False)
+    return build_walk_tables(s, trial, cfg).R2.numpy()
+
+
+# (norb, nup, ndn, cap, R2 kind, singles): the walk shape (HEG-14), 6b's
+# chem shape with singles (26 orbitals, 4 + 4), two words, three words with
+# R2 too large for shared memory, and integer R2 (every sum exact)
+HB_CASES = {
+    "walk_heg14": (19, 7, 7, 262_144, "heg14", False),
+    "chem26_singles": (26, 4, 4, 262_144, "float", True),
+    "norb70_two_words": (70, 6, 5, 65_536, "float", True),
+    "norb130_r2_in_l2": (130, 10, 10, 16_384, "float", True),
+    "integer_norb19": (19, 7, 7, 65_536, "int", True),
+    "integer_norb70": (70, 6, 5, 65_536, "int", True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HB_CASES))
+def test_hb_select_kernel_matches_plain(case):
+    """K3 against its plain version on the same inputs.  Integer R2: every
+    output the same bits.  Float R2: the kernel's running sums associate
+    differently from torch.cumsum, so a draw may differ where its target
+    lies within an ulp of a cell edge: the draws agree on >= 99.99% of
+    slots, and there the totals agree to 1e-5 relative, the singles cell to
+    1e-6 of its row's total and p_pair_q to 4e-6 + 3e-5 p (the bound that
+    follows from each of its four cells agreeing to 1e-6 of its row's
+    total)."""
+    from sqmc_tpu_torch.ops import hbselect
+    dev = _device()
+    norb, nup, ndn, cap, kind, singles = HB_CASES[case]
+    rng = np.random.default_rng(norb)
+    n2 = 2 * norb
+    if kind == "heg14":
+        R2 = _heg14_r2()
+    elif kind == "int":
+        R2 = rng.integers(0, 16, (n2, n2)).astype(np.float32)
+    else:
+        R2 = rng.exponential(1.0, (n2, n2)).astype(np.float32)
+    np.fill_diagonal(R2, 0.0)
+    u_rowsum = None
+    if singles:
+        u_rowsum = (rng.integers(1, 9, norb).astype(np.float64) if kind == "int"
+                    else rng.exponential(1.0, norb))
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+    args = (t(_random_dets(rng, cap, norb, nup)),
+            t(_random_dets(rng, cap, norb, ndn)), norb, t(R2), t(u_rowsum),
+            t(rng.random(cap)), t(rng.random(cap)))
+    before = hbselect.launches
+    got = hbselect.hb_select(*args)
+    torch.cuda.synchronize()
+    assert hbselect.launches == before + 1
+    ref = hbselect.hb_select_plain(*args)
+    again = hbselect.hb_select(*args)
+    for k, g in got._asdict().items():
+        r = getattr(ref, k)
+        assert (g is None) == (r is None) == (k in ("o_s", "utot", "c_s")
+                                              and not singles), k
+        if g is None:
+            continue
+        assert g.dtype == r.dtype and g.shape == r.shape == (cap,), k
+        assert torch.equal(g, getattr(again, k)), k      # same bits twice
+        if kind == "int":
+            assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32
+                               else g, r.view(torch.int32)
+                               if r.dtype == torch.float32 else r), k
+    if kind == "int":
+        return
+    same = (got.o1 == ref.o1) & (got.o2 == ref.o2)
+    if singles:
+        same &= got.o_s == ref.o_s
+    assert float(same.double().mean()) >= 0.9999
+    for k in ("m_tot", "s1q", "s2q") + (("utot",) if singles else ()):
+        g, r = getattr(got, k)[same].double(), getattr(ref, k)[same].double()
+        assert bool(((g - r).abs() <= 1e-5 * r.abs()).all()), k
+    p, q = got.p_pair_q[same].double(), ref.p_pair_q[same].double()
+    assert bool(((p - q).abs() <= 4e-6 + 3e-5 * q.abs()).all())
+    if singles:
+        assert bool(((got.c_s[same].double() - ref.c_s[same].double()).abs()
+                     <= 1e-6 * ref.utot[same].double()).all())
+
+
+def _np_bits(words, norb):
+    u = words.view(np.uint64)
+    k = np.arange(norb)
+    return ((u[:, k // 64] >> (k % 64).astype(np.uint64)) & np.uint64(1)
+            ).astype(np.float32)
+
+
+def _emulate_rows(v):
+    """Running sums of [cap, n2] float32 values as csrc/hbselect.cu adds
+    them: chunks of 64, 8 lanes of 8; each lane sums its values in order,
+    its base is the chunk's carry plus the lanes before it in lane order.
+    Returns (rows [cap, n2], totals [cap])."""
+    cap, n2 = v.shape
+    npad = -(-n2 // 64) * 64
+    vp = np.zeros((cap, npad), np.float32)
+    vp[:, :n2] = v
+    vp = vp.reshape(cap, npad // 64, 8, 8)
+    pre = np.empty_like(vp)
+    s = np.zeros(vp.shape[:3], np.float32)
+    for i in range(8):
+        s = s + vp[..., i]
+        pre[..., i] = s
+    rows = np.empty_like(vp)
+    carry = np.zeros(cap, np.float32)
+    for c in range(vp.shape[1]):
+        base = carry
+        for lane in range(8):
+            rows[:, c, lane, :] = base[:, None] + pre[:, c, lane, :]
+            base = base + s[:, c, lane]
+        carry = base
+    return rows.reshape(cap, npad)[:, :n2], carry
+
+
+def _emulate_hb_select(up, dn, norb, R2, u_rowsum, u_pick, u_entry):
+    """numpy float32 emulation of the kernel's arithmetic (mu summed over
+    the occupied q in ascending order, _emulate_rows for every row, the
+    plain version's draws, cells and quotients).  Returns the outputs and
+    each row set."""
+    f32, tiny = np.float32, np.float32(1e-30)
+    bits = np.concatenate([_np_bits(up, norb), _np_bits(dn, norb)], axis=1)
+    cap, n2 = bits.shape
+    ar = np.arange(cap)
+
+    def draw(rows, u, tot):
+        t = (u * tot.astype(np.float64)).astype(f32)
+        return np.minimum((rows <= t[:, None]).sum(axis=1), n2 - 1)
+
+    def cell(rows, i):
+        return np.where(i > 0, rows[ar, i] - rows[ar, np.maximum(i - 1, 0)],
+                        rows[ar, i])
+
+    out, rows = {}, {}
+    if u_rowsum is not None:
+        u2 = np.tile(u_rowsum.astype(f32), 2)
+        rows["s"], out["utot"] = _emulate_rows(bits * u2[None, :])
+        out["o_s"] = draw(rows["s"], u_pick, out["utot"])
+        out["c_s"] = cell(rows["s"], out["o_s"])
+    mu = np.zeros((cap, n2), f32)
+    for q in range(n2):
+        mu = mu + bits[:, q:q + 1] * R2[q][None, :]
+    rows["m"], m_tot = _emulate_rows(bits * mu)
+    o1 = draw(rows["m"], u_pick, m_tot)
+    rows["1"], s1q = _emulate_rows(R2[o1] * bits)
+    o2 = draw(rows["1"], u_entry, s1q)
+    rows["2"], s2q = _emulate_rows(R2[o2] * bits)
+    p = ((cell(rows["m"], o1) * cell(rows["1"], o2)) / np.maximum(s1q, tiny)
+         + (cell(rows["m"], o2) * cell(rows["2"], o1)) / np.maximum(s2q, tiny)
+         ) / np.maximum(m_tot, tiny)
+    out.update(o1=o1, o2=o2, m_tot=m_tot, s1q=s1q, s2q=s2q, p_pair_q=p)
+    return out, rows, bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norb,nup,ndn,singles", [(19, 7, 7, False),
+                                                  (26, 4, 4, True),
+                                                  (70, 6, 5, True)])
+def test_hb_select_kernel_is_its_documented_arithmetic(norb, nup, ndn,
+                                                       singles):
+    """K3 bit for bit against a numpy emulation of the order in which it
+    adds (float R2 spanning six decades), with half of the targets placed
+    exactly on a running sum of the emulated rows.  The emulated sums
+    repeat exactly across empty spin-orbitals and never decrease, so every
+    draw with positive weight lands on an occupied spin-orbital: a kernel
+    whose sums took another association (a tree scan) would differ here and
+    could draw an empty spin-orbital through an ulp-wide cell."""
+    from sqmc_tpu_torch.ops import hbselect
+    dev = _device()
+    cap, n2 = 65_536 if norb < 64 else 16_384, 2 * norb
+    rng = np.random.default_rng(n2)
+    R2 = (10.0 ** rng.uniform(-6, 0, (n2, n2))).astype(np.float32)
+    np.fill_diagonal(R2, 0.0)
+    u_rowsum = 10.0 ** rng.uniform(-3, 0, norb) if singles else None
+    up, dn = _random_dets(rng, cap, norb, nup), _random_dets(rng, cap, norb, ndn)
+    u_pick, u_entry = rng.random(cap), rng.random(cap)
+    half = rng.random(cap) < 0.5
+    ar = np.arange(cap)
+
+    def plateau(rows, bits, tot):
+        """u putting the target on the sum at a random occupied
+        spin-orbital below the row's total (0.5 where there is none)."""
+        cand = (bits > 0) & (rows < tot[:, None])
+        pick = np.where(cand, rng.random(bits.shape), -1.0).argmax(axis=1)
+        return np.where(cand[ar, pick], rows[ar, pick].astype(np.float64)
+                        / np.maximum(tot, 1e-30), 0.5)
+
+    def below(u, tot):
+        return (u * tot.astype(np.float64)).astype(np.float32) < tot
+
+    out, rows, bits = _emulate_hb_select(up, dn, norb, R2, None, u_pick,
+                                         u_entry)
+    u_pick = np.where(half, plateau(rows["m"], bits, out["m_tot"]), u_pick)
+    out, rows, _ = _emulate_hb_select(up, dn, norb, R2, None, u_pick, u_entry)
+    u_entry = np.where(half, plateau(rows["1"], bits, out["s1q"]), u_entry)
+    out, rows, _ = _emulate_hb_select(up, dn, norb, R2, u_rowsum, u_pick,
+                                      u_entry)
+    for r in rows.values():               # flat over empty spin-orbitals
+        d = np.diff(r, axis=1)
+        assert (d >= 0).all() and (d[bits[:, 1:] == 0] == 0).all()
+    # a target below its row's total draws an occupied spin-orbital
+    on1 = below(u_pick, out["m_tot"])
+    checks = [("o1", on1), ("o2", on1 & below(u_entry, out["s1q"]))]
+    if singles:
+        checks.append(("o_s", below(u_pick, out["utot"])))
+    for k, on in checks:
+        assert on.mean() > 0.99 and (bits[ar, out[k]][on] == 1).all(), k
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+    got = hbselect.hb_select(t(up), t(dn), norb, t(R2), t(u_rowsum),
+                             t(u_pick), t(u_entry))
+    for k, ref in out.items():
+        g = getattr(got, k).cpu().numpy()
+        if g.dtype == np.float32:
+            assert np.array_equal(g.view(np.int32), ref.view(np.int32)), k
+        else:
+            assert np.array_equal(g, ref), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["below", "at", "above", "none", "one_walker"])
+def test_slot_parents_kernel_matches_plain(case):
+    """K4 bit for bit against its plain version at the walk's shape (M =
+    458,752 walkers, CAP = 262,144 slots) with runs of walkers without
+    children, one walker owning thousands of slots, and spawn totals below,
+    at and above CAP (overflow: the clip puts walker M - 1 on the last
+    slot)."""
+    from sqmc_tpu_torch.ops import slotpar
+    dev = _device()
+    M, cap = 458_752, 262_144
+    rng = np.random.default_rng(3)
+    if case == "one_walker":
+        nchild, cap = np.array([5]), 8
+    else:
+        nchild = rng.poisson(3.0, M) * (rng.random(M) < 0.5)
+        nchild[1000:9000] = 0
+        nchild[500] = 5000
+        nchild[-20_000:] = 0
+        goal = {"below": cap // 3, "at": cap, "above": 2 * cap,
+                "none": 0}[case]
+        cum = np.cumsum(nchild)
+        i = int(np.searchsorted(cum, goal))
+        nchild[i] -= cum[i] - goal
+        nchild[i + 1:] = 0
+    cum = torch.cumsum(torch.as_tensor(nchild, dtype=torch.int64,
+                                       device=dev), 0)
+    before = slotpar.launches
+    got = slotpar.slot_parents(cum, cap)
+    torch.cuda.synchronize()
+    assert slotpar.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (cap,)
+    assert torch.equal(got, slotpar.slot_parents_plain(cum, cap))
+
+
+@pytest.mark.cuda
+def test_spawn_wrappers_raise_on_bad_input():
+    from sqmc_tpu_torch.ops import hbselect, slotpar
+    dev = _device()
+    with pytest.raises(ValueError):
+        slotpar.slot_parents(torch.zeros(4, dtype=torch.int32, device=dev), 8)
+    w = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    u = torch.zeros(4, dtype=torch.float64, device=dev)
+    R2 = torch.zeros((6, 6), device=dev)
+    with pytest.raises(ValueError):               # R2 of another norb
+        hbselect.hb_select(w, w, 4, R2, None, u, u)
+    with pytest.raises(ValueError):               # float32 uniforms
+        hbselect.hb_select(w, w, 3, R2, None, u.float(), u)
+    with pytest.raises(ValueError):               # inputs on the CPU
+        hbselect.hb_select(w, w.cpu(), 3, R2, None, u, u)
+
+
+@pytest.mark.cuda
+def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
+    """Phase 3's HEG-14 walk on the card, warmed for 200 generations, then
+    50 generations through K3 and K4 and 50 from the same state and seed
+    with their plain versions patched in: the two mixed energies agree
+    within 3 combined error bars (the draws differ where a target lies
+    within an ulp of a cell edge, so the trajectories part after a few
+    generations), and the population stays within 25% of its target in
+    every generation of both."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.ops import hbselect, slotpar
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    from sqmc_tpu_torch.utils.blocking import ratio_stats
+    dev = _device()
+    s = make_heg_system(3, 0.5, 14, 7, 1.49, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=2000,
+                                     n_imp=20000)
+    cfg = TW.WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=s.norb, nup=7,
+                        ndn=7, n_words=1, tau=2e-3, w_abs_target=2e5,
+                        spawn_granularity=2.0, min_wt=0.5, r_initiator=0.5,
+                        f32_state=True, has_singles=False)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, 2e5, trial.e_trial, tables)
+    st, _ = TW.walk_block(st, tables, cfg, 200,
+                          torch.Generator(device=dev).manual_seed(1))
+
+    def fifty():
+        _, stats = TW.walk_block(st, tables, cfg, 50,
+                                 torch.Generator(device=dev).manual_seed(2))
+        w = stats["w_abs_gen"].cpu().numpy()
+        assert np.abs(w / 2e5 - 1).max() < 0.25      # no spawn bursts
+        return ratio_stats(stats["e_num_gen"].double().cpu().numpy(),
+                           stats["e_den_gen"].double().cpu().numpy())
+
+    hb0, sp0 = hbselect.launches, slotpar.launches
+    kern = fifty()
+    assert hbselect.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    monkeypatch.setattr(hbselect, "hb_select", hbselect.hb_select_plain)
+    monkeypatch.setattr(slotpar, "slot_parents", slotpar.slot_parents_plain)
+    plain = fifty()
+    assert hbselect.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    assert abs(kern.e_mean - plain.e_mean) <= 3 * np.hypot(kern.e_err,
+                                                            plain.e_err)

@@ -32,7 +32,9 @@ def test_port_imports_without_jax():
                 "sqmc_tpu_torch.systems.chem.mp2",
                 "sqmc_tpu_torch.parallel.dist",
                 "sqmc_tpu_torch.parallel.dryrun",
-                "sqmc_tpu_torch.systems.chem.synthetic"):
+                "sqmc_tpu_torch.systems.chem.synthetic",
+                "sqmc_tpu_torch.ops.hbselect",
+                "sqmc_tpu_torch.ops.slotpar"):
         assert new in mods, new
     code = (
         "import sys\n"
@@ -50,4 +52,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(mods) >= 52
+    assert int(out.stdout.strip()) == len(mods) >= 54
