@@ -33,12 +33,16 @@ Phases, each reported on its own line; any failure exits nonzero:
      cummin per field for the one-segment scan), timed only here;
   2d. the walk's spawn kernels vs their plain versions: the heat-bath
      selection (K3) at the walk's shape (262,144 slots of HEG-14 dets,
-     2n = 38, HEG-14's R2), at 6b's chem shape with singles (26 orbitals,
-     4 + 4) and with integer R2 (same bits), the slot -> parent expand
+     2n = 38, HEG-14's R2; once more with the last 30% of the slots the
+     walk's empty-slot sentinel, as the walk hands them), at 6b's chem
+     shape with singles (26 orbitals, 4 + 4) and with integer R2 (same
+     bits), the slot -> parent expand
      (K4) at the walk's shape (458,752 walkers, 262,144 slots) below and
      above the capacity; printed as 2 and 2b print, the library calls
      being torch.cumsum of one [262,144, 2n] row set and its
-     triangular-matmul form (K3) and torch.searchsorted (K4);
+     triangular-matmul form (K3) and torch.searchsorted (K4), with what
+     ptxas reported of each kernel (registers, shared memory, spills)
+     and each launch's blocks, threads and resident blocks per SM;
   2c. the kernels' own time per call (kernel_us) at the walk and C2
      shapes, from one torch.profiler session (after 2d, whose cases it
      profiles too);
@@ -685,9 +689,12 @@ def _library_spmv(x, cols, vals, row_ptr, row_nnz, ref):
 
 SPAWN_M, SPAWN_CAP = 458_752, 262_144  # the walk's mwalk and cap_spawn
 # (norb, nup, ndn, R2 kind, singles): the walk's selection (HEG-14's walk
-# tables), 6b's chem shape with singles (26 orbitals, 4 + 4 electrons) and
+# tables), the same with the last 30% of the slots the walk's empty-slot
+# sentinel (every bit set), as the walk hands them past a spawn total of
+# 0.7 CAP, 6b's chem shape with singles (26 orbitals, 4 + 4 electrons) and
 # integer R2 at the walk's width (every running sum exact: same bits)
 HB_CASES = {"walk_heg14": (19, 7, 7, "heg14", False),
+            "walk_heg14_sentinel30": (19, 7, 7, "heg14_sentinel", False),
             "chem26_singles": (26, 4, 4, "float", True),
             "integer_norb19_singles": (19, 7, 7, "int", True)}
 
@@ -793,7 +800,10 @@ def phase_spawn_vs_plain(dev):
     torch.cumsum of one [CAP, 2n] float32 row set (three of them ran per
     generation before K3) and the JAX package's form of it, x @ triu(ones)
     in full float32 (TF32 off); for K4, torch.searchsorted(cum, slots,
-    right=True).  Returns the summaries of the walk-shape cases."""
+    right=True).  Before them it prints what ptxas reported of each
+    kernel (registers, shared memory, spills) and each launch's shape
+    (blocks, threads, shared bytes, resident blocks per SM).  Returns the
+    summaries of the walk-shape cases."""
     import numpy as np
     import torch
     from sqmc_tpu_torch import dets
@@ -801,11 +811,15 @@ def phase_spawn_vs_plain(dev):
 
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
+    from sqmc_tpu_torch.ops import cudabuild
+    for mod in (hbselect, slotpar):       # registers, shared memory, spills
+        for line in cudabuild.ptxas_summary(mod._SOURCE):
+            log(f"phase 2d ptxas {mod._SOURCE}: {line}")
     rng = np.random.default_rng(9)
     out = {}
     for name, (norb, nup, ndn, kind, singles) in HB_CASES.items():
         n2, cap = 2 * norb, SPAWN_CAP
-        if kind == "heg14":
+        if kind.startswith("heg14"):
             R2 = _heg14_r2(dev)
         else:
             R2 = (rng.integers(0, 16, (n2, n2)) if kind == "int"
@@ -819,6 +833,9 @@ def phase_spawn_vs_plain(dev):
                 else rng.exponential(1.0, norb), device=dev)
         up = torch.as_tensor(_random_dets(rng, cap, norb, nup), device=dev)
         dn = torch.as_tensor(_random_dets(rng, cap, norb, ndn), device=dev)
+        if kind == "heg14_sentinel":
+            up[int(0.7 * cap):] = -1
+            dn[int(0.7 * cap):] = -1
         u1 = torch.as_tensor(rng.random(cap), device=dev)
         u2 = torch.as_tensor(rng.random(cap), device=dev)
         args = (up, dn, norb, R2, u_rowsum, u1, u2)
@@ -836,12 +853,17 @@ def phase_spawn_vs_plain(dev):
         nbytes = (cap * (2 * W * 8 + 16) + R2.numel() * 4
                   + (norb * 8 if singles else 0)
                   + cap * (32 + (16 if singles else 0)))
-        # float ops this input needs: mu over the occupied rows (ne adds a
-        # spin-orbital), a product and a sum per entry of each running
-        # sum, a compare per entry of each draw
-        ne = float(dets.to_bits(up, norb).sum() + dets.to_bits(dn, norb).sum())
+        # float ops this input needs: mu at the occupied spin-orbitals (ne
+        # adds each), an add per occupied entry of each running sum, an
+        # add and a compare per occupied entry of each draw, the adds of
+        # the two cells found apart (3 ne at most)
+        ne = (dets.to_bits(up, norb).sum(1)
+              + dets.to_bits(dn, norb).sum(1)).double()
         nrow, ndraw = (4, 3) if singles else (3, 2)
-        ops = ne * n2 + cap * n2 * (2 * nrow + ndraw)
+        ops = float((ne * ne + ne * (nrow + 2 * ndraw + 3)).sum())
+        shape = hbselect.launch_shape(cap, up.shape[1], norb, dev)
+        log(f"phase 2d hb_select {name} launch: " + " ".join(
+            f"{k}={v}" for k, v in shape.items()))
         x = torch.rand((cap, n2), device=dev)
         tri = torch.triu(torch.ones((n2, n2), device=dev))
         fn = (lambda a=args: hbselect.hb_select(*a))
@@ -853,6 +875,9 @@ def phase_spawn_vs_plain(dev):
         PROFILED.append((f"hb_select {name}", fn))
         del x, tri, got, ref, again
 
+    log("phase 2d slot_parents launch: " + " ".join(
+        f"{k}={v}" for k, v in
+        slotpar.launch_shape(SPAWN_M, SPAWN_CAP, dev).items()))
     for name, goal in (("walk", int(0.7 * SPAWN_CAP)),
                        ("overflow", 2 * SPAWN_CAP)):
         nchild = rng.poisson(3.0, SPAWN_M) * (rng.random(SPAWN_M) < 0.5)

@@ -3,6 +3,7 @@ time goes.
 
     python sqmc_tpu_torch/bench_walk.py [--repo DIR] [--gens N] [--tag NAME]
                                         [--deck c2] [--profile N]
+                                        [--state both|f32|f64] [--kernels]
 
 By default runs the 14-electron electron gas (3D, r_s = 0.5, 19 plane
 waves; HCI at eps_var 1e-3, D = the 9,475 HCI dets, Psi_T its top 2,000)
@@ -21,8 +22,17 @@ run_from_config; the FCIDUMP goes to build/bench_walk/.
 --profile N runs N more generations from each walk's final state twice:
 timed (CUDA-synchronized wall time) and under torch.profiler, and prints
 the kernel time a generation, the device rows (kernels, copies, sets) a
-generation, the busy share (kernel time / timed wall time) and the top
-rows by device time.
+generation, the busy share (kernel time / timed wall time), the top
+rows by device time and the rows of the package's own kernels.
+
+--state f32 or f64 runs only that state of the electron gas.
+
+--kernels runs no walk: it times the spawn kernels alone (device us a
+call, chip_smoke.py's CUDA-graph timing) -- the heat-bath selection (K3)
+at phase 2d's walk and chem shapes and at shapes no walk of the package
+runs (18 and 34 electrons at 2n = 52, 20 at 2n = 260 with R2 read through
+L1/L2), the slot -> parent expand (K4) at phase 2d's two shapes -- each
+first held against its plain version with phase 2d's criteria.
 
 --repo DIR imports the package from DIR instead of the directory above
 this file, so that two checkouts can be timed in one process-per-run
@@ -38,6 +48,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOP = 12                              # profile rows printed
+OWN = ("k_seg_scan", "k_spmv", "k_hb_select", "k_slot_parents")
 
 
 def _launch_counts():
@@ -88,6 +99,12 @@ def _profile(system, trial, cfg, state, guide, n, tag, smi):
         print(f"bench_walk {tag} profile row: us_per_gen={us / n:.1f} "
               f"calls_per_gen={k / n:.2f} share={us / total:.3f} "
               f"{name[:100]}", flush=True)
+    for kernel in OWN:                 # the package's kernels, ranked or not
+        found = [(us, k) for name, (us, k) in rows.items() if kernel in name]
+        us, k = sum(f[0] for f in found), sum(f[1] for f in found)
+        print(f"bench_walk {tag} profile kernel: {kernel} us_per_gen="
+              f"{us / n:.1f} calls_per_gen={k / n:.2f} share="
+              f"{us / total:.3f}", flush=True)
 
 
 def _report(tag, out, smi):
@@ -107,7 +124,8 @@ def heg14(args, smi):
     trial = build_trial_wavefunction(system, eps_var=1e-3, n_psi_t=2000,
                                      n_imp=20000)
     nblk = max(1, args.gens // 100)
-    for f32 in (True, False):
+    states = {"both": (True, False), "f32": (True,), "f64": (False,)}
+    for f32 in states[args.state]:
         cfg = WalkConfig(mwalk=458_752, cap_spawn=262_144, norb=system.norb,
                          nup=7, ndn=7, n_words=1, tau=2e-3, w_abs_target=2e5,
                          spawn_granularity=2.0, min_wt=0.5, r_initiator=0.5,
@@ -125,6 +143,75 @@ def heg14(args, smi):
                      smi)
 
 
+def _chip_smoke():
+    """chip_smoke.py of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# (norb, nup, ndn, R2 kind, singles, share of sentinel slots) at 262,144
+# slots: phase 2d's walk and chem cases, then dets past the kernel's
+# register path
+K3_SHAPES = {"walk_heg14": (19, 7, 7, "heg14", False, 0.0),
+             "walk_heg14_sentinel30": (19, 7, 7, "heg14", False, 0.3),
+             "chem26_singles": (26, 4, 4, "float", True, 0.0),
+             "chem26_18e": (26, 9, 9, "float", True, 0.0),
+             "chem26_34e": (26, 17, 17, "float", True, 0.0),
+             "norb130_20e": (130, 10, 10, "float", True, 0.0)}
+
+
+def kernels(args, smi):
+    """K3 and K4 alone: each case held against its plain version, then
+    its device time a call."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.ops import hbselect, slotpar
+    smoke = _chip_smoke()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    cap, m = smoke.SPAWN_CAP, smoke.SPAWN_M
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+    for name, (norb, nup, ndn, kind, singles, empty) in K3_SHAPES.items():
+        n2 = 2 * norb
+        if kind == "heg14":
+            R2 = smoke._heg14_r2(dev)
+        else:
+            R2 = rng.exponential(1.0, (n2, n2)).astype(np.float32)
+            np.fill_diagonal(R2, 0.0)
+            R2 = t(R2)
+        u_rowsum = t(rng.exponential(1.0, norb)) if singles else None
+        up = t(smoke._random_dets(rng, cap, norb, nup))
+        dn = t(smoke._random_dets(rng, cap, norb, ndn))
+        up[int((1 - empty) * cap):] = -1
+        dn[int((1 - empty) * cap):] = -1
+        hb = (up, dn, norb, R2, u_rowsum, t(rng.random(cap)),
+              t(rng.random(cap)))
+        smoke._hb_compare(name, hbselect.hb_select(*hb),
+                          hbselect.hb_select_plain(*hb), exact=False)
+        us = smoke._device_us(lambda: hbselect.hb_select(*hb))
+        print(f"bench_walk {args.tag} kernel: hb_select {name} cap={cap} "
+              f"2n={n2} ne={nup + ndn} device_us={us:.1f} [{smi}]",
+              flush=True)
+    for name, goal in (("walk", int(0.7 * cap)), ("overflow", 2 * cap)):
+        nchild = rng.poisson(3.0, m) * (rng.random(m) < 0.5)
+        nchild[500] = 5000
+        cum = np.cumsum(nchild)
+        i = int(np.searchsorted(cum, goal))
+        nchild[i] -= cum[i] - goal
+        nchild[i + 1:] = 0
+        cum = torch.cumsum(t(nchild), 0)
+        if not torch.equal(slotpar.slot_parents(cum, cap),
+                           slotpar.slot_parents_plain(cum, cap)):
+            raise AssertionError(f"slot_parents {name}: differs")
+        us = smoke._device_us(lambda: slotpar.slot_parents(cum, cap))
+        print(f"bench_walk {args.tag} kernel: slot_parents {name} M={m} "
+              f"cap={cap} total={goal} device_us={us:.1f} [{smi}]",
+              flush=True)
+
+
 def c2_deck(args, smi):
     """chip_smoke.py's 6b walk deck through the CLI, its run_walk wrapped
     to report and profile the walk it runs."""
@@ -133,10 +220,7 @@ def c2_deck(args, smi):
     from sqmc_tpu_torch.algo import walk as W
     from sqmc_tpu_torch.config import parse_input
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     workdir = os.path.join(ROOT, "build", "bench_walk")
     os.makedirs(workdir, exist_ok=True)
     fcidump = os.path.join(workdir, "FCIDUMP_c2_synthetic")
@@ -172,6 +256,9 @@ def main():
     ap.add_argument("--tag", default="")
     ap.add_argument("--deck", choices=("heg14", "c2"), default="heg14")
     ap.add_argument("--profile", type=int, default=0, metavar="N")
+    ap.add_argument("--state", choices=("both", "f32", "f64"),
+                    default="both")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
 
@@ -181,7 +268,10 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    (c2_deck if args.deck == "c2" else heg14)(args, smi)
+    if args.kernels:
+        kernels(args, smi)
+    else:
+        (c2_deck if args.deck == "c2" else heg14)(args, smi)
 
 
 if __name__ == "__main__":

@@ -25,63 +25,76 @@
 // with draw(rows, t) = min(#{a : rows[a] <= t}, 2n - 1), each target the
 // float64 product rounded to float32, and cell(rows, i) = rows[i] -
 // rows[i-1] (rows[0] at i = 0).  A draw and the cells that give its
-// probability read the same stored running sums: that is the exact S/diff
+// probability read the same running sums: that is the exact S/diff
 // correction (the spawn weight divides by the probability the draw really
-// used).  The summation order of the running sums is not torch.cumsum's,
-// so only integer-valued inputs (every sum exact) give the plain version's
-// bits; the products and the p_pair quotients are single IEEE roundings
+// used).  The products and the p_pair quotients are single IEEE roundings
 // in the plain version's order (no contraction into FMAs).
+//
+// The association: every running sum is the sum before it plus the next
+// occupied spin-orbital's value, in float32, in ascending spin-orbital
+// order -- np.cumsum(bit * x, dtype=float32), which is sequential -- and
+// mu[a] is a sequential float32 sum over the occupied q in ascending
+// order.  An empty spin-orbital adds 0 * x = +0 for the finite x >= 0
+// that R2 and the singles weights hold, so leaving it out gives the same
+// bits, and the sums are flat across it by construction: its cell is
+// exactly 0 and no draw lands there.  (A tree scan does not repeat the sum
+// across an empty spin-orbital; an ulp-wide cell there is drawn about once
+// in 1e7 draws with a spawn weight ~1e7 times the normal one.)  Integer
+// inputs make every sum exact, so they give the plain version's bits.
 //
 // What bounds it: bytes.  Per slot the kernel reads the parent's det
 // words (16 B at one word a spin) and two float64 uniforms (16 B) and
 // writes two int64 and four float32 (32 B; singles add 16 B): at the walk's
 // CAP = 262,144 slots 16.8 MB, 5.0 us at the H100's 3.35 TB/s.  Its float32
-// work (~2e8 adds at HEG-14's 14 electrons and 2n = 38) is of the same
-// order at the card's 67 TFLOP/s.  The rows the torch version wrote
-// ([CAP, 2n] float32 each: bits, mu, four cumsums, the compare masks) never
-// reach device memory.
+// work at HEG-14's 14 electrons (2n = 38) is ne^2 = 196 adds for mu and
+// ~6 ne for the sums a slot, ~7e7 in all: 1.1 us at the card's 67 TFLOP/s.
 //
-// Design: a group of 8 lanes per slot, four slots per warp; a block's warps
-// share R2 (and the singles weights) in shared memory when R2 fits there
-// (2n up to ~220), else R2 is read through L1/L2.  Spin-orbitals go in
-// chunks of 64, lane l of a group holding the 8 consecutive spin-orbitals
-// 64c + 8l .. 64c + 8l + 7.  The running sums must be sequential sums --
-// each the one before plus the next value -- and not a tree scan: an empty
-// spin-orbital must repeat the sum before it exactly, or its cell is an ulp
-// wide instead of 0, the draw lands there about once in 1e7 draws, and the
-// spawn weight, divided by that cell, is ~1e7 times the normal one
-// (population bursts and capacity overflows in the HEG-14 walk).  So a lane
-// sums its 8 values in order and its base is the carry plus the lanes
-// before it added in lane order (7 adds after 7 independent shuffles); the
-// chunk's last sum carries into the next chunk.  mu at a lane's 8
-// spin-orbitals is four 8-byte loads of the row R2[q] for each occupied q
-// (the slot's occupied list, as row offsets q * 2n, from a scan of the
-// lanes' bit counts).  The count of cells <= target is each lane's count
-// summed over the group; the realized cells come from the slot's scratch
-// copy of the same running sums.  All float32 on the CUDA cores: no tensor
-// cores, no TF32.  Each output has one writer.
+// Design: one thread per slot, no shared-memory scratch, no warp
+// collectives.  The first version gave a slot 8 lanes and kept its rows
+// in shared memory: each slot ran a chain of 2n single-bit loads, a
+// shuffle scan for its occupied list, four passes of __syncwarp, shuffles
+// and scratch stores over all 2n spin-orbitals and three draws that read
+// the scratch again (115 us, 23x the bound; latency, not shared-memory
+// bandwidth, held it).  Here a thread reads its det's words once, as
+// 64-bit loads, and walks the occupied spin-orbitals with __ffsll and
+// w &= w - 1, so every loop runs ne times, the same ne for every live slot
+// of a warp.  mu is needed only at the ne occupied a (bit(a) mu[a] is 0
+// elsewhere): ne^2 reads of R2, which a block keeps in shared memory with
+// an odd row stride (2n + 1) when it fits (2n up to ~240), else reads
+// through L1/L2.  Sums are not stored: a total is one pass over the ne
+// values, a draw repeats the same adds in the same order (the same bits)
+// and stops at the first sum above the target, its cell (prev + v) - prev
+// from those sums.  At one word a spin and up to 16 electrons (every walk
+// the package runs), the occupied list and mu at its entries stay in
+// registers (the loops unroll over 16; 64 registers a thread, four blocks
+// an SM), so mu is summed once, one occupied R2 row at a time into the
+// accumulators.  A det with every spin-orbital occupied -- the walk's
+// empty-slot sentinel (all bits set), which fills every slot past the
+// spawn total, ~30% of them at HEG-14 -- takes mu from R2's column sums,
+// which each block adds once in the same order.  Any other det (more than
+// 16 electrons or more than one word a spin) recomputes mu in each pass
+// that needs it, ne^2 reads a pass: several times slower than the
+// register path, and slower than the first version's kernel (PERF.md).
+// All float32 on the CUDA cores: no tensor cores, no TF32.  Each output
+// has one writer.  The grid is one wave of resident blocks, each looping
+// over slots.
 //
-// Measured (chip_smoke.py phases 2d and 2c, H100): ~115 us of kernel time
-// at the walk shape, 23x the bound (a warp per slot with two spin-orbitals
-// a lane took 243 us), and ~163 us a generation inside the HEG-14 walk
-// (bench_walk.py --profile).  A variant that read only the occupied
-// entries of R2[q] in the mu loop (less shared-memory traffic) was 1-10%
-// faster at these shapes and slower where R2 is read through L2, so
-// shared-memory bandwidth is not what holds it back; which part of each
-// slot's chain of dependent loads, shuffles and shared-memory round trips
-// does is not measured yet.
+// Measured (chip_smoke.py phase 2d, bench_walk.py, NVIDIA H100 80GB HBM3,
+// 700 W): 33 us at the walk shape, 26 us at 2n = 52 with singles, against
+// 115 and 129 us for the 8-lane kernel; ~39 us a generation inside the
+// HEG-14 walk, against 163.  Still 6-7x the bytes bound: the limit is
+// instruction issue and shared-memory reads of R2 at one slot a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_WARPS = 8;                  // warps per block
-constexpr int G = 8;                          // lanes per slot
-constexpr int V = 8;                          // spin-orbitals per lane
-constexpr int CHUNK = G * V;                  // spin-orbitals per chunk
-constexpr int SLOTS = 32 / G;                 // slots per warp
+constexpr int THREADS = 256;                  // slots (threads) a block
+constexpr int MINBLOCKS = 4;                  // resident blocks ptxas plans for
+constexpr int REG_NE = 16;                    // electrons the register path takes
 constexpr float TINY = 1e-30f;                // the walk's TINY in float32
 
 struct Args {
@@ -102,26 +115,180 @@ struct Args {
   float* c_s;
   long long cap;
   int n_words, norb, n2;
+  int st;                                     // R2's row stride as read
 };
 
-// a slot's scratch in shared memory: two rows of running sums, the
-// occupied list and one occupancy byte per lane and chunk
-__host__ __device__ inline int slot_bytes(int n2) {
-  const int nch = (n2 + CHUNK - 1) / CHUNK;
-  return 3 * n2 * 4 + ((nch * G + 7) / 8) * 8;
+// A slot's det: NW > 0 holds up to NW words a spin in registers (words
+// past n_words are 0); NW = 0 takes any n_words and reads them again
+// through L1 at each pass.  Bits at or past norb are masked off.
+template <int NW>
+struct Det {
+  static constexpr int K = NW > 0 ? 2 * NW : 1;
+  unsigned long long w[K];
+  const unsigned long long* up;
+  const unsigned long long* dn;
+  int nw, norb;
+
+  __device__ __forceinline__ unsigned long long mask(unsigned long long x,
+                                                     int i) const {
+    const int left = norb - 64 * i;           // orbitals in word i
+    return left >= 64 ? x : left <= 0 ? 0ull : x & ((1ull << left) - 1ull);
+  }
+  __device__ __forceinline__ Det(const unsigned long long* up_,
+                                 const unsigned long long* dn_, int W,
+                                 int norb_)
+      : up(up_), dn(dn_), nw(W), norb(norb_) {
+    if (NW > 0) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        w[i] = i < W ? mask(__ldg(up + i), i) : 0ull;
+        w[NW + i] = i < W ? mask(__ldg(dn + i), i) : 0ull;
+      }
+    }
+  }
+  __device__ __forceinline__ int words() const {
+    return NW > 0 ? 2 * NW : 2 * nw;
+  }
+  __device__ __forceinline__ unsigned long long word(int k) const {
+    if (NW > 0) return w[k];
+    return k < nw ? mask(__ldg(up + k), k) : mask(__ldg(dn + k - nw), k - nw);
+  }
+  // the spin-orbital of bit 0 of word k
+  __device__ __forceinline__ int base(int k) const {
+    const int v = NW > 0 ? NW : nw;
+    return k < v ? 64 * k : norb + 64 * (k - v);
+  }
+};
+
+// The occupied spin-orbitals in ascending order, walked over the det's
+// words: calls f(a, k) for the k-th one, a its spin-orbital, until f
+// returns true.
+template <int NW>
+struct BitSeq {
+  const Det<NW>& d;
+  template <typename F>
+  __device__ __forceinline__ void operator()(F f) const {
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < d.words(); ++i) {
+      unsigned long long m = d.word(i);
+      const int base = d.base(i);
+      while (m) {
+        const int a = base + __ffsll((long long)m) - 1;
+        m &= m - 1ull;
+        if (f(a, k++)) return;
+      }
+    }
+  }
+};
+
+// The same walk over an occupied list held in registers (ne <= N): the
+// loop unrolls, so k is a constant in each copy of f.
+template <int N>
+struct RegSeq {
+  const int (&occ)[N];
+  int ne;
+  template <typename F>
+  __device__ __forceinline__ void operator()(F f) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k >= ne) return;
+      if (f(occ[k], k)) return;
+    }
+  }
+};
+
+// Every spin-orbital a = k = 0 .. n2-1 in order.
+struct AllSeq {
+  int n2;
+  template <typename F>
+  __device__ __forceinline__ void operator()(F f) const {
+    for (int a = 0; a < n2; ++a)
+      if (f(a, a)) return;
+  }
+};
+
+// rows[2n-1]: the values v(a, k) of the occupied a added in order
+template <typename Seq, typename V>
+__device__ __forceinline__ float total(const Seq& seq, V v) {
+  float s = 0.f;
+  seq([&](int a, int k) {
+    s = __fadd_rn(s, v(a, k));
+    return false;
+  });
+  return s;
 }
 
-__device__ __forceinline__ float2 ld2(const float* p, bool shared) {
-  return shared ? *reinterpret_cast<const float2*>(p)
-                : __ldg(reinterpret_cast<const float2*>(p));
+// cell(rows, i) from the same adds: rows[i] - rows[i-1], rows[0] at i = 0;
+// an empty i repeats the sum before it, rows[i] = rows[i-1]
+template <typename Seq, typename V>
+__device__ __forceinline__ float cell_at(const Seq& seq, V v, int i) {
+  float s = 0.f, c = 0.f;
+  bool hit = false;
+  seq([&](int a, int k) {
+    if (a > i) return true;
+    const float nx = __fadd_rn(s, v(a, k));
+    if (a == i) {
+      c = i > 0 ? __fsub_rn(nx, s) : nx;
+      hit = true;
+      return true;
+    }
+    s = nx;
+    return false;
+  });
+  return hit ? c : (i > 0 ? __fsub_rn(s, s) : s);
 }
 
-// occupancy of spin-orbital s (up orbitals first, then dn + norb)
-__device__ __forceinline__ unsigned bit_of(const unsigned long long* up,
-                                           const unsigned long long* dn,
-                                           int s, int norb) {
-  const int i = s < norb ? s : s - norb;
-  return (unsigned)((__ldg((s < norb ? up : dn) + (i >> 6)) >> (i & 63)) & 1ull);
+// the total and, in the same pass, cell(rows, i)
+template <typename Seq, typename V>
+__device__ __forceinline__ float total_and_cell(const Seq& seq, V v, int i,
+                                                float* cell) {
+  float s = 0.f, c = 0.f;
+  bool hit = false;
+  seq([&](int a, int k) {
+    const float nx = __fadd_rn(s, v(a, k));
+    if (!hit && a >= i) {
+      c = a == i ? (i > 0 ? __fsub_rn(nx, s) : nx)
+                 : (i > 0 ? __fsub_rn(s, s) : s);
+      hit = true;
+    }
+    s = nx;
+    return false;
+  });
+  *cell = hit ? c : (i > 0 ? __fsub_rn(s, s) : s);
+  return s;
+}
+
+// draw(rows, t) = min(#{a : rows[a] <= t}, n2 - 1) and cell(rows, draw).
+// The rows are +0 before the first occupied spin-orbital and never fall,
+// so for t >= 0 the count is the first occupied a whose sum is not <= t.
+template <typename Seq, typename V>
+__device__ __forceinline__ int draw(const Seq& seq, V v, float t, int n2,
+                                    float* cell) {
+  if (!(0.f <= t)) {                          // NaN: no row is <= t
+    *cell = cell_at(seq, v, 0);
+    return 0;
+  }
+  float s = 0.f, prev = 0.f, c = 0.f;
+  int idx = -1, last = -1;
+  seq([&](int a, int k) {
+    const float nx = __fadd_rn(s, v(a, k));
+    if (!(nx <= t)) {
+      idx = a;
+      c = __fsub_rn(nx, s);
+      return true;
+    }
+    prev = s;
+    s = nx;
+    last = a;
+    return false;
+  });
+  if (idx < 0) {                              // every row <= t
+    idx = n2 - 1;
+    c = last == n2 - 1 ? __fsub_rn(s, prev) : __fsub_rn(s, s);
+  }
+  *cell = c;
+  return idx;
 }
 
 __device__ __forceinline__ float target(double u, float total) {
@@ -132,216 +299,162 @@ __device__ __forceinline__ float at_least_tiny(float x) {
   return x < TINY ? TINY : x;               // NaN stays NaN, as clamp(min=)
 }
 
-// Running sums rows[a] of bit(a) * x(a) over a = 0 .. n2-1, written to
-// the slot's rows; masks[c * G + gl] holds the lane's occupancy bits of
-// chunk c; x(a, xv) fills xv[0 .. V-1] with x at a .. a + V - 1 (pairs past
-// n2 are not read).  Each lane sums its V values in order (pre), and its
-// base is the chunk's carry plus the lanes before it, added in lane order,
-// so every sum is the last one plus the next value: an empty spin-orbital
-// repeats the sum before it exactly and the sums never decrease.  Returns
-// rows[n2-1].
-template <typename X>
-__device__ float running_sums(const unsigned char* masks, X x, float* rows,
-                              int n2, int gl) {
-  __syncwarp();                             // earlier reads of rows are done
-  float carry = 0.f;
-  for (int c0 = 0, c = 0; c0 < n2; c0 += CHUNK, ++c) {
-    const int a = c0 + V * gl;
-    float pre[V];
-    float s = 0.f;
-    if (a < n2) {
-      const unsigned m = masks[c * G + gl];
-      float xv[V];
-      x(a, xv);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s = __fadd_rn(s, __fmul_rn((float)((m >> i) & 1u), xv[i]));
-        pre[i] = s;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) pre[i] = 0.f;
-    }
-    float base = carry;
-#pragma unroll
-    for (int l = 0; l < G - 1; ++l) {
-      const float nb = __fadd_rn(base, __shfl_sync(FULL, s, l, G));
-      if (gl > l) base = nb;
-    }
-#pragma unroll
-    for (int i = 0; i < V; i += 2)
-      if (a + i < n2)
-        *reinterpret_cast<float2*>(rows + a + i) =
-            make_float2(__fadd_rn(base, pre[i]), __fadd_rn(base, pre[i + 1]));
-    carry = __shfl_sync(FULL, __fadd_rn(base, s), G - 1, G);
+struct Sel {
+  int o1, o2, o_s;
+  float m_tot, s1q, s2q, p_pair, utot, c_s;
+};
+
+// The selection of one slot over `seq`, with mu(a, k) the mu row's value
+// at the k-th occupied spin-orbital a and rd(i) the i-th float of R2 as
+// stored (row stride st).
+template <typename Seq, typename Mu, typename Rd>
+__device__ __forceinline__ Sel select_slot(const Seq& seq, Mu mu, Rd rd,
+                                           int st, const float* u2, int n2,
+                                           bool singles, double u_pick,
+                                           double u_entry) {
+  Sel r;
+  r.o_s = 0;
+  r.utot = r.c_s = 0.f;
+  if (singles) {
+    auto vs = [&](int a, int) { return u2[a]; };
+    r.utot = total(seq, vs);
+    r.o_s = draw(seq, vs, target(u_pick, r.utot), n2, &r.c_s);
   }
-  __syncwarp();
-  return carry;
+  float cm1, c12, c21;
+  r.m_tot = total(seq, mu);
+  r.o1 = draw(seq, mu, target(u_pick, r.m_tot), n2, &cm1);
+  const int b1 = r.o1 * st;
+  auto v1 = [&](int a, int) { return rd(b1 + a); };
+  r.s1q = total(seq, v1);
+  r.o2 = draw(seq, v1, target(u_entry, r.s1q), n2, &c12);
+  const int b2 = r.o2 * st;
+  auto v2 = [&](int a, int) { return rd(b2 + a); };
+  r.s2q = total_and_cell(seq, v2, r.o1, &c21);
+  const float cm2 = cell_at(seq, mu, r.o2);
+  const float q1 = __fdiv_rn(__fmul_rn(cm1, c12), at_least_tiny(r.s1q));
+  const float q2 = __fdiv_rn(__fmul_rn(cm2, c21), at_least_tiny(r.s2q));
+  r.p_pair = __fdiv_rn(__fadd_rn(q1, q2), at_least_tiny(r.m_tot));
+  return r;
 }
 
-// min(#{a : rows[a] <= t}, n2 - 1) over the slot's rows
-__device__ int draw(const float* rows, float t, int n2, int gl) {
-  int count = 0;
-  for (int c0 = 0; c0 < n2; c0 += CHUNK) {
-    const int a = c0 + V * gl;
+// The selection with the det's first N occupied spin-orbitals (ne <= N)
+// and mu at them held in registers: every loop unrolls over N, so each
+// index into occ and mu is a constant.  mu[k] gathers R2[q, occ[k]] one
+// occupied row q at a time, in ascending q (the sequential order), over
+// all N entries (entries past ne read row q's column 0 and are not used).
+template <int N, int NW, typename Rd>
+__device__ __forceinline__ Sel select_regs(const Det<NW>& det, int ne, Rd rd,
+                                           int st, const float* u2, int n2,
+                                           bool singles, double u_pick,
+                                           double u_entry) {
+  int occ[N];
+  unsigned long long m[2 * NW];
 #pragma unroll
-    for (int i = 0; i < V; i += 2)
-      if (a + i < n2) {
-        const float2 r = *reinterpret_cast<const float2*>(rows + a + i);
-        count += (r.x <= t) + (r.y <= t);
+  for (int i = 0; i < 2 * NW; ++i) m[i] = det.w[i];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int a = 0;
+    bool got = false;
+#pragma unroll
+    for (int i = 0; i < 2 * NW; ++i)
+      if (!got && m[i] != 0ull) {
+        a = det.base(i) + __ffsll((long long)m[i]) - 1;
+        m[i] &= m[i] - 1ull;
+        got = true;
       }
+    occ[k] = a;
   }
+  float mu[N];
 #pragma unroll
-  for (int d = G / 2; d > 0; d >>= 1)
-    count += __shfl_xor_sync(FULL, count, d, G);
-  return min(count, n2 - 1);
+  for (int k = 0; k < N; ++k) mu[k] = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j >= ne) break;
+    const int row = occ[j] * st;
+#pragma unroll
+    for (int k = 0; k < N; ++k) mu[k] = __fadd_rn(mu[k], rd(row + occ[k]));
+  }
+  const RegSeq<N> seq{occ, ne};
+  return select_slot(seq, [&](int, int k) { return mu[k]; }, rd, st, u2, n2,
+                     singles, u_pick, u_entry);
 }
 
-__device__ __forceinline__ float cell(const float* rows, int i) {
-  return i > 0 ? __fsub_rn(rows[i], rows[i - 1]) : rows[i];
-}
-
-template <bool SMEM_R2>
-__global__ void __launch_bounds__(MAX_WARPS * 32) k_hb_select(Args p) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int n2 = p.n2, norb = p.norb, W = p.n_words;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane / G, gl = lane % G;
-  const int wpb = blockDim.x >> 5;
+// NW = 1: one word a spin, dets of up to REG_NE electrons on the register
+// path; NW = 0: any det, mu recomputed in each pass.
+template <int NW, bool SMEM_R2>
+__global__ void __launch_bounds__(THREADS, MINBLOCKS) k_hb_select(Args p) {
+  extern __shared__ float sm[];
+  const int n2 = p.n2, norb = p.norb, st = p.st;
   const bool singles = p.u_rowsum != nullptr;
 
-  // block preamble: R2 and the singles weights u(a mod n) in float32
-  float* r2s = sm;
-  float* u2 = sm + (SMEM_R2 ? n2 * n2 : 0);
-  if (SMEM_R2) {
-    const float4* src = reinterpret_cast<const float4*>(p.r2);
-    for (int i = threadIdx.x; i < n2 * n2 / 4; i += blockDim.x)
-      smem4[i] = __ldg(src + i);
-  }
-  for (int a = threadIdx.x; a < n2; a += blockDim.x)
-    u2[a] = singles ? __double2float_rn(p.u_rowsum[a < norb ? a : a - norb])
-                    : 0.f;
+  // block preamble: R2 at row stride st, the singles weights u(a mod n)
+  // in float32 and R2's column sums (mu of a det with every spin-orbital
+  // occupied)
+  float* u2 = sm + (SMEM_R2 ? n2 * st : 0);
+  float* colsum = u2 + n2;
+  if (SMEM_R2)
+    for (int i = threadIdx.x; i < n2 * n2; i += blockDim.x) {
+      const int row = i / n2;
+      sm[row * st + i - row * n2] = __ldg(p.r2 + i);
+    }
+  if (singles)
+    for (int a = threadIdx.x; a < n2; a += blockDim.x)
+      u2[a] = __double2float_rn(__ldg(p.u_rowsum + (a < norb ? a : a - norb)));
   __syncthreads();
-  const float* R = SMEM_R2 ? r2s : p.r2;
+  auto rd = [&](int i) { return SMEM_R2 ? sm[i] : __ldg(p.r2 + i); };
+  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
+    float c = 0.f;
+    for (int q = 0; q < n2; ++q) c = __fadd_rn(c, rd(q * st + a));
+    colsum[a] = c;
+  }
+  __syncthreads();
 
-  // this group's slot scratch
-  char* scratch = reinterpret_cast<char*>(u2 + n2)
-                  + (size_t)(warp * SLOTS + g) * slot_bytes(n2);
-  float* rows_m = reinterpret_cast<float*>(scratch);
-  float* rows = rows_m + n2;
-  int* occ = reinterpret_cast<int*>(rows + n2);
-  unsigned char* masks = reinterpret_cast<unsigned char*>(occ + n2);
-
-  const long long stride = (long long)gridDim.x * wpb * SLOTS;
-  for (long long base = ((long long)blockIdx.x * wpb + warp) * SLOTS;
-       base < p.cap; base += stride) {
-    const long long slot = base + g;
-    const bool live = slot < p.cap;
-    const long long rs = live ? slot : p.cap - 1;     // read in bounds
-    const unsigned long long* up = p.up + rs * W;
-    const unsigned long long* dn = p.dn + rs * W;
-    const double u_pick = p.u_pick[rs];
-    const double u_entry = p.u_entry[rs];
-    __syncwarp();                           // the last slot's reads are done
-
-    // occupancy bytes and the ascending occupied list
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long slot = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       slot < p.cap; slot += stride) {
+    const Det<NW> det(p.up + slot * p.n_words, p.dn + slot * p.n_words,
+                      p.n_words, norb);
+    const double u_pick = __ldg(p.u_pick + slot);
+    const double u_entry = __ldg(p.u_entry + slot);
     int ne = 0;
-    for (int c0 = 0, c = 0; c0 < n2; c0 += CHUNK, ++c) {
-      const int a = c0 + V * gl;
-      unsigned m = 0;
-      if (a < n2) {
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          if (a + i < n2) m |= bit_of(up, dn, a + i, norb) << i;
-        masks[c * G + gl] = (unsigned char)m;
+    for (int i = 0; i < det.words(); ++i) ne += __popcll(det.word(i));
+
+    Sel r;
+    bool done = false;
+    if constexpr (NW > 0) {
+      if (ne <= REG_NE) {
+        r = select_regs<REG_NE>(det, ne, rd, st, u2, n2, singles, u_pick,
+                                u_entry);
+        done = true;
       }
-      const int cnt = __popc(m);
-      int inc = cnt;
-#pragma unroll
-      for (int d = 1; d < G; d <<= 1) {
-        const int t = __shfl_up_sync(FULL, inc, d, G);
-        if (gl >= d) inc += t;
-      }
-      int k = ne + inc - cnt;
-      for (unsigned r = m; r; r &= r - 1)
-        occ[k++] = (a + __ffs(r) - 1) * n2;
-      ne += __shfl_sync(FULL, inc, G - 1, G);
     }
-    __syncwarp();
-
-    int o_s = 0;
-    float utot = 0.f, c_s = 0.f;
-    if (singles) {
-      utot = running_sums(masks, [&](int a, float* xv) {
-#pragma unroll
-        for (int i = 0; i < V; i += 2)
-          if (a + i < n2) {
-            const float2 r = *reinterpret_cast<const float2*>(u2 + a + i);
-            xv[i] = r.x;
-            xv[i + 1] = r.y;
-          } else {
-            xv[i] = xv[i + 1] = 0.f;
-          }
-      }, rows, n2, gl);
-      o_s = draw(rows, target(u_pick, utot), n2, gl);
-      c_s = cell(rows, o_s);
+    if (!done && ne == n2) {
+      // every spin-orbital occupied: the walk's empty-slot sentinel (all
+      // bits set) past the spawn total, a share of every generation's slots
+      const AllSeq seq{n2};
+      r = select_slot(seq, [&](int a, int) { return colsum[a]; }, rd, st, u2,
+                      n2, singles, u_pick, u_entry);
+      done = true;
     }
-
-    const float m_tot = running_sums(masks, [&](int a, float* xv) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) xv[i] = 0.f;
-      for (int j = 0; j < ne; ++j) {
-        const float* row = R + occ[j] + a;
-#pragma unroll
-        for (int i = 0; i < V; i += 2)
-          if (a + i < n2) {
-            const float2 r = ld2(row + i, SMEM_R2);
-            xv[i] = __fadd_rn(xv[i], r.x);
-            xv[i + 1] = __fadd_rn(xv[i + 1], r.y);
-          }
-      }
-    }, rows_m, n2, gl);
-    const int o1 = draw(rows_m, target(u_pick, m_tot), n2, gl);
-
-    const float* r_o1 = R + (size_t)o1 * n2;
-    auto gather = [&](const float* row) {
-      return [=](int a, float* xv) {
-#pragma unroll
-        for (int i = 0; i < V; i += 2)
-          if (a + i < n2) {
-            const float2 r = ld2(row + a + i, SMEM_R2);
-            xv[i] = r.x;
-            xv[i + 1] = r.y;
-          } else {
-            xv[i] = xv[i + 1] = 0.f;
-          }
+    if (!done) {
+      const BitSeq<NW> seq{det};
+      auto mu = [&](int a, int) {
+        return total(seq, [&](int q, int) { return rd(q * st + a); });
       };
-    };
-    const float s1q = running_sums(masks, gather(r_o1), rows, n2, gl);
-    const int o2 = draw(rows, target(u_entry, s1q), n2, gl);
-    const float c12 = cell(rows, o2);
+      r = select_slot(seq, mu, rd, st, u2, n2, singles, u_pick, u_entry);
+    }
 
-    const float s2q = running_sums(masks, gather(R + (size_t)o2 * n2), rows,
-                                   n2, gl);
-    const float c21 = cell(rows, o1);
-
-    if (live && gl == 0) {
-      const float q1 = __fdiv_rn(__fmul_rn(cell(rows_m, o1), c12),
-                                 at_least_tiny(s1q));
-      const float q2 = __fdiv_rn(__fmul_rn(cell(rows_m, o2), c21),
-                                 at_least_tiny(s2q));
-      p.o1[slot] = o1;
-      p.o2[slot] = o2;
-      p.m_tot[slot] = m_tot;
-      p.s1q[slot] = s1q;
-      p.s2q[slot] = s2q;
-      p.p_pair[slot] = __fdiv_rn(__fadd_rn(q1, q2), at_least_tiny(m_tot));
-      if (singles) {
-        p.o_s[slot] = o_s;
-        p.utot[slot] = utot;
-        p.c_s[slot] = c_s;
-      }
+    p.o1[slot] = r.o1;
+    p.o2[slot] = r.o2;
+    p.m_tot[slot] = r.m_tot;
+    p.s1q[slot] = r.s1q;
+    p.s2q[slot] = r.s2q;
+    p.p_pair[slot] = r.p_pair;
+    if (singles) {
+      p.o_s[slot] = r.o_s;
+      p.utot[slot] = r.utot;
+      p.c_s[slot] = r.c_s;
     }
   }
 }
@@ -352,26 +465,120 @@ int opt_in_bytes(int dev) {
   return v;
 }
 
+// The kernel for these shapes: the register path holds one word a spin
+// (2n <= 128: R2 always fits in shared memory); any other shape
+// recomputes mu.  Both compute the same function for any det.
+const void* kernel_of(int n_words, bool smem_r2) {
+  if (n_words == 1 && smem_r2) return (const void*)k_hb_select<1, true>;
+  return smem_r2 ? (const void*)k_hb_select<0, true>
+                 : (const void*)k_hb_select<0, false>;
+}
+
+struct Plan {
+  long long cap;                              // the shapes it is for
+  int n_words, norb;
+  const void* fn;
+  bool smem_r2;
+  int st, per_sm;
+  long long bytes, blocks;
+};
+
+// The last plan of each device: the walk launches the same shapes every
+// generation, so a launch asks the runtime nothing but its device.
+constexpr int MAX_DEVICES = 64;
+Plan g_plans[MAX_DEVICES];
+bool g_planned[MAX_DEVICES];
+std::mutex g_plan_lock;
+
+int plan_launch(long long cap, int n_words, int norb, Plan* pl) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES) {
+    std::lock_guard<std::mutex> hold(g_plan_lock);
+    const Plan& c = g_plans[dev];
+    if (g_planned[dev] && c.cap == cap && c.n_words == n_words &&
+        c.norb == norb) {
+      *pl = c;
+      return 0;
+    }
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long n2 = 2LL * norb, odd = n2 + 1;
+  pl->cap = cap;
+  pl->n_words = n_words;
+  pl->norb = norb;
+  pl->smem_r2 = n2 * odd * 4 + 2 * n2 * 4 <= opt_in_bytes(dev);
+  pl->st = (int)(pl->smem_r2 ? odd : n2);
+  pl->bytes = (pl->smem_r2 ? n2 * odd * 4 : 0) + 2 * n2 * 4;
+  pl->fn = kernel_of(n_words, pl->smem_r2);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&pl->per_sm, pl->fn,
+                                                    THREADS,
+                                                    (size_t)pl->bytes);
+  if (e != cudaSuccess) return (int)e;
+  // one wave of resident blocks, each looping over its slots
+  const long long want = (cap + THREADS - 1) / THREADS;
+  const long long resident = (long long)(pl->per_sm > 0 ? pl->per_sm : 1) * sms;
+  pl->blocks = want > resident ? resident : want;
+  if (pl->blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dev < MAX_DEVICES) {
+    std::lock_guard<std::mutex> hold(g_plan_lock);
+    g_plans[dev] = *pl;
+    g_planned[dev] = true;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// Lets both kernels use all the shared memory a block may opt into.  Called
-// once per device, with that device current.
+// Lets every kernel use all the shared memory a block may opt into.
+// Called once per device, with that device current.
 extern "C" int sqmc_hb_select_init() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const int bytes = opt_in_bytes(dev);
-  e = cudaFuncSetAttribute(k_hb_select<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaFuncSetAttribute(
-      k_hb_select<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  for (int w = 0; w <= 1; ++w)
+    for (int s = 0; s < 2; ++s) {
+      e = cudaFuncSetAttribute(kernel_of(w, s == 1),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+  return 0;
 }
 
-// up, dn: [cap, n_words] int64 det words; r2: [2 norb, 2 norb] float32,
-// 16-byte aligned; u_rowsum: [norb] float64 or null (no singles: o_s, utot
-// and c_s are not written); u_pick, u_entry: [cap] float64; o1, o2, o_s:
-// [cap] int64; m_tot, s1q, s2q, p_pair, utot, c_s: [cap] float32.
+// The launch for these shapes: out[0] blocks, out[1] threads a block,
+// out[2] dynamic shared bytes a block, out[3] resident blocks per SM,
+// out[4] 1 if R2 is in shared memory, out[5] registers a thread, out[6]
+// local (spilled) bytes a thread, out[7] the electrons the register path
+// takes (0: every det recomputes mu in each pass).
+extern "C" int sqmc_hb_select_shape(long long cap, int n_words, int norb,
+                                    long long* out) {
+  if (cap <= 0 || norb <= 0 || n_words * 64 < norb)
+    return (int)cudaErrorInvalidValue;
+  Plan pl;
+  int e = plan_launch(cap, n_words, norb, &pl);
+  if (e != 0) return e;
+  cudaFuncAttributes attr;
+  cudaError_t ce = cudaFuncGetAttributes(&attr, pl.fn);
+  if (ce != cudaSuccess) return (int)ce;
+  out[0] = pl.blocks;
+  out[1] = THREADS;
+  out[2] = pl.bytes;
+  out[3] = pl.per_sm;
+  out[4] = pl.smem_r2;
+  out[5] = attr.numRegs;
+  out[6] = (long long)attr.localSizeBytes;
+  out[7] = pl.fn == (const void*)k_hb_select<1, true> ? REG_NE : 0;
+  return 0;
+}
+
+// up, dn: [cap, n_words] int64 det words; r2: [2 norb, 2 norb] float32;
+// u_rowsum: [norb] float64 or null (no singles: o_s, utot and c_s are not
+// written); u_pick, u_entry: [cap] float64; o1, o2, o_s: [cap] int64;
+// m_tot, s1q, s2q, p_pair, utot, c_s: [cap] float32.
 extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
                               const void* up, const void* dn, const void* r2,
                               const void* u_rowsum, const void* u_pick,
@@ -381,8 +588,9 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
                               void* stream) {
   if (cap <= 0 || norb <= 0 || n_words * 64 < norb)
     return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(r2) & 15)
-    return (int)cudaErrorMisalignedAddress;
+  Plan pl;
+  int e = plan_launch(cap, n_words, norb, &pl);
+  if (e != 0) return e;
   Args a;
   a.up = static_cast<const unsigned long long*>(up);
   a.dn = static_cast<const unsigned long long*>(dn);
@@ -403,43 +611,11 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
   a.n_words = n_words;
   a.norb = norb;
   a.n2 = 2 * norb;
-
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const long long optin = opt_in_bytes(dev);
-  const long long n2 = a.n2;
-  const long long warp_bytes = (long long)SLOTS * slot_bytes(a.n2);
-  const long long r2_bytes = n2 * n2 * 4;
-  const bool smem_r2 = r2_bytes + n2 * 4 + MAX_WARPS * warp_bytes <= optin;
-  int wpb = MAX_WARPS;
-  long long bytes = 0;
-  for (;;) {
-    bytes = (smem_r2 ? r2_bytes : 0) + n2 * 4 + wpb * warp_bytes;
-    if (bytes <= optin || wpb == 1) break;
-    wpb /= 2;
-  }
-  if (bytes > optin) return (int)cudaErrorInvalidValue;
-  const void* kfn = smem_r2 ? (const void*)k_hb_select<true>
-                            : (const void*)k_hb_select<false>;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kfn, wpb * 32,
-                                                    (size_t)bytes);
-  if (e != cudaSuccess) return (int)e;
-  // one wave of resident blocks; each warp takes every (grid x wpb)-th
-  // group of SLOTS slots
-  const long long per_block = (long long)wpb * SLOTS;
-  const long long want = (cap + per_block - 1) / per_block;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  const unsigned blocks = (unsigned)(want < resident ? want : resident);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem_r2)
-    k_hb_select<true><<<blocks, wpb * 32, (size_t)bytes, st>>>(a);
-  else
-    k_hb_select<false><<<blocks, wpb * 32, (size_t)bytes, st>>>(a);
-  return (int)cudaGetLastError();
+  a.st = pl.st;
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(pl.fn, dim3((unsigned)pl.blocks),
+                               dim3(THREADS), args, (size_t)pl.bytes,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sqmc_hb_select_error_string(int e) {

@@ -3,8 +3,10 @@
 Each source is compiled with nvcc into a plain-C shared library (no torch
 headers: seconds, not minutes) under ``build/sqmc_tpu_torch/`` at the
 repository root, keyed by a hash of the source and the flags, and bound
-with ctypes.  Building happens at first use, on the machine with the
-card; importing this module builds nothing.
+with ctypes.  What ptxas reports of each kernel (registers, shared
+memory, spills: ``-Xptxas -v``) is kept beside the library
+(:func:`ptxas_summary`).  Building happens at first use, on the machine
+with the card; importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "sqmc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}                     # source name -> bound ctypes.CDLL
 _ready: set = set()                  # (source name, device index) set up
@@ -45,7 +47,8 @@ def library_path(source: str) -> Path:
 
 
 def build(source: str) -> Path:
-    """Compile csrc/<source> unless this text of it is already built."""
+    """Compile csrc/<source> unless this text of it is already built;
+    nvcc's report goes to the library's .log file."""
     out = library_path(source)
     if out.exists():
         return out
@@ -59,11 +62,39 @@ def build(source: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):"
                                f"\n{proc.stdout}\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)     # atomic: a concurrent build never sees half
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def ptxas_summary(source: str) -> list:
+    """One line per kernel of the built library of csrc/<source> (none
+    before a build): its (demangled where c++filt is at hand) name,
+    registers, shared memory and spill bytes, as ptxas reported them."""
+    log = library_path(source).with_suffix(".log")
+    lines, name = [], None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif name and "Used" in line and "registers" in line:
+            lines.append((name, line.split("info    :")[-1].strip()))
+        elif name and "spill" in line:
+            lines.append((name, line.split("info    :")[-1].strip()))
+    names = sorted({n for n, _ in lines})
+    pretty = dict(zip(names, names))
+    filt = shutil.which("c++filt")
+    if filt and names:
+        proc = subprocess.run([filt], input="\n".join(names),
+                              capture_output=True, text=True)
+        if proc.returncode == 0:
+            pretty = dict(zip(names, proc.stdout.splitlines()))
+    out = {}
+    for n, text in lines:
+        out.setdefault(n, []).append(text)
+    return [f"{pretty.get(n, n)}: " + "; ".join(t) for n, t in out.items()]
 
 
 def aligned(t):

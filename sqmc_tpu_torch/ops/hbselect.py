@@ -126,11 +126,35 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 16)
+    shape = lib.sqmc_hb_select_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
 
 
 def build():
     """Compile csrc/hbselect.cu (see ops/cudabuild.py); returns the path."""
     return cudabuild.build(_SOURCE)
+
+
+def launch_shape(cap: int, n_words: int, norb: int, device) -> dict:
+    """How the kernel launches for these shapes on ``device`` (a card):
+    blocks, threads a block, dynamic shared bytes a block, resident blocks
+    per SM, whether R2 sits in shared memory, registers and spilled bytes
+    a thread, and the electrons up to which a det takes the register path
+    (``reg_ne``; 0: every det recomputes mu in each pass)."""
+    dev = torch.device(device)
+    out = (ctypes.c_longlong * 8)()
+    with torch.cuda.device(dev):
+        lib = cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
+        err = lib.sqmc_hb_select_shape(cap, n_words, norb,
+                                       ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError("hb_select launch shape: "
+                           + cudabuild.error_string(lib, _PREFIX, err))
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "r2_in_smem",
+            "registers", "spill_bytes", "reg_ne")
+    return dict(zip(keys, list(out)))
 
 
 def hb_select_cuda(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
@@ -156,7 +180,7 @@ def hb_select_cuda(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
         raise ValueError("u_rowsum must be [norb] float64 on the device")
     up_w, dn_w = up_w.contiguous(), dn_w.contiguous()
     u_pick, u_entry = u_pick.contiguous(), u_entry.contiguous()
-    R2 = cudabuild.aligned(R2)
+    R2 = R2.contiguous()
     o1, o2 = (torch.empty(CAP, dtype=I64, device=dev) for _ in range(2))
     m_tot, s1q, s2q, p_pair_q = (torch.empty(CAP, dtype=F32, device=dev)
                                  for _ in range(4))
@@ -194,9 +218,10 @@ def hb_select(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
     up_w, dn_w: [CAP, W] int64 parent det words; R2: [2 norb, 2 norb]
     float32 pair rowsums (>= 0); u_rowsum: [norb] float64 singles rowsums,
     or None without singles (then o_s, utot and c_s are None); u_pick,
-    u_entry: [CAP] float64 uniforms.  The kernel's running sums associate
-    differently from torch.cumsum: integer-valued inputs give the same bits
-    on both paths, others agree to float32 rounding."""
+    u_entry: [CAP] float64 uniforms.  The kernel adds each running sum in
+    spin-orbital order and each mu in ascending q (csrc/hbselect.cu), the
+    plain version with torch.cumsum and a matmul: integer-valued inputs
+    give the same bits on both paths, others agree to float32 rounding."""
     if up_w.device.type == "cpu":
         return hb_select_plain(up_w, dn_w, norb, R2, u_rowsum, u_pick, u_entry)
     if up_w.device.type != "cuda":

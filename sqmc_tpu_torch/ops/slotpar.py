@@ -52,11 +52,31 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
+    shape = lib.sqmc_slot_parents_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 
 
 def build():
     """Compile csrc/slotpar.cu (see ops/cudabuild.py); returns the path."""
     return cudabuild.build(_SOURCE)
+
+
+def launch_shape(m: int, cap: int, device) -> dict:
+    """How the kernel launches for m walkers and cap slots on ``device``
+    (a card): blocks, threads a block, static shared bytes a block,
+    resident blocks per SM, and the merge items (walkers + slots) a block
+    takes."""
+    dev = torch.device(device)
+    out = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(dev):
+        lib = cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
+        err = lib.sqmc_slot_parents_shape(m, cap, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError("slot_parents launch shape: "
+                           + cudabuild.error_string(lib, _PREFIX, err))
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm",
+                     "tile_items"), list(out)))
 
 
 def slot_parents_cuda(cum_child: torch.Tensor, cap: int) -> torch.Tensor:
@@ -85,8 +105,8 @@ def slot_parents(cum_child: torch.Tensor, cap: int) -> torch.Tensor:
     """[cap] int64 parent walker of every spawn slot.
 
     cum_child: [M] int64 inclusive prefix sum of the walkers' child counts
-    (nondecreasing, >= 0; the kernel's binary search relies on it).  Both
-    paths give the same bits."""
+    (nondecreasing, >= 0; the kernel's merge of walkers and slots relies on
+    it).  Both paths give the same bits."""
     if cum_child.device.type == "cpu":
         return slot_parents_plain(cum_child, cap)
     if cum_child.device.type != "cuda":

@@ -10,6 +10,7 @@ This file imports only torch, numpy and the port.
 import numpy as np
 import pytest
 import torch
+from torch_hb_emulation import random_dets as _random_dets
 
 from sqmc_tpu_torch.ops import segscan as tseg
 from sqmc_tpu_torch.ops import spmv as tspmv
@@ -993,22 +994,6 @@ def test_det_owner_on_card_matches_numpy():
 # The spawn kernels K3 (heat-bath selection) and K4 (slot -> parent)
 # ---------------------------------------------------------------------------
 
-def _random_dets(rng, cap, norb, nel):
-    """[cap, W] int64 words, nel random orbitals occupied per row; the
-    first 7 rows empty (slots past the spawn total)."""
-    W = (norb + 63) // 64
-    occ = np.argsort(rng.random((cap, norb)), axis=1)[:, :nel]
-    words = np.zeros((cap, W), np.uint64)
-    for w in range(W):
-        sh = np.clip(occ - 64 * w, 0, 63).astype(np.uint64)
-        hit = (occ >= 64 * w) & (occ < 64 * (w + 1))
-        words[:, w] = np.bitwise_or.reduce(
-            np.where(hit, np.left_shift(np.uint64(1), sh), np.uint64(0)),
-            axis=1)
-    words[:7] = 0
-    return words.view(np.int64)
-
-
 def _heg14_r2():
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
@@ -1098,129 +1083,42 @@ def test_hb_select_kernel_matches_plain(case):
                      <= 1e-6 * ref.utot[same].double()).all())
 
 
-def _np_bits(words, norb):
-    u = words.view(np.uint64)
-    k = np.arange(norb)
-    return ((u[:, k // 64] >> (k % 64).astype(np.uint64)) & np.uint64(1)
-            ).astype(np.float32)
-
-
-def _emulate_rows(v):
-    """Running sums of [cap, n2] float32 values as csrc/hbselect.cu adds
-    them: chunks of 64, 8 lanes of 8; each lane sums its values in order,
-    its base is the chunk's carry plus the lanes before it in lane order.
-    Returns (rows [cap, n2], totals [cap])."""
-    cap, n2 = v.shape
-    npad = -(-n2 // 64) * 64
-    vp = np.zeros((cap, npad), np.float32)
-    vp[:, :n2] = v
-    vp = vp.reshape(cap, npad // 64, 8, 8)
-    pre = np.empty_like(vp)
-    s = np.zeros(vp.shape[:3], np.float32)
-    for i in range(8):
-        s = s + vp[..., i]
-        pre[..., i] = s
-    rows = np.empty_like(vp)
-    carry = np.zeros(cap, np.float32)
-    for c in range(vp.shape[1]):
-        base = carry
-        for lane in range(8):
-            rows[:, c, lane, :] = base[:, None] + pre[:, c, lane, :]
-            base = base + s[:, c, lane]
-        carry = base
-    return rows.reshape(cap, npad)[:, :n2], carry
-
-
-def _emulate_hb_select(up, dn, norb, R2, u_rowsum, u_pick, u_entry):
-    """numpy float32 emulation of the kernel's arithmetic (mu summed over
-    the occupied q in ascending order, _emulate_rows for every row, the
-    plain version's draws, cells and quotients).  Returns the outputs and
-    each row set."""
-    f32, tiny = np.float32, np.float32(1e-30)
-    bits = np.concatenate([_np_bits(up, norb), _np_bits(dn, norb)], axis=1)
-    cap, n2 = bits.shape
-    ar = np.arange(cap)
-
-    def draw(rows, u, tot):
-        t = (u * tot.astype(np.float64)).astype(f32)
-        return np.minimum((rows <= t[:, None]).sum(axis=1), n2 - 1)
-
-    def cell(rows, i):
-        return np.where(i > 0, rows[ar, i] - rows[ar, np.maximum(i - 1, 0)],
-                        rows[ar, i])
-
-    out, rows = {}, {}
-    if u_rowsum is not None:
-        u2 = np.tile(u_rowsum.astype(f32), 2)
-        rows["s"], out["utot"] = _emulate_rows(bits * u2[None, :])
-        out["o_s"] = draw(rows["s"], u_pick, out["utot"])
-        out["c_s"] = cell(rows["s"], out["o_s"])
-    mu = np.zeros((cap, n2), f32)
-    for q in range(n2):
-        mu = mu + bits[:, q:q + 1] * R2[q][None, :]
-    rows["m"], m_tot = _emulate_rows(bits * mu)
-    o1 = draw(rows["m"], u_pick, m_tot)
-    rows["1"], s1q = _emulate_rows(R2[o1] * bits)
-    o2 = draw(rows["1"], u_entry, s1q)
-    rows["2"], s2q = _emulate_rows(R2[o2] * bits)
-    p = ((cell(rows["m"], o1) * cell(rows["1"], o2)) / np.maximum(s1q, tiny)
-         + (cell(rows["m"], o2) * cell(rows["2"], o1)) / np.maximum(s2q, tiny)
-         ) / np.maximum(m_tot, tiny)
-    out.update(o1=o1, o2=o2, m_tot=m_tot, s1q=s1q, s2q=s2q, p_pair_q=p)
-    return out, rows, bits
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("norb,nup,ndn,singles", [(19, 7, 7, False),
                                                   (26, 4, 4, True),
-                                                  (70, 6, 5, True)])
+                                                  (70, 6, 5, True),
+                                                  (26, 9, 9, True),
+                                                  (124, 5, 5, True)])
 def test_hb_select_kernel_is_its_documented_arithmetic(norb, nup, ndn,
                                                        singles):
-    """K3 bit for bit against a numpy emulation of the order in which it
-    adds (float R2 spanning six decades), with half of the targets placed
+    """K3 bit for bit against the numpy emulation of the order in which it
+    adds (tests/torch_hb_emulation.py: each running sum the one before
+    plus the next occupied value, mu over the occupied q in ascending
+    order; float R2 spanning six decades), with half of the targets placed
     exactly on a running sum of the emulated rows.  The emulated sums
     repeat exactly across empty spin-orbitals and never decrease, so every
     draw with positive weight lands on an occupied spin-orbital: a kernel
-    whose sums took another association (a tree scan) would differ here and
-    could draw an empty spin-orbital through an ulp-wide cell."""
+    whose sums took another association (a tree scan, or the 8-lane groups
+    of the first K3) would differ here.  The first two shapes take the
+    kernel's register path (one word a spin, at most 16 electrons); the
+    others recompute mu in each pass: two words a spin, 18 electrons in
+    one word, and R2 too large for shared memory (read through L1/L2)."""
+    import torch_hb_emulation as emu
     from sqmc_tpu_torch.ops import hbselect
     dev = _device()
-    cap, n2 = 65_536 if norb < 64 else 16_384, 2 * norb
-    rng = np.random.default_rng(n2)
-    R2 = (10.0 ** rng.uniform(-6, 0, (n2, n2))).astype(np.float32)
-    np.fill_diagonal(R2, 0.0)
-    u_rowsum = 10.0 ** rng.uniform(-3, 0, norb) if singles else None
-    up, dn = _random_dets(rng, cap, norb, nup), _random_dets(rng, cap, norb, ndn)
-    u_pick, u_entry = rng.random(cap), rng.random(cap)
-    half = rng.random(cap) < 0.5
+    cap = 65_536 if norb < 64 else 16_384
+    inputs, out, rows, bits = emu.on_sum_inputs(norb, nup, ndn, singles, cap,
+                                                seed=2 * norb)
+    up, dn, _, R2, u_rowsum, u_pick, u_entry = inputs
     ar = np.arange(cap)
-
-    def plateau(rows, bits, tot):
-        """u putting the target on the sum at a random occupied
-        spin-orbital below the row's total (0.5 where there is none)."""
-        cand = (bits > 0) & (rows < tot[:, None])
-        pick = np.where(cand, rng.random(bits.shape), -1.0).argmax(axis=1)
-        return np.where(cand[ar, pick], rows[ar, pick].astype(np.float64)
-                        / np.maximum(tot, 1e-30), 0.5)
-
-    def below(u, tot):
-        return (u * tot.astype(np.float64)).astype(np.float32) < tot
-
-    out, rows, bits = _emulate_hb_select(up, dn, norb, R2, None, u_pick,
-                                         u_entry)
-    u_pick = np.where(half, plateau(rows["m"], bits, out["m_tot"]), u_pick)
-    out, rows, _ = _emulate_hb_select(up, dn, norb, R2, None, u_pick, u_entry)
-    u_entry = np.where(half, plateau(rows["1"], bits, out["s1q"]), u_entry)
-    out, rows, _ = _emulate_hb_select(up, dn, norb, R2, u_rowsum, u_pick,
-                                      u_entry)
     for r in rows.values():               # flat over empty spin-orbitals
         d = np.diff(r, axis=1)
         assert (d >= 0).all() and (d[bits[:, 1:] == 0] == 0).all()
     # a target below its row's total draws an occupied spin-orbital
-    on1 = below(u_pick, out["m_tot"])
-    checks = [("o1", on1), ("o2", on1 & below(u_entry, out["s1q"]))]
+    on1 = emu.below(u_pick, out["m_tot"])
+    checks = [("o1", on1), ("o2", on1 & emu.below(u_entry, out["s1q"]))]
     if singles:
-        checks.append(("o_s", below(u_pick, out["utot"])))
+        checks.append(("o_s", emu.below(u_pick, out["utot"])))
     for k, on in checks:
         assert on.mean() > 0.99 and (bits[ar, out[k]][on] == 1).all(), k
     t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
@@ -1229,38 +1127,68 @@ def test_hb_select_kernel_is_its_documented_arithmetic(norb, nup, ndn,
     for k, ref in out.items():
         g = getattr(got, k).cpu().numpy()
         if g.dtype == np.float32:
-            assert np.array_equal(g.view(np.int32), ref.view(np.int32)), k
-        else:
-            assert np.array_equal(g, ref), k
+            g, ref = g.view(np.int32), ref.view(np.int32)
+        assert np.array_equal(g, ref), f"{k}: {(g != ref).sum()} of {cap} differ"
+    shape = hbselect.launch_shape(cap, up.shape[1], norb, dev)
+    assert shape["reg_ne"] == (16 if norb <= 64 else 0)
+    assert shape["r2_in_smem"] == (norb < 120)
+
+
+K4_CASES = ["below", "at", "above", "none", "one_walker", "childless_run",
+            "tile_end", "tile_end_minus1", "cap_off_tile", "m2"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["below", "at", "above", "none", "one_walker"])
+@pytest.mark.parametrize("case", K4_CASES)
 def test_slot_parents_kernel_matches_plain(case):
     """K4 bit for bit against its plain version at the walk's shape (M =
     458,752 walkers, CAP = 262,144 slots) with runs of walkers without
     children, one walker owning thousands of slots, and spawn totals below,
     at and above CAP (overflow: the clip puts walker M - 1 on the last
-    slot)."""
+    slot); and cases that stress the merge's split into tiles of walkers
+    + slots: a run of 100,000 childless walkers inside the spawned range
+    (it spans many tiles), the last walker's merge item ending a tile
+    exactly (the tiles after it take the no-search path) and one item
+    before that, CAP not a multiple of the tile, and M = 2."""
     from sqmc_tpu_torch.ops import slotpar
     dev = _device()
     M, cap = 458_752, 262_144
     rng = np.random.default_rng(3)
+    tile = slotpar.launch_shape(M, cap, dev)["tile_items"]
     if case == "one_walker":
         nchild, cap = np.array([5]), 8
+    elif case == "m2":
+        nchild, cap = np.array([3000, 7]), 4099
     else:
+        if case == "cap_off_tile":
+            cap -= 777
+            assert cap % tile
         nchild = rng.poisson(3.0, M) * (rng.random(M) < 0.5)
         nchild[1000:9000] = 0
         nchild[500] = 5000
         nchild[-20_000:] = 0
-        goal = {"below": cap // 3, "at": cap, "above": 2 * cap,
-                "none": 0}[case]
+        if case == "childless_run":
+            nchild[150_000:250_000] = 0
+        goal = {"below": cap // 3, "at": cap, "above": 2 * cap, "none": 0,
+                "childless_run": int(0.9 * cap), "cap_off_tile": cap // 2}
+        if case in ("tile_end", "tile_end_minus1"):
+            # the last walker of the merge (M - 2) has key cum + M - 2;
+            # put it on the last item of a tile (or one item earlier)
+            k = -(-(cap // 2 + M - 1) // tile)
+            goal[case] = k * tile - (M - 1) - (case == "tile_end_minus1")
+        goal = goal[case]
         cum = np.cumsum(nchild)
         i = int(np.searchsorted(cum, goal))
         nchild[i] -= cum[i] - goal
         nchild[i + 1:] = 0
+        assert nchild.sum() == goal and (nchild >= 0).all()
+        if case == "childless_run":
+            assert cum[250_000] < goal
     cum = torch.cumsum(torch.as_tensor(nchild, dtype=torch.int64,
                                        device=dev), 0)
+    if case.startswith("tile_end"):
+        key = int(cum[-2]) + len(nchild) - 2
+        assert (key + 1 + (case == "tile_end_minus1")) % tile == 0
     before = slotpar.launches
     got = slotpar.slot_parents(cum, cap)
     torch.cuda.synchronize()

@@ -2,7 +2,10 @@
 arithmetic, on the CPU: the heat-bath selection (sqmc_tpu_torch/ops/
 hbselect.py, whose kernel is csrc/hbselect.cu) and the slot -> parent
 expand (ops/slotpar.py, csrc/slotpar.cu).  On the CPU each op runs its
-plain version; tests/test_torch_cuda.py holds the kernels to these.
+plain version; tests/test_torch_cuda.py holds the kernels to these, and
+K3 bit for bit to the numpy emulation of its association
+(tests/torch_hb_emulation.py), which the tests here check against the
+plain version and the JAX package.
 
 The JAX side is written out here from sqmc_tpu/algo/walk.py (the row
 cumsums are sqmc_tpu.ops.prefix.cumsum_rows, the count and cell lines of
@@ -10,11 +13,14 @@ cumsums are sqmc_tpu.ops.prefix.cumsum_rows, the count and cell lines of
 :1866-1871; the expand of :1459-1467); nothing in sqmc_tpu changes.
 Inputs come from numpy seeds."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_hb_emulation as emu
 
 from sqmc_tpu.algo.walk import TINY
 from sqmc_tpu.ops import prefix
@@ -151,6 +157,19 @@ def test_hb_select_integer_r2_matches_jax_bitwise(norb, nup, ndn, singles):
     assert (port["m_tot"][:7] == 0).all() and (port["m_tot"][7:] > 0).all()
 
 
+@functools.lru_cache(maxsize=1)
+def _heg14_r2():
+    """R2 of HEG-14's walk tables (it does not depend on the trial)."""
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    s = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
+    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
+    cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=7, ndn=7,
+                     n_words=1, tau=2e-3, w_abs_target=1e3, has_singles=False)
+    return build_walk_tables(s, trial, cfg).R2.numpy()
+
+
 @pytest.mark.parametrize("singles", [False, True], ids=["doubles", "singles"])
 def test_hb_select_heg14_r2_matches_jax(singles):
     """HEG-14's walk-table R2 (float rowsums): the packages sum in other
@@ -161,18 +180,11 @@ def test_hb_select_heg14_r2_matches_jax(singles):
     p_pair_q to 4e-6 + 3e-5 p, the bound that follows from each of its
     four cells agreeing to 1e-6 of its row's total and the totals to
     1e-5."""
-    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
-    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
-    from sqmc_tpu_torch.systems.heg.system import make_heg_system
-    s = make_heg_system(3, 0.5, 14, 7, 1.49, device="cpu")
-    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
-    cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=7, ndn=7,
-                     n_words=1, tau=2e-3, w_abs_target=1e3, has_singles=False)
-    R2 = build_walk_tables(s, trial, cfg).R2.numpy()
+    R2 = _heg14_r2()
     assert R2.shape == (38, 38) and R2.max() > 0
-    rng, up, dn = _input(s.norb, 7, 7, 3)
-    u_rowsum = rng.random(s.norb) * 2.0 if singles else None
-    port, ref = _both(up, dn, s.norb, R2, u_rowsum, seed=4)
+    rng, up, dn = _input(19, 7, 7, 3)
+    u_rowsum = rng.random(19) * 2.0 if singles else None
+    port, ref = _both(up, dn, 19, R2, u_rowsum, seed=4)
     same = (port["o1"] == ref["o1"]) & (port["o2"] == ref["o2"])
     if singles:
         same &= port["o_s"] == ref["o_s"]
@@ -186,6 +198,112 @@ def test_hb_select_heg14_r2_matches_jax(singles):
         c, d = port["c_s"][same], ref["c_s"][same]
         assert np.all(np.abs(c.astype(np.float64) - d)
                       <= 1e-6 * ref["utot"][same])
+
+
+# ---------------------------------------------------------------------------
+# The numpy emulation of K3's arithmetic (tests/torch_hb_emulation.py),
+# which tests/test_torch_cuda.py holds the kernel to bit for bit
+# ---------------------------------------------------------------------------
+
+EMU_SHAPES = [(19, 7, 7, False), (26, 4, 4, True), (70, 6, 5, True)]
+EMU_IDS = ["norb19", "norb26_singles", "norb70_two_words"]
+
+
+@pytest.mark.parametrize("norb,nup,ndn,singles", EMU_SHAPES, ids=EMU_IDS)
+def test_emulated_rows_are_flat_over_empty_spin_orbitals(norb, nup, ndn,
+                                                         singles):
+    """The emulated running sums never decrease and repeat exactly across
+    every empty spin-orbital (float R2 spanning six decades), so an empty
+    spin-orbital's cell is exactly 0; the dead slots' rows are all 0."""
+    _, out, rows, bits = emu.on_sum_inputs(norb, nup, ndn, singles, 4096,
+                                           seed=2 * norb)
+    assert set(rows) == ({"s", "m", "1", "2"} if singles else {"m", "1", "2"})
+    for key, r in rows.items():
+        d = np.diff(r, axis=1)
+        assert (d >= 0).all(), key
+        assert (d[bits[:, 1:] == 0] == 0).all(), key
+        assert (r[bits[:, 0] == 0, 0] == 0).all(), key
+        assert (r[:7] == 0).all(), key
+    assert (out["m_tot"][7:] > 0).all()
+
+
+@pytest.mark.parametrize("norb,nup,ndn,singles", EMU_SHAPES, ids=EMU_IDS)
+def test_emulated_target_on_a_sum_draws_an_occupied_spin_orbital(
+        norb, nup, ndn, singles):
+    """Half of the targets lie exactly on an emulated running sum: every
+    draw whose target is below its row's total lands on an occupied
+    spin-orbital, those on a sum included (the draw counts the sums <= the
+    target, so it lands on the next occupied spin-orbital), and the cell it
+    reports is that spin-orbital's value (> 0)."""
+    inputs, out, rows, bits = emu.on_sum_inputs(norb, nup, ndn, singles,
+                                                4096, seed=2 * norb)
+    _, _, _, _, _, u_pick, u_entry = inputs
+    ar = np.arange(len(u_pick))
+    on1 = emu.below(u_pick, out["m_tot"])
+    checks = [("o1", "m", on1),
+              ("o2", "1", on1 & emu.below(u_entry, out["s1q"]))]
+    if singles:
+        checks.append(("o_s", "s", emu.below(u_pick, out["utot"])))
+    for key, row, on in checks:
+        assert on.mean() > 0.99, key
+        o = out[key]
+        assert (bits[ar, o][on] == 1).all(), key
+        r = rows[row]
+        cell = np.where(o > 0, r[ar, o] - r[ar, np.maximum(o - 1, 0)],
+                        r[ar, o])
+        assert (cell[on] > 0).all(), key
+    # the targets placed on a sum: the drawn row value at the draw is
+    # above the target, the one before it equal to it
+    t = (u_pick * out["m_tot"].astype(np.float64)).astype(np.float32)
+    r, o = rows["m"], out["o1"]
+    placed = on1 & (o > 0) & (r[ar, np.maximum(o - 1, 0)] == t)
+    assert placed.mean() > 0.3
+    assert (r[ar, o][placed] > t[placed]).all()
+
+
+@pytest.mark.parametrize("singles", [False, True], ids=["doubles", "singles"])
+@pytest.mark.parametrize("norb,nup,ndn", [(19, 7, 7), (70, 6, 5)],
+                         ids=["norb19", "norb70_two_words"])
+def test_emulation_integer_r2_matches_plain_and_jax_bitwise(norb, nup, ndn,
+                                                            singles):
+    """With integer R2 and u_rowsum every sum is exact, so the emulation
+    of K3's order, hb_select_plain and the JAX package's selection give
+    the same bits in every output."""
+    rng, up, dn = _input(norb, nup, ndn, norb)
+    n2 = 2 * norb
+    R2 = rng.integers(0, 16, (n2, n2)).astype(np.float32)
+    np.fill_diagonal(R2, 0.0)
+    u_rowsum = rng.integers(1, 9, norb).astype(np.float64) if singles else None
+    port, ref = _both(up, dn, norb, R2, u_rowsum, seed=norb + 1)
+    u = np.random.default_rng(norb + 1)
+    up_, ue = u.random(CAP), u.random(CAP)
+    got, _, _ = emu.emulate_hb_select(up, dn, norb, R2, u_rowsum, up_, ue)
+    assert set(got) == set(ref)
+    for k in ref:
+        for other in (port[k], ref[k]):
+            a, b = got[k], other
+            if a.dtype.kind == "f":
+                assert np.array_equal(a.view(np.int32), b.view(np.int32)), k
+            else:
+                assert np.array_equal(a, b.astype(np.int64)), k
+
+
+@pytest.mark.parametrize("singles", [False, True], ids=["doubles", "singles"])
+def test_emulation_heg14_r2_agrees_with_plain_and_jax(singles):
+    """HEG-14's float R2: the emulation's association (sequential adds,
+    mu over the occupied q) against hb_select_plain (torch.cumsum, mu by
+    a matmul) and the JAX package (triangular matmuls): the draws agree on
+    >= 99.99% of slots and, there, the totals, cells and p_pair_q within
+    the tolerances of chip_smoke.py's _hb_compare."""
+    R2 = _heg14_r2()
+    rng, up, dn = _input(19, 7, 7, 3)
+    u_rowsum = rng.random(19) * 2.0 if singles else None
+    port, ref = _both(up, dn, 19, R2, u_rowsum, seed=4)
+    u = np.random.default_rng(4)
+    up_, ue = u.random(CAP), u.random(CAP)
+    got, _, _ = emu.emulate_hb_select(up, dn, 19, R2, u_rowsum, up_, ue)
+    assert emu.compare(got, port) >= 0.9999
+    assert emu.compare(got, ref) >= 0.9999
 
 
 def _jax_expand(nchild, cap):
