@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
     python3 chip_smoke.py --mesh      # phases 0, 1 and 10 only, then exit 1
+    python3 chip_smoke.py --bench     # phases 0, 1 and 11 only, then exit 1
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -189,12 +190,31 @@ Phases, each reported on its own line; any failure exits nonzero:
      a generation and the ms of one exchange; 10c at two ranks; 10e
      sharded_unique_dets on 2M candidates with duplicates equal to
      setalg.unique_dets; 10d the dry run (parallel/dryrun.py) within 4
-     combined sigma of its serial golden.
+     combined sigma of its serial golden;
+ 11. the port's top-level entry points (FCIDUMP and trial cache in
+     build/bench/ and build/entry/): 11a ``sqmc_tpu_torch.bench.run`` at
+     bench.py's knobs on the synthetic C2-shaped file (plain dets, HCI
+     trial at eps_var 1e-3, heat-bath with singles, population 2e5, 12 + 30
+     blocks of 100 generations), its JSON record logged, gated on no
+     capacity growth, the population within 10% of 2e5 and e_mixed within
+     max(5 sigma, 2 mHa) of bench.ORACLE_E0 (HCI at eps_var 1e-4 + PT at
+     eps_pt 1e-7 on the same file); 11b ``sqmc_tpu_torch.entry.entry()``'s
+     fn called 10 times (finite outputs), then once under torch.cuda's
+     sync debug mode, printing where it waits for the card; 11c the
+     Cauchy-Schwarz and uniform proposals with singles on the same file
+     and trial at the bench's knobs (but twice its capacities and
+     pop_ctrl_exponent 100: PROPOSAL_KNOBS says why), cut to 4 + 4 blocks
+     of 100 generations (the card cell of their rows): no capacity
+     growth, no
+     measured block more than 20% off the population target, e_mixed
+     within max(5 sigma, 2 mHa) of the oracle, the largest |spawn weight|
+     printed beside 11a's heat-bath walk's.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
-of seg_scan, hb_select and slot_parents from phases 3, 7, 8 and 10,
-spmv's from phases 4, 7, 8, 9 and 10 (every rank's counts in phase 10),
+of seg_scan, hb_select and slot_parents from phases 3, 7, 8, 10 and 11,
+spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's counts in phase
+10),
 each path counted from 0; errors and times measured here: seg_scan at the
 walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
 hb_select and slot_parents at the walk's spawn shape) and ``{"ok": true,
@@ -3305,6 +3325,151 @@ def phase_mesh(dev, system=None, res=None, trial=None, warm=None):
         f"launches={COUNTS10}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the port's bench, entry() and the proposals' walks
+# ---------------------------------------------------------------------------
+
+COUNTS11 = dict.fromkeys(KERNELS, 0)  # phase 11's launches, path by path
+PROPOSAL_NBLK_EQ, PROPOSAL_NBLK = 4, 4    # 11c's blocks of 100 generations
+# 11c departs from the bench's knobs in two (both seen on an NVIDIA H100
+# 80GB HBM3 at the bench's knobs): the two proposals' walks occupy 1.35-1.5
+# dets per unit |w| (the heat-bath walk 1.23) and overshot to 5.0e5
+# occupied dets in their first block, so the walker and spawn capacities
+# are run_walk's first growth (2x) from the start; and at the default
+# pop_ctrl_exponent (10) their spawn noise held |w| at 1.37x
+# (Cauchy-Schwarz) and 1.72x (uniform) the target, so the population is
+# controlled at the reference's population_control_expon 100
+PROPOSAL_KNOBS = dict(mwalk=917_504, cap_spawn=524_288,
+                      pop_ctrl_exponent=100.0)
+
+
+def phase_bench(dev, smi):
+    """11a: ``sqmc_tpu_torch.bench.run`` at bench.py's knobs (the
+    synthetic C2-shaped file, plain dets, heat-bath with singles,
+    population 2e5, 12 + 30 blocks of 100 generations);
+    gates: no capacity growth, the population within 10% of 2e5,
+    |e_mixed - ORACLE_E0| < max(5 sigma, 2 mHa), K1, K3 and K4 launched."""
+    from sqmc_tpu_torch import bench
+    t0 = time.time()
+    rec, c = _counted(lambda: bench.run(dev), COUNTS11)
+    secs = time.time() - t0
+    log("phase 11a bench record: " + json.dumps(rec))
+    gate = max(5 * rec["e_err"], 2e-3)
+    log(f"phase 11a bench: gen_per_s={rec['gen_per_sec']:.3f} "
+        f"walker_steps_per_s={rec['value']:.6g} e_mixed={rec['e_mixed']:.9f} "
+        f"+- {rec['e_err']:.9f} bias_mHa={rec['bias_mHa']:.4f} gate_mHa="
+        f"{1e3 * gate:.4f} pop={rec['pop']:.1f} capacity_grows="
+        f"{rec['config']['capacity_grows']} max_abs_spawn_weight_below="
+        f"{rec['max_abs_spawn_weight_below']:g} launches={c} "
+        f"seconds={secs:.1f} [{smi}]")
+    if rec["config"]["capacity_grows"]:
+        raise AssertionError("11a: capacity growth in the bench walk")
+    if abs(rec["pop"] - 2e5) > 2e4:
+        raise AssertionError(f"11a: population {rec['pop']:.0f} not within "
+                             "10% of 2e5")
+    if not abs(rec["e_mixed"] - bench.ORACLE_E0) < gate:
+        raise AssertionError(f"11a: |e_mixed - oracle| = "
+                             f"{abs(rec['bias_mHa']):.4f} mHa >= "
+                             f"{1e3 * gate:.4f}")
+    _need("phase 11a bench", c, "seg_scan", "hb_select", "slot_parents")
+    return rec
+
+
+def phase_entry(dev):
+    """11b: ``sqmc_tpu_torch.entry.entry()``'s fn called 10 times on the
+    card: finite outputs, K1-K4 launched; one more call under
+    torch.cuda's sync debug mode lists where it waits for the card."""
+    import warnings
+    import torch
+    from sqmc_tpu_torch.entry import entry
+    t0 = time.time()
+    fn, (state, tables) = entry(dev)
+    fn(state, tables)                  # warm-up
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    _reset_counts()
+    t1 = time.time()
+    outs = [fn(state, tables) for _ in range(10)]
+    torch.cuda.synchronize()
+    t_calls = time.time() - t1
+    c = _read_counts()
+    for k in KERNELS:
+        COUNTS11[k] += c[k]
+    for wt, e_num, w_abs in outs:
+        if not (bool(torch.isfinite(wt).all()) and bool(torch.isfinite(e_num))
+                and bool(torch.isfinite(w_abs)) and float(w_abs) > 0):
+            raise AssertionError("11b: non-finite entry() output")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn(state, tables)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = sorted({f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message)})
+    n_sync = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"phase 11b entry: calls=10 setup_seconds={t_setup:.2f} "
+        f"ms_per_call={1e3 * t_calls / 10:.3f} w_abs={float(outs[-1][2]):.1f} "
+        f"host_syncs_per_call={n_sync} sync_sites={sites} launches={c}")
+    _need("phase 11b entry", c, *KERNELS)
+
+
+def phase_proposal_walks(dev, hb_rec):
+    """11c: the uniform / Cauchy-Schwarz proposals with singles on the
+    synthetic file (plain dets, 2n = 52) at the bench's knobs but
+    PROPOSAL_KNOBS, cut to PROPOSAL_NBLK_EQ + PROPOSAL_NBLK blocks of 100
+    generations: no capacity growth, no measured block more than 20% off
+    the population target, |e_mixed - ORACLE_E0| < max(5 sigma, 2 mHa);
+    prints the largest
+    |spawn weight| beside the heat-bath bench walk's (11a)."""
+    import dataclasses
+    import numpy as np
+    from sqmc_tpu_torch import bench
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    system, trial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
+                                                 **bench.TRIAL)
+    base = WalkConfig(norb=system.norb, nup=system.nup, ndn=system.ndn,
+                      n_words=system.n_words, **bench.WALK)
+    for proposal in ("cauchy_schwarz", "uniform"):
+        cfg = dataclasses.replace(base, proposal=proposal, **PROPOSAL_KNOBS)
+        t0 = time.time()
+        out, c = _counted(lambda: run_walk(
+            system, trial, cfg, nstep=100, nblk=PROPOSAL_NBLK,
+            nblk_eq=PROPOSAL_NBLK_EQ, w_abs_begin=bench.RUN["w_abs_begin"],
+            e_trial_initial=trial.e_trial, verbose=False,
+            max_eq_extensions=0, seed=11), COUNTS11)
+        blocks = out.w_abs_trace[-out.n_measured:].reshape(-1, 100).mean(1)
+        pop, dev_, gate = _gate_walk(f"11c {proposal}", out, 2e5,
+                                     bench.ORACLE_E0, 2e-3)
+        log(f"phase 11c {proposal} singles walk: measured_gens="
+            f"{out.n_measured} gen_per_s={out.steps_per_sec:.3f} "
+            f"pop={pop:.1f} block_w_abs={np.round(blocks, 1).tolist()} "
+            f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
+            f"vs_oracle_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
+            f"max_abs_spawn_weight_below="
+            f"{bench.spawn_weight_below(out.spawn_hist):g} (heat-bath 11a: "
+            f"{hb_rec['max_abs_spawn_weight_below']:g}) launches={c} "
+            f"seconds={time.time() - t0:.1f}")
+        if np.abs(blocks / 2e5 - 1).max() > 0.2:
+            raise AssertionError(f"11c {proposal}: population bursts, block "
+                                 f"w_abs {blocks}")
+        _need(f"phase 11c {proposal}", c, "seg_scan", "slot_parents")
+
+
+def phase_bench_all(dev, smi):
+    """Phase 11: 11a the bench, 11b entry(), 11c the proposals' walks."""
+    t0 = time.time()
+    rec = phase_bench(dev, smi)
+    t1 = time.time()
+    phase_entry(dev)
+    t2 = time.time()
+    phase_proposal_walks(dev, rec)
+    log(f"phase 11 stages: 11a={t1 - t0:.1f} 11b={t2 - t1:.1f} "
+        f"11c={time.time() - t2:.1f} seconds launches={COUNTS11} [{smi}]")
+
+
 def phase_build():
     """Every kernel, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3349,6 +3514,10 @@ def main():
         phase_mesh(dev)
         raise SystemExit("chip_smoke: --mesh ran phases 0, 1 and 10 only; "
                          "no result")
+    if "--bench" in sys.argv[1:]:
+        phase_bench_all(dev, smi)
+        raise SystemExit("chip_smoke: --bench ran phases 0, 1 and 11 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     hb, slot = phase_spawn_vs_plain(dev)
@@ -3369,7 +3538,8 @@ def main():
     phase_dense(dev, system, res, trial)
     phase_legacy(dev)
     phase_mesh(dev, system, res, trial, walkers)
-    for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10):
+    phase_bench_all(dev, smi)
+    for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10, COUNTS11):
         for k in KERNELS:
             launches[k] += counts[k]
 

@@ -1041,6 +1041,34 @@ def _ct_jump_move(cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl):
             torch.where(take_single[:, None], sd, dd))
 
 
+def pair_weights(cfg, tables, bits_up, bits_dn, wdt):
+    """The uniform / cauchy_schwarz proposals' electron pairs of each
+    parent det, listed as up-up pairs, dn-dn pairs, then up-dn pairs:
+    (p_pair, q_pair, weight), each [CAP, npairs]; p_pair / q_pair are
+    orbitals.  A uniform pair takes part (weight 1) when its heat-bath
+    row is not empty; a Cauchy-Schwarz pair weighs cs_rowsum[p]
+    cs_rowsum[q]."""
+    nup, ndn, norb = cfg.nup, cfg.ndn, cfg.norb
+    occ_up = dets.occ_orbitals(bits_up, nup)
+    occ_dn = dets.occ_orbitals(bits_dn, ndn)
+    iu, ju = np.triu_indices(nup, k=1)
+    idn, jdn = np.triu_indices(ndn, k=1)
+    io, jo = np.meshgrid(np.arange(nup), np.arange(ndn), indexing="ij")
+    p_pair = torch.cat([occ_up[:, iu], occ_dn[:, idn], occ_up[:, io.ravel()]],
+                       dim=1)
+    q_pair = torch.cat([occ_up[:, ju], occ_dn[:, jdn], occ_dn[:, jo.ravel()]],
+                       dim=1)
+    if cfg.proposal == "uniform":
+        so_p = torch.cat([occ_up[:, iu], occ_dn[:, idn] + norb,
+                          occ_up[:, io.ravel()]], dim=1)
+        so_q = torch.cat([occ_up[:, ju], occ_dn[:, jdn] + norb,
+                          occ_dn[:, jo.ravel()] + norb], dim=1)
+        weight = (tables.R2[so_p, so_q] > 0).to(wdt)
+    else:
+        weight = (tables.cs_rowsum[p_pair] * tables.cs_rowsum[q_pair]).to(wdt)
+    return p_pair, q_pair, weight
+
+
 def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
     """One proposed excitation per spawn slot for the linear projector:
     a double from cfg.proposal or (chem) a single, with the spawn-weight
@@ -1074,29 +1102,10 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
             bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)
             o_s, utot, diff_sng = hbselect.singles_rows(
                 bits2, tables.u_rowsum, up_)
-        # uniform / cauchy_schwarz: weights per electron pair, listed as
-        # up-up pairs, dn-dn pairs, then up-dn pairs
-        occ_up_c = dets.occ_orbitals(bits_up_c, nup)
-        occ_dn_c = dets.occ_orbitals(bits_dn_c, ndn)
-        iu, ju = np.triu_indices(nup, k=1)
-        idn, jdn = np.triu_indices(ndn, k=1)
-        io, jo = np.meshgrid(np.arange(nup), np.arange(ndn), indexing="ij")
-        p_pair = torch.cat([occ_up_c[:, iu], occ_dn_c[:, idn],
-                            occ_up_c[:, io.ravel()]], dim=1)
-        q_pair = torch.cat([occ_up_c[:, ju], occ_dn_c[:, jdn],
-                            occ_dn_c[:, jo.ravel()]], dim=1)
-        n_uu, n_dd = len(iu), len(idn)
-        if cfg.proposal == "uniform":
-            # a pair takes part when its heat-bath row is not empty
-            so_p = torch.cat([occ_up_c[:, iu], occ_dn_c[:, idn] + norb,
-                              occ_up_c[:, io.ravel()]], dim=1)
-            so_q = torch.cat([occ_up_c[:, ju], occ_dn_c[:, jdn] + norb,
-                              occ_dn_c[:, jo.ravel()] + norb], dim=1)
-            pr_weight = (R2[so_p, so_q] > 0).to(wdt)
-        else:
-            pr_weight = (tables.cs_rowsum[p_pair]
-                         * tables.cs_rowsum[q_pair]).to(wdt)
-        pair_rows = torch.cumsum(pr_weight.to(F32), dim=1)
+        p_pair, q_pair, pr_weight = pair_weights(cfg, tables, bits_up_c,
+                                                 bits_dn_c, wdt)
+        n_uu, n_dd = nup * (nup - 1) // 2, ndn * (ndn - 1) // 2
+        pair_rows = hbselect.flat_cumsum(pr_weight.to(F32))
         w2_b = pair_rows[:, -1].to(wdt)
     utot_b = utot.to(wdt) if cfg.has_singles else \
         torch.zeros(CAP, dtype=F64, device=dev)
@@ -1260,7 +1269,12 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
                          dets.set_orb(dets.clear_orb(up_w, p_s), r_s), up_w)
     sng_dn = torch.where(e_up[:, None], dn_w,
                          dets.set_orb(dets.clear_orb(dn_w, p_s), r_s))
-    sng_ok = (~r_s_occ) & (u_sel > 0)
+    # a draw past the last occupied spin-orbital (a target rounded up to
+    # utot: the count is capped at 2n - 1) realizes no cell; without the
+    # last two terms its child would carry one electron too many
+    p_s_occ = torch.where(e_up, dets.get_orb(up_w, p_s),
+                          dets.get_orb(dn_w, p_s))
+    sng_ok = (~r_s_occ) & (u_sel > 0) & (diff_sng > 0) & p_s_occ
     return (torch.where(take_single[:, None], sng_up, dbl_up),
             torch.where(take_single[:, None], sng_dn, dbl_dn),
             torch.where(take_single, w_sng, w_dbl),

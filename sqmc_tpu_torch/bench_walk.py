@@ -2,7 +2,7 @@
 time goes.
 
     python sqmc_tpu_torch/bench_walk.py [--repo DIR] [--gens N] [--tag NAME]
-                                        [--deck c2] [--profile N]
+                                        [--deck c2|bench] [--profile N]
                                         [--state both|f32|f64] [--kernels]
 
 By default runs the 14-electron electron gas (3D, r_s = 0.5, 19 plane
@@ -24,6 +24,10 @@ timed (CUDA-synchronized wall time) and under torch.profiler, and prints
 the kernel time a generation, the device rows (kernels, copies, sets) a
 generation, the busy share (kernel time / timed wall time), the top
 rows by device time and the rows of the package's own kernels.
+
+--deck bench runs the walk of ``python -m sqmc_tpu_torch.bench`` (the
+synthetic C2-shaped file in plain dets, its trial cached in build/bench/,
+its knobs and 12 equilibration blocks) for N generations.
 
 --state f32 or f64 runs only that state of the electron gas.
 
@@ -249,12 +253,37 @@ def c2_deck(args, smi):
         W.run_walk = real
 
 
+def bench_cell(args, smi):
+    """The walk of sqmc_tpu_torch/bench.py at its knobs, for args.gens
+    measured generations."""
+    import torch
+    from sqmc_tpu_torch import bench
+    from sqmc_tpu_torch.algo.walk import WalkConfig, run_walk
+    system, trial, _, _ = bench.system_and_trial(
+        torch.device("cuda"), bench.WORKDIR, **bench.TRIAL)
+    cfg = WalkConfig(norb=system.norb, nup=system.nup, ndn=system.ndn,
+                     n_words=system.n_words, **bench.WALK)
+    _reset_counts()
+    out = run_walk(system, trial, cfg, nstep=100,
+                   nblk=max(1, args.gens // 100),
+                   nblk_eq=bench.RUN["nblk_eq"],
+                   w_abs_begin=bench.RUN["w_abs_begin"],
+                   e_trial_initial=trial.e_trial, verbose=False,
+                   max_eq_extensions=0)
+    torch.cuda.synchronize()
+    tag = f"{args.tag} bench"
+    _report(tag, out, smi)
+    if args.profile:
+        _profile(system, trial, cfg, out.state, None, args.profile, tag, smi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=ROOT)
     ap.add_argument("--gens", type=int, default=400)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--deck", choices=("heg14", "c2"), default="heg14")
+    ap.add_argument("--deck", choices=("heg14", "c2", "bench"),
+                    default="heg14")
     ap.add_argument("--profile", type=int, default=0, metavar="N")
     ap.add_argument("--state", choices=("both", "f32", "f64"),
                     default="both")
@@ -271,7 +300,8 @@ def main():
     if args.kernels:
         kernels(args, smi)
     else:
-        (c2_deck if args.deck == "c2" else heg14)(args, smi)
+        {"heg14": heg14, "c2": c2_deck, "bench": bench_cell}[args.deck](
+            args, smi)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,10 @@ Draws count the cells <= target (capped at 2 norb - 1) and every
 probability is a difference of the same running sums the draw compared
 against (the exact S/diff correction of the spawn weight).
 
+The uniform and Cauchy-Schwarz proposals draw from rows built here too
+(:func:`singles_rows`, and the walk's pair rows), by :func:`flat_cumsum`:
+plain torch, flat over zero weights by construction on any device.
+
 :func:`hb_select` dispatches on the device of ``up_w``: a CPU tensor takes
 :func:`hb_select_plain`; a CUDA tensor launches the kernel (built from the
 source on first use, ops/cudabuild.py) or raises.
@@ -79,12 +83,35 @@ def sel_cell(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return hi - torch.where(idx > 0, lo, torch.zeros_like(lo))
 
 
+def flat_rows(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Running sums `rows` of the [B, n] non-negative weights `w`, made
+    flat over zero weights: every zero-weight entry takes the value at the
+    last positive entry at or before it (0 before the first), whose index
+    comes from an integer cummax, so the cell of every zero weight is
+    exactly 0 however `rows` were associated."""
+    ar = torch.arange(w.shape[1], device=w.device)
+    last = torch.where(w > 0, ar, -1).cummax(dim=1).values
+    flat = rows.gather(1, last.clamp(min=0))
+    return torch.where(last >= 0, flat, torch.zeros_like(flat))
+
+
+def flat_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """Running sums along the rows of [B, n] non-negative weights that are
+    flat over zero weights on any device (:func:`flat_rows` of
+    torch.cumsum).  torch.cumsum promises no association order, and a scan
+    associated in a tree leaves ulp-wide cells at zero weights: such a
+    cell is drawn about once in 1e7 draws, with a spawn weight ~1e7 times
+    too large.  On the CPU the cumsum adds in order and is already flat,
+    and this returns the same bits."""
+    return flat_rows(torch.cumsum(w, dim=1), w)
+
+
 def singles_rows(bits2: torch.Tensor, u_rowsum: torch.Tensor,
                  u_pick: torch.Tensor):
     """(o_s, utot, c_s) from the [CAP, 2n] float32 occupancy: occupied
     spin-orbital o carries weight u_rowsum[orb(o)]."""
     u2 = u_rowsum.to(F32).repeat(2)
-    sing_rows = torch.cumsum(bits2 * u2[None, :], dim=1)
+    sing_rows = flat_cumsum(bits2 * u2[None, :])
     utot = sing_rows[:, -1]
     o_s = count_le(sing_rows, (u_pick * utot).to(F32), bits2.shape[1] - 1)
     return o_s, utot, sel_cell(sing_rows, o_s)

@@ -1258,3 +1258,154 @@ def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
     assert hbselect.launches == hb0 + 50 and slotpar.launches == sp0 + 50
     assert abs(kern.e_mean - plain.e_mean) <= 3 * np.hypot(kern.e_err,
                                                             plain.e_err)
+
+
+# ---------------------------------------------------------------------------
+# The rows the uniform / Cauchy-Schwarz proposals draw from
+# ---------------------------------------------------------------------------
+
+FLAT_CAP = 262_144
+
+
+@pytest.fixture(scope="module")
+def c2_proposal_tables(tmp_path_factory):
+    """The synthetic C2-shaped system (26 orbitals, 4 + 4 electrons) on the
+    card, with its walk tables under the two proposals that build rows."""
+    dev = _device()
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
+    from sqmc_tpu_torch.parallel.dryrun import small_c2
+    from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump
+    path = str(tmp_path_factory.mktemp("proposal_rows") / "FCIDUMP")
+    write_c2_fcidump(path)
+    s, trial = small_c2(path, dev)
+    out = {}
+    for proposal in ("uniform", "cauchy_schwarz"):
+        cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=s.nup,
+                         ndn=s.ndn, n_words=s.n_words, tau=1e-3,
+                         w_abs_target=1e3, has_singles=True, proposal=proposal)
+        out[proposal] = (cfg, build_walk_tables(s, trial, cfg))
+    return dev, out
+
+
+def _flat_dets(dev, seed):
+    """FLAT_CAP random 4 + 4 electron dets over 26 orbitals on the card."""
+    rng = np.random.default_rng(seed)
+    up, dn = (torch.as_tensor(_random_dets(rng, FLAT_CAP + 14, 26, 4)[14:],
+                              device=dev) for _ in range(2))
+    return rng, up, dn
+
+
+def _row_counts(rows, w, drawn):
+    """(draws that landed on a zero weight, nonzero cells at zero weights,
+    rows that decrease somewhere) of the running sums `rows` of `w`."""
+    cells = torch.diff(rows, dim=1, prepend=torch.zeros_like(rows[:, :1]))
+    zero = w == 0
+    return (int(zero.gather(1, drawn[:, None]).sum()),
+            int((zero & (cells != 0)).sum()),
+            int((cells < 0).any(dim=1).sum()))
+
+
+@pytest.mark.cuda
+def test_proposal_singles_rows_are_flat_on_card(c2_proposal_tables):
+    """The singles draw of the uniform / Cauchy-Schwarz proposals at 6b's
+    chem shape (2n = 52, u_rowsum of the synthetic file): no draw lands on
+    an empty spin-orbital, every empty spin-orbital's cell is exactly 0
+    and every row is monotone.  Printed beside them: the same counts for
+    torch.cumsum rows, the construct flat_cumsum replaced."""
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.ops import hbselect
+    dev, t = c2_proposal_tables
+    _, tables = t["cauchy_schwarz"]
+    rng, up, dn = _flat_dets(dev, 13)
+    bits2 = torch.cat([dets.to_bits(up, 26), dets.to_bits(dn, 26)],
+                      dim=1).to(torch.float32)
+    u_pick = torch.as_tensor(rng.random(FLAT_CAP), device=dev)
+    o_s, utot, c_s = hbselect.singles_rows(bits2, tables.u_rowsum, u_pick)
+    w = bits2 * tables.u_rowsum.to(torch.float32).repeat(2)[None, :]
+    rows = hbselect.flat_cumsum(w)
+    assert torch.equal(utot, rows[:, -1])
+    assert torch.equal(c_s, hbselect.sel_cell(rows, o_s))
+    got = _row_counts(rows, w, o_s)
+    tree = torch.cumsum(w, dim=1)
+    old = _row_counts(tree, w, hbselect.count_le(
+        tree, (u_pick * tree[:, -1]).to(torch.float32), 51))
+    print(f"flat rows singles {FLAT_CAP} slots: flat_cumsum {got} "
+          f"torch.cumsum {old}")
+    assert got == (0, 0, 0), (got, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proposal", ["uniform", "cauchy_schwarz"])
+def test_proposal_pair_rows_are_flat_on_card(c2_proposal_tables, proposal):
+    """The pair draw of both proposals at the same shape (28 electron pairs
+    a det): no draw lands on a zero-weight pair, every zero-weight pair's
+    cell is exactly 0 and every row is monotone (printed beside the counts
+    of torch.cumsum rows)."""
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.walk import pair_weights
+    from sqmc_tpu_torch.ops import hbselect
+    dev, t = c2_proposal_tables
+    cfg, tables = t[proposal]
+    rng, up, dn = _flat_dets(dev, 14)
+    _, _, w = pair_weights(cfg, tables, dets.to_bits(up, 26),
+                           dets.to_bits(dn, 26), torch.float64)
+    w = w.to(torch.float32)
+    u = torch.as_tensor(rng.random(FLAT_CAP), device=dev)
+    counts = []
+    for rows in (hbselect.flat_cumsum(w), torch.cumsum(w, dim=1)):
+        drawn = hbselect.count_le(rows, (u * rows[:, -1]).to(torch.float32),
+                                  w.shape[1] - 1)
+        counts.append(_row_counts(rows, w, drawn))
+    print(f"flat rows {proposal} pairs {FLAT_CAP} slots, zero weights "
+          f"{int((w == 0).sum())}: flat_cumsum {counts[0]} torch.cumsum "
+          f"{counts[1]}")
+    assert counts[0] == (0, 0, 0), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [52, 260, 1024])
+def test_flat_cumsum_on_card_at_widths(width):
+    """flat_cumsum of [65,536, width] weights over two decades with zeros
+    (30% scattered, runs at both ends) on the card: every zero weight's
+    cell exactly 0, every row monotone, and the sums at positive weights
+    those of torch.cumsum (printed: torch.cumsum's own counts)."""
+    from sqmc_tpu_torch.ops import hbselect
+    dev = _device()
+    rng = np.random.default_rng(width)
+    w = 10.0 ** rng.uniform(-1, 1, (65_536, width))
+    w[rng.random(w.shape) < 0.3] = 0.0
+    w[:, :3] = w[:, -4:] = 0.0
+    w = torch.as_tensor(w.astype(np.float32), device=dev)
+    u = torch.as_tensor(rng.random(w.shape[0]), device=dev)
+    counts = []
+    tree = torch.cumsum(w, dim=1)
+    flat = hbselect.flat_cumsum(w)
+    for rows in (flat, tree):
+        drawn = hbselect.count_le(rows, (u * rows[:, -1]).to(torch.float32),
+                                  width - 1)
+        counts.append(_row_counts(rows, w, drawn))
+    print(f"flat rows width {width}: flat_cumsum {counts[0]} torch.cumsum "
+          f"{counts[1]}")
+    assert counts[0] == (0, 0, 0), counts
+    assert torch.equal(flat[w > 0], tree[w > 0])
+
+
+@pytest.mark.cuda
+def test_entry_runs_a_generation_on_card():
+    """entry()'s fn on the card: finite outputs of __graft_entry__'s
+    shapes and dtypes, launching K1, K2 (the float64 projector), K3 and
+    K4 once a call."""
+    from sqmc_tpu_torch.entry import entry
+    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
+    mods = (segscan, spmv, hbselect, slotpar)
+    dev = _device()
+    fn, (state, tables) = entry()
+    before = [m.launches for m in mods]
+    for _ in range(3):
+        wt, e_num, w_abs = fn(state, tables)
+    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3]
+    assert wt.device.type == "cuda" and wt.shape == (2048,)
+    assert wt.dtype == e_num.dtype == w_abs.dtype == torch.float64
+    assert e_num.shape == w_abs.shape == ()
+    assert bool(torch.isfinite(wt).all()) and float(w_abs) > 0
+    assert bool(torch.isfinite(e_num))

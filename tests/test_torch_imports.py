@@ -34,7 +34,9 @@ def test_port_imports_without_jax():
                 "sqmc_tpu_torch.parallel.dryrun",
                 "sqmc_tpu_torch.systems.chem.synthetic",
                 "sqmc_tpu_torch.ops.hbselect",
-                "sqmc_tpu_torch.ops.slotpar"):
+                "sqmc_tpu_torch.ops.slotpar",
+                "sqmc_tpu_torch.bench",
+                "sqmc_tpu_torch.entry"):
         assert new in mods, new
     code = (
         "import sys\n"
@@ -53,3 +55,23 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(mods) >= 54
+
+
+def test_chip_smoke_and_port_sources_import_no_jax():
+    """No import statement of chip_smoke.py or of the port's modules, at
+    top level or inside a function, names jax or the JAX package."""
+    import ast
+    files = [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "sqmc_tpu_torch").rglob("*.py"))
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.name}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "sqmc_tpu")]
+    assert len(files) >= 56 and not bad, bad

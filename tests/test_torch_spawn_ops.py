@@ -382,3 +382,118 @@ def test_spawn_kernel_sources_have_no_atomics():
     csrc = pathlib.Path(slotpar.__file__).resolve().parent.parent / "csrc"
     for name in ("hbselect.cu", "slotpar.cu"):
         assert "atomic" not in (csrc / name).read_text().lower(), name
+
+
+# ---------------------------------------------------------------------------
+# The rows of the uniform / Cauchy-Schwarz proposals (ops/hbselect.py
+# flat_cumsum) and the singles guard of the port's _propose
+# ---------------------------------------------------------------------------
+
+def _zero_run_weights(rng, B, n, dtype, decades=6):
+    """[B, n] non-negative weights spanning `decades` decades, with zero
+    runs at the start, in the middle and at the end of every row,
+    scattered zeros and one row of zeros only."""
+    w = 10.0 ** rng.uniform(-decades / 2, decades / 2, (B, n))
+    w[rng.random((B, n)) < 0.3] = 0.0
+    w[:, :3] = 0.0
+    w[:, n // 2:n // 2 + 5] = 0.0
+    w[:, -4:] = 0.0
+    w[0] = 0.0
+    return torch.as_tensor(w.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_flat_cumsum_is_torch_cumsum_bitwise_on_cpu(dtype):
+    """On the CPU torch.cumsum adds in order, so it is already flat over
+    zero weights: flat_cumsum returns its bits, and every CPU parity test
+    of the walk against the JAX package keeps its numbers."""
+    w = _zero_run_weights(np.random.default_rng(31), 4096, 52, dtype)
+    got, ref = hbselect.flat_cumsum(w), torch.cumsum(w, dim=1)
+    iview = torch.int32 if dtype == np.float32 else torch.int64
+    assert torch.equal(got.view(iview), ref.view(iview))
+
+
+def _tree_cumsum(v):
+    """Running sums in float32 associated as a parallel scan does
+    (Hillis-Steele: log2 n rounds, each adding the value d places back)."""
+    x = v.astype(np.float32)
+    d = 1
+    while d < x.shape[1]:
+        x = np.concatenate([x[:, :d], x[:, d:] + x[:, :-d]], axis=1)
+        d *= 2
+    return x
+
+
+def test_flat_rows_make_tree_sums_flat_over_zero_weights():
+    """Tree-associated running sums leave nonzero (ulp-wide) cells at zero
+    weights; flat_rows gives every zero weight a cell of exactly 0 and
+    keeps the sums at the positive weights.  With weights over two decades
+    (the synthetic C2 file's nonzero u_rowsum spans 1.6-4.4) each positive
+    weight exceeds the sums' rounding, so the rows never decrease."""
+    w = _zero_run_weights(np.random.default_rng(32), 4096, 52, np.float32,
+                          decades=2)
+    tree = _tree_cumsum(w.numpy())
+    zero = w.numpy() == 0
+
+    def cells(r):
+        return np.diff(r, axis=1, prepend=np.zeros((r.shape[0], 1), r.dtype))
+
+    assert (cells(tree)[zero] != 0).sum() > 100        # the hazard is real
+    flat = hbselect.flat_rows(torch.as_tensor(tree), w).numpy()
+    assert (cells(flat)[zero] == 0).all()
+    assert np.array_equal(flat[~zero], tree[~zero])
+    assert (cells(flat) >= 0).all()
+
+
+@functools.lru_cache(maxsize=1)
+def _c2_cs_tables():
+    """The synthetic C2-shaped system (26 orbitals, 4 + 4) and its walk
+    tables with the Cauchy-Schwarz proposal and singles."""
+    import tempfile
+    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
+    from sqmc_tpu_torch.parallel.dryrun import small_c2
+    from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/FCIDUMP"
+        write_c2_fcidump(path)
+        s, trial = small_c2(path, "cpu")
+    cfg = WalkConfig(mwalk=1024, cap_spawn=64, norb=s.norb, nup=s.nup,
+                     ndn=s.ndn, n_words=s.n_words, tau=1e-3, w_abs_target=1e3,
+                     has_singles=True, proposal="cauchy_schwarz")
+    return s, cfg, build_walk_tables(s, trial, cfg)
+
+
+def test_singles_guard_rejects_a_draw_past_the_last_occupied_orbital():
+    """A singles target that rounds up to its row's total (u_pick * utot
+    -> utot in float32) draws the capped last spin-orbital; on a det whose
+    last dn orbital is empty that spin-orbital is unoccupied and its cell
+    is 0.  The child the proposal writes there would carry 9 electrons;
+    the port's sng_ok (a realized cell > 0 and an occupied p_s) rejects
+    it, where the JAX package's check (an empty r_s, U[p_s, r_s] > 0)
+    would not.  Ordinary draws on the same dets are kept."""
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.algo.walk import _propose
+    s, cfg, tables = _c2_cs_tables()
+    n = 64
+    up = torch.as_tensor(np.repeat(s.hf_up[None, :], n, 0))
+    dn = torch.as_tensor(np.repeat(s.hf_dn[None, :], n, 0))
+    assert not bool(dets.get_orb(dn, torch.full((n,), 25)).any())
+    rng = np.random.default_rng(33)
+    u_pick = rng.random(n)
+    u_pick[::2] = 1.0 - 1e-9                       # rounds up to utot
+    streams = tuple(torch.as_tensor(x) for x in (
+        np.zeros(n), u_pick, rng.random(n), rng.random(n), rng.random(n)))
+    gen = torch.Generator().manual_seed(0)
+    tau = torch.tensor(1e-3, dtype=torch.float64)
+    sp_up, sp_dn, factor, ok = _propose(cfg, tables, up, dn, tau,
+                                        torch.float32, streams, gen)
+    nel = (dets.to_bits(sp_up, 26).sum(1) + dets.to_bits(sp_dn, 26).sum(1))
+    forced = torch.arange(n) % 2 == 0
+    # the child sets an empty r_s and clears nothing: 9 electrons, with
+    # U[25, r_s] > 0, so the JAX package's check would accept it
+    bad = forced & (nel == 9)
+    assert int(bad.sum()) >= 8
+    r_s = dets.to_bits(sp_dn[bad] & ~dn[bad], 26).argmax(1)
+    assert bool((tables.u_table[25, r_s] > 0).all())
+    assert not bool(ok[forced].any())
+    assert bool((nel[~forced] == 8).all()) and bool(ok[~forced].any())
