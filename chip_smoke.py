@@ -8,6 +8,13 @@
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
     python3 chip_smoke.py --mesh      # phases 0, 1 and 10 only, then exit 1
     python3 chip_smoke.py --bench     # phases 0, 1 and 11 only, then exit 1
+    python3 chip_smoke.py --graph     # phases 0, 1 and 12 only, then exit 1
+
+Every walk below runs as the package runs it on the card: each block
+replays one captured generation (a CUDA graph, sqmc_tpu_torch/utils/
+cudagraph.py; the eager loop only on a mesh and under the sequential
+initiator rule), and the launch counts it reports are the eager loop's
+(the graph's recorded launches times its replays).
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -208,13 +215,22 @@ Phases, each reported on its own line; any failure exits nonzero:
      growth, no
      measured block more than 20% off the population target, e_mixed
      within max(5 sigma, 2 mHa) of the oracle, the largest |spawn weight|
-     printed beside 11a's heat-bath walk's.
+     printed beside 11a's heat-bath walk's;
+ 12. the captured walk against the eager loop: the bench's walk (11a's
+     file, trial and knobs) and phase 3's HEG-14 f32 cell, from the
+     initial state, one block of 100 generations each through
+     ``walk._walk_block_eager`` and through ``walk.walk_block`` (the
+     generation captured first, outside the timed block), from one seed:
+     the state arrays, the trace, the spawn histogram and the generators'
+     states equal bit for bit and the launch counts equal; prints both
+     paths' gen/s, the capture's seconds and memory pool and the graph's
+     replays a generation.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
-of seg_scan, hb_select and slot_parents from phases 3, 7, 8, 10 and 11,
-spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's counts in phase
-10),
+of seg_scan, hb_select and slot_parents from phases 3, 7, 8, 10, 11 and
+12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's counts in
+phase 10),
 each path counted from 0; errors and times measured here: seg_scan at the
 walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
 hb_select and slot_parents at the walk's spawn shape) and ``{"ok": true,
@@ -3470,6 +3486,99 @@ def phase_bench_all(dev, smi):
         f"11c={time.time() - t2:.1f} seconds launches={COUNTS11} [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the captured walk against the eager loop
+# ---------------------------------------------------------------------------
+
+COUNTS12 = dict.fromkeys(KERNELS, 0)  # phase 12's launches, both paths
+GRAPH_GENS = 100                      # one block of each path, per cell
+
+
+def _same_walk(tag, a, b, sa, sb):
+    """Fail unless two walk states and block stats are equal bit for bit."""
+    import torch
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or not torch.equal(x, y))):
+            raise AssertionError(f"12 {tag}: captured and eager walks "
+                                 f"differ in state field {f}")
+    for k in sa:
+        if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+            raise AssertionError(f"12 {tag}: captured and eager walks "
+                                 f"differ in stat {k}")
+
+
+def _graph_vs_eager(tag, system, trial, cfg, w0, smi):
+    """One block of GRAPH_GENS generations from one state and seed through
+    the eager loop and through the captured generation (captured first,
+    outside the timed block): bit for bit, the same launch counts; prints
+    both paths' gen/s, the capture's seconds and memory pool and the
+    graph's replays a generation."""
+    import torch
+    from sqmc_tpu_torch.algo import walk as W
+    dev = trial.psit_coef.device
+    tables = W.build_walk_tables(system, trial, cfg)
+    st = W.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    gens = {m: torch.Generator(device=dev).manual_seed(12)
+            for m in ("eager", "graph")}
+    graph = W._step_graph(st, tables, cfg, gens["graph"], GRAPH_GENS)
+    out, sec, counts = {}, {}, {}
+    for mode, block in (("eager", W._walk_block_eager),
+                        ("graph", W.walk_block)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode], counts[mode] = _counted(
+            lambda: block(st, tables, cfg, GRAPH_GENS, gens[mode]), COUNTS12)
+        torch.cuda.synchronize()
+        sec[mode] = time.perf_counter() - t0
+    (a, sa), (b, sb) = out["eager"], out["graph"]
+    _same_walk(tag, a, b, sa, sb)
+    if not torch.equal(gens["eager"].get_state(), gens["graph"].get_state()):
+        raise AssertionError(f"12 {tag}: the generators' states differ")
+    if counts["eager"] != counts["graph"]:
+        raise AssertionError(f"12 {tag}: launches {counts}")
+    log(f"phase 12 {tag}: gens={GRAPH_GENS} bitwise_equal=True "
+        f"eager_gen_per_s={GRAPH_GENS / sec['eager']:.3f} "
+        f"graph_gen_per_s={GRAPH_GENS / sec['graph']:.3f} "
+        f"capture_seconds={graph.capture_seconds:.3f} "
+        f"pool_MB={graph.pool_bytes / 2**20:.1f} "
+        f"replays_per_gen={graph.replays / GRAPH_GENS:.2f} "
+        f"w_abs={float(sb['w_abs_gen'][-1]):.1f} launches={counts['graph']} "
+        f"[{smi}]")
+    W.release_graphs()
+    _need(f"phase 12 {tag}", counts["graph"], "seg_scan", "hb_select",
+          "slot_parents")
+
+
+def phase_graph(dev, smi, system=None, trial=None):
+    """12: the bench's walk and HEG-14's (phase 3's system and trial when
+    given), captured and eager from one seed (_graph_vs_eager)."""
+    import torch
+    from sqmc_tpu_torch import bench
+    from sqmc_tpu_torch.algo.walk import WalkConfig
+    t0 = time.time()
+    bsys, btrial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
+                                                **bench.TRIAL)
+    _graph_vs_eager("bench", bsys, btrial,
+                    WalkConfig(norb=bsys.norb, nup=bsys.nup, ndn=bsys.ndn,
+                               n_words=bsys.n_words, **bench.WALK),
+                    bench.RUN["w_abs_begin"], smi)
+    if system is None:
+        from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+        from sqmc_tpu_torch.systems.heg.system import make_heg_system
+        system = make_heg_system(*HEG, device=dev)
+        trial = build_trial_wavefunction(system, eps_var=EPS_VAR,
+                                         n_psi_t=2000, n_imp=20000)
+        torch.cuda.synchronize()
+    _graph_vs_eager("heg14_f32", system, trial, WalkConfig(
+        mwalk=458_752, cap_spawn=262_144, norb=system.norb, nup=system.nup,
+        ndn=system.ndn, n_words=system.n_words, tau=2e-3,
+        w_abs_target=W_TARGET, spawn_granularity=2.0, min_wt=0.5,
+        r_initiator=0.5, f32_state=True, has_singles=False), W_BEGIN, smi)
+    log(f"phase 12 seconds={time.time() - t0:.1f} launches={COUNTS12}")
+
+
 def phase_build():
     """Every kernel, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3518,6 +3627,10 @@ def main():
         phase_bench_all(dev, smi)
         raise SystemExit("chip_smoke: --bench ran phases 0, 1 and 11 only; "
                          "no result")
+    if "--graph" in sys.argv[1:]:
+        phase_graph(dev, smi)
+        raise SystemExit("chip_smoke: --graph ran phases 0, 1 and 12 only; "
+                         "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     hb, slot = phase_spawn_vs_plain(dev)
@@ -3539,7 +3652,8 @@ def main():
     phase_legacy(dev)
     phase_mesh(dev, system, res, trial, walkers)
     phase_bench_all(dev, smi)
-    for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10, COUNTS11):
+    phase_graph(dev, smi, system, trial)
+    for counts in (COUNTS7, COUNTS8, COUNTS9, COUNTS10, COUNTS11, COUNTS12):
         for k in KERNELS:
             launches[k] += counts[k]
 

@@ -26,6 +26,9 @@ the (up, dn) key:
 Inside a generation nothing waits on the device: shapes are capacity-
 bounded (count -> cumsum -> fixed slots) and compactions are order-
 preserving scatters; ``overflow`` is read once per block by the driver.
+On the card the generation is captured once as a CUDA graph and a block
+replays it (``walk_block``; ``_graphed`` names the exceptions), the
+counterpart of the JAX package's one compiled program per block.
 Randomness comes from one ``torch.Generator``; the port cannot follow the
 JAX package's random stream, so only the deterministic limit matches it
 value by value.
@@ -73,6 +76,7 @@ from ..ops.alias import setup_alias_np
 from ..systems.chem import slater
 from ..systems.chem.slater import SQRT2, SQRT2INV
 from ..systems.heatbath import tri_le, tri_lt
+from ..utils.cudagraph import StepGraph
 from ..utils.precision import full_fp32_matmul
 
 F64 = torch.float64
@@ -1051,18 +1055,20 @@ def pair_weights(cfg, tables, bits_up, bits_dn, wdt):
     nup, ndn, norb = cfg.nup, cfg.ndn, cfg.norb
     occ_up = dets.occ_orbitals(bits_up, nup)
     occ_dn = dets.occ_orbitals(bits_dn, ndn)
-    iu, ju = np.triu_indices(nup, k=1)
-    idn, jdn = np.triu_indices(ndn, k=1)
-    io, jo = np.meshgrid(np.arange(nup), np.arange(ndn), indexing="ij")
-    p_pair = torch.cat([occ_up[:, iu], occ_dn[:, idn], occ_up[:, io.ravel()]],
-                       dim=1)
-    q_pair = torch.cat([occ_up[:, ju], occ_dn[:, jdn], occ_dn[:, jo.ravel()]],
-                       dim=1)
+    # the pair index lists are made on the device: a host array as an index
+    # is a copy from the host each generation (refused inside a CUDA graph)
+    dev = occ_up.device
+    iu, ju = torch.triu_indices(nup, nup, 1, device=dev)
+    idn, jdn = torch.triu_indices(ndn, ndn, 1, device=dev)
+    io = torch.arange(nup, device=dev)[:, None].expand(nup, ndn).reshape(-1)
+    jo = torch.arange(ndn, device=dev)[None, :].expand(nup, ndn).reshape(-1)
+    p_pair = torch.cat([occ_up[:, iu], occ_dn[:, idn], occ_up[:, io]], dim=1)
+    q_pair = torch.cat([occ_up[:, ju], occ_dn[:, jdn], occ_dn[:, jo]], dim=1)
     if cfg.proposal == "uniform":
         so_p = torch.cat([occ_up[:, iu], occ_dn[:, idn] + norb,
-                          occ_up[:, io.ravel()]], dim=1)
+                          occ_up[:, io]], dim=1)
         so_q = torch.cat([occ_up[:, ju], occ_dn[:, jdn] + norb,
-                          occ_dn[:, jo.ravel()] + norb], dim=1)
+                          occ_dn[:, jo] + norb], dim=1)
         weight = (tables.R2[so_p, so_q] > 0).to(wdt)
     else:
         weight = (tables.cs_rowsum[p_pair] * tables.cs_rowsum[q_pair]).to(wdt)
@@ -1932,12 +1938,56 @@ def _check_mesh(cfg: WalkConfig, tables: WalkTables) -> None:
                          "n_dev equal to the mesh's size")
 
 
+def _graphed(device: torch.device, tables: WalkTables, cfg: WalkConfig) -> bool:
+    """Whether walk_step / walk_block replay a captured generation (a CUDA
+    graph, utils/cudagraph.py) or run the eager loop.  The card replays,
+    except on a mesh (gloo cannot be captured; NCCL capture over several
+    cards is unverified) and under the sequential initiator rule, whose
+    rank counts are a host sync by design.  The CPU runs the eager loop,
+    the plain version that the CPU tests hold against the JAX package."""
+    return (device.type == "cuda" and tables.mesh is None
+            and cfg.initiator_rule != "sequential")
+
+
+# The one captured generation of the process: a new (tables, generator,
+# cfg, device, dtype) drops it, with its memory pool, before the next
+# capture; run_walk drops it when it returns.
+_GRAPH: dict = {}
+
+
+def release_graphs() -> None:
+    """Free the captured generation and its memory pool."""
+    _GRAPH.clear()
+
+
+def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
+                gen: torch.Generator, nstep: int) -> StepGraph:
+    """The captured generation of this walk, captured for it if need be
+    (a growth of the capacities changes cfg and so captures again)."""
+    key = (id(tables), id(gen), cfg, state.wt.device, state.wt.dtype)
+    g = _GRAPH.get(key)
+    if g is None or g.rows < nstep:
+        _GRAPH.clear()
+        # the step holds tables and gen, so their ids stay unique while the
+        # graph lives; the host-side generator state is not the step's input
+        g = StepGraph(lambda s: _walk_step_impl(s, tables, cfg, gen),
+                      state._replace(rng_state=None), gen, _TRACE_KEYS,
+                      ("spawn_hist",),
+                      counters=(segscan, spmv, hbselect, slotpar),
+                      rows=max(nstep, 128))
+        _GRAPH[key] = g
+    return g
+
+
 def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
               gen: torch.Generator):
-    """One MC generation.  Returns (new_state, stats dict)."""
+    """One MC generation.  Returns (new_state, stats dict), tensors the
+    caller owns; on the card one replay of the captured generation."""
     _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
-    return _walk_step_impl(state, tables, cfg, gen)
+    if not _graphed(state.wt.device, tables, cfg):
+        return _walk_step_impl(state, tables, cfg, gen)
+    return _step_graph(state, tables, cfg, gen, 1).step(state)
 
 
 _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
@@ -1946,9 +1996,33 @@ _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
 
 def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                nstep: int, gen: torch.Generator):
-    """`nstep` generations as a Python loop with no host sync inside.
-    Returns (state, stats) with stats[k] an [nstep] device tensor per
-    trace key and stats["spawn_hist"] the block's summed histogram."""
+    """`nstep` generations with no host sync inside (repair_caches reads
+    one flag before them).  On the card (but see _graphed) one captured
+    generation replayed `nstep` times, the counterpart of the JAX
+    package's jit over lax.scan; elsewhere _walk_block_eager.  Returns
+    (state, stats) with stats[k] an [nstep] device tensor per trace key
+    and stats["spawn_hist"] the block's summed histogram."""
+    if not _graphed(state.wt.device, tables, cfg):
+        return _walk_block_eager(state, tables, cfg, nstep, gen)
+    _check_mesh(cfg, tables)
+    return _replay_block(repair_caches(state, tables, cfg), tables, cfg,
+                         nstep, gen)
+
+
+def _replay_block(state, tables, cfg, nstep, gen):
+    """walk_block's generations through the captured graph (on a CPU
+    state the runner runs the same body eagerly)."""
+    new, trace, sums = _step_graph(state, tables, cfg, gen, nstep).block(
+        state, nstep)
+    stats = {k: trace[:, i] for i, k in enumerate(_TRACE_KEYS)}
+    stats["spawn_hist"] = sums["spawn_hist"]
+    return new, stats
+
+
+def _walk_block_eager(state: WalkState, tables: WalkTables, cfg: WalkConfig,
+                      nstep: int, gen: torch.Generator):
+    """walk_block as a Python loop of eager generations: the CPU's path,
+    and on the card the reference the captured walk is held to."""
     _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
     rows, hist = [], None
@@ -2169,6 +2243,7 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
                     print(f"extending equilibration (pop_off={pop_off}, "
                           f"drift={drift})", flush=True)
         iblk += 1
+    release_graphs()
     state = end_of_block(state)
 
     e_blocks = np.asarray(e_blocks)

@@ -19,11 +19,17 @@ C2-shaped FCIDUMP, 26 orbitals with singles, time-symmetrized, float64
 state, population 2e5, the deck's own depth) through the CLI's
 run_from_config; the FCIDUMP goes to build/bench_walk/.
 
---profile N runs N more generations from each walk's final state twice:
-timed (CUDA-synchronized wall time) and under torch.profiler, and prints
-the kernel time a generation, the device rows (kernels, copies, sets) a
-generation, the busy share (kernel time / timed wall time), the top
-rows by device time and the rows of the package's own kernels.
+The walks run as the package runs them: on the card each block replays
+one captured generation (a CUDA graph).  --profile N runs N more
+generations from each walk's final state, first through the eager loop
+(``walk._walk_block_eager``), then through the captured generation, each
+twice: timed (CUDA-synchronized wall time) and under torch.profiler, and
+prints the kernel time a generation, the device rows (kernels, copies,
+sets) a generation, the timed ms and gen/s, the busy share (kernel time /
+timed wall time), the host calls that queue work (kernel and graph
+launches, copies, sets) a generation, the top rows by device time and the
+rows of the package's own kernels; for the graph also its capture seconds
+and memory pool.
 
 --deck bench runs the walk of ``python -m sqmc_tpu_torch.bench`` (the
 synthetic C2-shaped file in plain dets, its trial cached in build/bench/,
@@ -70,35 +76,61 @@ def _reset_counts():
         importlib.import_module(f"sqmc_tpu_torch.ops.{name}").reset_launches()
 
 
+# host calls that put work on the card's queue
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
 def _profile(system, trial, cfg, state, guide, n, tag, smi):
-    """n generations from `state`, timed, then n more under the profiler."""
+    """n generations from `state`, timed, then n more under the profiler,
+    first through the eager loop (walk._walk_block_eager), then through
+    the captured generation (walk.walk_block: one CUDA graph replayed)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sqmc_tpu_torch.algo import walk as W
     tables = W.build_walk_tables(system, trial, cfg, guide=guide)
     gen = torch.Generator(device=state.wt.device).manual_seed(7)
-    state, _ = W.walk_block(state, tables, cfg, 2, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = W.walk_block(state, tables, cfg, n, gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        W.walk_block(state, tables, cfg, n, gen)
+    # a checkout from before the captured walk (--repo) has the loop only
+    modes = ((("eager", W._walk_block_eager), ("graph", W.walk_block))
+             if hasattr(W, "_walk_block_eager") else (("eager", W.walk_block),))
+    for mode, block in modes:
+        state, _ = block(state, tables, cfg, 2, gen)    # graph: the capture
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = block(state, tables, cfg, n, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = block(state, tables, cfg, n, gen)
+            torch.cuda.synchronize()
+        _profile_lines(prof, DeviceType, n, wall, f"{tag} {mode}", smi)
+        if mode == "graph":
+            g = W._GRAPH[next(iter(W._GRAPH))]
+            print(f"bench_walk {tag} graph: capture_seconds="
+                  f"{g.capture_seconds:.3f} pool_MB={g.pool_bytes / 2**20:.1f}"
+                  f" [{smi}]", flush=True)
+    if hasattr(W, "release_graphs"):
+        W.release_graphs()
+
+
+def _profile_lines(prof, DeviceType, n, wall, tag, smi):
     rows = {}
+    host = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us, k = rows.get(e.name, (0.0, 0))
             rows[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+        elif e.name.startswith(HOST_LAUNCHES):
+            host += 1
     total = sum(us for us, _ in rows.values())
     count = sum(k for _, k in rows.values())
     print(f"bench_walk {tag} profile: gens={n} kernel_ms_per_gen="
           f"{total / n / 1e3:.4f} device_rows_per_gen={count / n:.1f} "
           f"timed_ms_per_gen={wall / n * 1e3:.4f} busy_share="
-          f"{total / 1e6 / wall:.3f} [{smi}]", flush=True)
+          f"{total / 1e6 / wall:.3f} gen_per_s={n / wall:.3f} "
+          f"host_launches_per_gen={host / n:.2f} [{smi}]", flush=True)
     for name, (us, k) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"bench_walk {tag} profile row: us_per_gen={us / n:.1f} "
               f"calls_per_gen={k / n:.2f} share={us / total:.3f} "
@@ -108,7 +140,7 @@ def _profile(system, trial, cfg, state, guide, n, tag, smi):
         us, k = sum(f[0] for f in found), sum(f[1] for f in found)
         print(f"bench_walk {tag} profile kernel: {kernel} us_per_gen="
               f"{us / n:.1f} calls_per_gen={k / n:.2f} share="
-              f"{us / total:.3f}", flush=True)
+              f"{us / max(total, 1e-9):.3f}", flush=True)
 
 
 def _report(tag, out, smi):

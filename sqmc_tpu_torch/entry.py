@@ -53,14 +53,13 @@ def entry(device=None):
 
     def fn(state, tables):
         """One generation (``walk_step`` with the walk's own generator,
-        which advances on every call).
+        which advances on every call): on the card one replay of the
+        generation captured as a CUDA graph at the first call, between a
+        copy of `state` into the graph's buffers and clones of the result.
 
         Host syncs on the card: ``repair_caches`` reads one flag
-        (``bool(need.any())``) before the generation, and, with
-        ``initiator_rule="sequential"`` only, ``sequential_initiator_scan``
-        reads the rank counts (``.tolist()``).  Nothing else in the
-        generation waits for the card; every kernel wrapper launches on the
-        current stream."""
+        (``bool(need.any())``) before the generation, and the first call
+        synchronizes once to capture.  Nothing else waits for the card."""
         new_state, stats = walk_step(state, tables, cfg, gen)
         return new_state.wt, stats["e_num_gen"], stats["w_abs_gen"]
 

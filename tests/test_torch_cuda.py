@@ -703,7 +703,10 @@ def test_seg_scan_on_redirected_spawn_merge(monkeypatch):
     imp code 126): every generation's scan is recorded and held against
     the plain version on the same rows - integer fields (priority min,
     initiator max, C(T) index max) bit for bit, float sums within the
-    rounding bound of the two association orders."""
+    rounding bound of the two association orders.  The walk runs the
+    eager loop: a replayed CUDA graph calls no wrapper, so only the eager
+    generations can be recorded (the graphed walk is held to the eager
+    one bit for bit by test_captured_walk_equals_eager_bit_for_bit)."""
     from sqmc_tpu_torch.algo import walk as TW
     dev = _device()
     _, _, trial, cfg, tab = _fixed_node_setup(dev, "fixed_node1", 20)
@@ -718,8 +721,8 @@ def test_seg_scan_on_redirected_spawn_merge(monkeypatch):
     monkeypatch.setattr(tseg, "seg_scan", recording)
     st = TW.init_walk_state(cfg, trial, 1500.0, trial.e_trial, tab)
     before = tseg.launches
-    st, _ = TW.walk_block(st, tab, cfg, 8,
-                          torch.Generator(device=dev).manual_seed(3))
+    st, _ = TW._walk_block_eager(st, tab, cfg, 8,
+                                 torch.Generator(device=dev).manual_seed(3))
     assert tseg.launches == before + 8 and len(calls) == 8
     redirected = 0
     for fields, ops, start, got in calls:
@@ -1409,3 +1412,229 @@ def test_entry_runs_a_generation_on_card():
     assert e_num.shape == w_abs.shape == ()
     assert bool(torch.isfinite(wt).all()) and float(w_abs) > 0
     assert bool(torch.isfinite(e_num))
+
+
+# ---------------------------------------------------------------------------
+# The captured walk: on the card walk_block / walk_step replay one CUDA
+# graph of the generation (utils/cudagraph.py); _walk_block_eager, the
+# eager loop, is the reference, bit for bit
+# ---------------------------------------------------------------------------
+
+GRAPH_CELLS = ("bench", "heg14_f32", "entry_f64", "ct_hubbardk",
+               "cauchy_schwarz", "uniform")
+
+
+def _graph_cell(name, dev):
+    """(system, trial, cfg, w_abs_begin) of a walk the repo runs on the
+    card, at its full width: the port's bench (synthetic C2-shaped file,
+    heat-bath with singles, f32 state, bf16 dense projector), chip_smoke's
+    HEG-14 f32 cell, entry()'s f64 walk (its D projection through K2),
+    phase 7a's continuous-time chain on the 4x4 Hubbard-k cluster and
+    phase 11c's two proposals on the bench's file (twice its capacities:
+    these walks outgrow the bench's)."""
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.algo.walk import WalkConfig
+    big = dict(mwalk=458_752, cap_spawn=262_144, w_abs_target=2e5,
+               min_wt=0.5, f32_state=True, has_singles=False)
+    if name in ("bench", "cauchy_schwarz", "uniform"):
+        from sqmc_tpu_torch import bench
+        s, trial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
+                                                **bench.TRIAL)
+        knobs = dict(bench.WALK)
+        if name != "bench":
+            knobs.update(proposal=name, mwalk=2 * knobs["mwalk"],
+                         cap_spawn=2 * knobs["cap_spawn"])
+        return s, trial, WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn,
+                                    n_words=s.n_words, **knobs), \
+            bench.RUN["w_abs_begin"]
+    if name == "heg14_f32":
+        from sqmc_tpu_torch.systems.heg.system import make_heg_system
+        s = make_heg_system(3, 0.5, 14, 7, 1.49, device=dev)
+        trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=2000,
+                                         n_imp=20000)
+        return s, trial, WalkConfig(norb=s.norb, nup=7, ndn=7, n_words=1,
+                                    tau=2e-3, spawn_granularity=2.0,
+                                    r_initiator=0.5, **big), 1.4e5
+    if name == "entry_f64":
+        import os
+        from sqmc_tpu_torch import entry as E
+        from sqmc_tpu_torch.parallel.dryrun import FCIDUMP_NAME, small_c2
+        from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump
+        os.makedirs(E.WORKDIR, exist_ok=True)
+        path = os.path.join(E.WORKDIR, FCIDUMP_NAME)
+        write_c2_fcidump(path)
+        s, trial = small_c2(path, dev)
+        return s, trial, WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn,
+                                    n_words=s.n_words, **E.WALK), \
+            E.W_ABS_BEGIN
+    from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
+    s = make_hubbard_k_system(4, 4, 1.0, 4.0, 5, 5, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=1e-2, n_psi_t=2000, n_imp=1)
+    return s, trial, WalkConfig(norb=s.norb, nup=5, ndn=5, n_words=1,
+                                tau=5e-3, semistochastic=False,
+                                use_exponential_projector=True,
+                                r_initiator=1.0, **big), 1.6e5
+
+
+def _assert_same_walk(a, b, sa, sb):
+    """Two walk states and their block stats equal bit for bit."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x, y), f
+    assert list(sa) == list(sb)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]), k
+
+
+def _kernel_counts():
+    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
+    return [m.launches for m in (segscan, spmv, hbselect, slotpar)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_CELLS)
+def test_captured_walk_equals_eager_bit_for_bit(name):
+    """50 generations, then 25 more from the returned state, through
+    walk_block (one captured generation replayed) and through
+    _walk_block_eager from one seed: the state arrays, the per-generation
+    trace and the spawn histogram equal bit for bit, so do the
+    generators' states after each block (replays continue the walk's own
+    Philox stream), and the kernel launch counts of the graphed blocks
+    equal the eager blocks' (K1, K3, K4 in every cell but the CT chain and
+    the two proposals, which run no K3; K2 in entry()'s f64 walk)."""
+    from sqmc_tpu_torch.algo import walk as TW
+    dev = _device()
+    s, trial, cfg, w0 = _graph_cell(name, dev)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    g_e = torch.Generator(device=dev).manual_seed(17)
+    g_g = torch.Generator(device=dev).manual_seed(17)
+    a = b = st
+    for n in (50, 25):
+        c0 = _kernel_counts()
+        a, sa = TW._walk_block_eager(a, tables, cfg, n, g_e)
+        c1 = _kernel_counts()
+        b, sb = TW.walk_block(b, tables, cfg, n, g_g)
+        c2 = _kernel_counts()
+        _assert_same_walk(a, b, sa, sb)
+        assert torch.equal(g_e.get_state(), g_g.get_state())
+        eager = [y - x for x, y in zip(c0, c1)]
+        assert [y - x for x, y in zip(c1, c2)] == eager
+    assert not bool(b.overflow) and int(b.nwalk) > 1000
+    want = {"bench": [1, 0, 1, 1], "heg14_f32": [1, 0, 1, 1],
+            "entry_f64": [1, 1, 1, 1], "ct_hubbardk": [1, 0, 0, 1],
+            "cauchy_schwarz": [1, 0, 0, 1], "uniform": [1, 0, 0, 1]}[name]
+    assert [int(d > 0) for d in eager] == want, eager
+    g = TW._GRAPH[next(iter(TW._GRAPH))]
+    print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
+          f"pool_MB={g.pool_bytes / 2**20:.1f} replays={g.replays}")
+    TW.release_graphs()
+
+
+@pytest.mark.cuda
+def test_replayed_generations_never_sync():
+    """Replayed blocks and steps run under torch's sync debug mode set to
+    raise: the only host reads of a graphed block are repair_caches'
+    flag before it (outside the replays) and run_walk's overflow flag
+    after it."""
+    from sqmc_tpu_torch.algo import walk as TW
+    dev = _device()
+    s, trial, cfg, w0 = _graph_cell("entry_f64", dev)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st, _ = TW.walk_block(st, tables, cfg, 5, gen)          # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, stats = TW._replay_block(st, tables, cfg, 20, gen)
+        nxt, one = TW._step_graph(st, tables, cfg, gen, 1).step(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(stats["w_abs_gen"]).all())
+    assert int(nxt.step) == 26 and float(one["w_abs_gen"]) > 0
+    TW.release_graphs()
+
+
+def _small_c2(dev):
+    import os
+    from sqmc_tpu_torch import entry as E
+    from sqmc_tpu_torch.parallel.dryrun import FCIDUMP_NAME, small_c2
+    from sqmc_tpu_torch.systems.chem.synthetic import write_c2_fcidump
+    os.makedirs(E.WORKDIR, exist_ok=True)
+    path = os.path.join(E.WORKDIR, FCIDUMP_NAME)
+    write_c2_fcidump(path)
+    return small_c2(path, dev)
+
+
+@pytest.mark.cuda
+def test_overflowing_block_is_recaptured_at_twice_the_capacity(monkeypatch):
+    """entry()'s walk at capacities its population outgrows: run_walk
+    grows them and reruns the block, capturing the generation again for
+    the grown arrays; the graphed run equals the eager one (walk_block
+    replaced by _walk_block_eager) bit for bit, growths included."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.utils import cudagraph
+    dev = _device()
+    s, trial = _small_c2(dev)
+    cfg = TW.WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn, n_words=s.n_words,
+                        mwalk=256, cap_spawn=512, tau=1e-3,
+                        w_abs_target=1000.0, has_singles=True)
+    sizes = []
+
+    class Spy(cudagraph.StepGraph):
+        def __init__(self, step, state, *a, **k):
+            sizes.append(state.up.shape[0])
+            super().__init__(step, state, *a, **k)
+
+    def run():
+        return TW.run_walk(s, trial, cfg, nstep=20, nblk=2, nblk_eq=2,
+                           w_abs_begin=500.0, e_trial_initial=trial.e_trial,
+                           verbose=False, max_eq_extensions=0, seed=3)
+
+    monkeypatch.setattr(TW, "StepGraph", Spy)
+    graphed = run()
+    assert graphed.capacity_grows >= 1
+    assert max(sizes) == 256 * 2 ** graphed.capacity_grows, sizes
+    assert not TW._GRAPH                    # run_walk freed its graph
+    monkeypatch.setattr(TW, "walk_block", TW._walk_block_eager)
+    eager = run()
+    assert eager.capacity_grows == graphed.capacity_grows
+    for k in ("e_blocks", "w_abs_trace", "nwalk_trace", "spawn_hist"):
+        np.testing.assert_array_equal(getattr(graphed, k), getattr(eager, k))
+    _assert_same_walk(graphed.state, eager.state, {}, {})
+
+
+@pytest.mark.cuda
+def test_checkpoint_after_graphed_blocks_resumes_the_same_walk(
+        tmp_path, monkeypatch):
+    """run_walk writes a checkpoint (the generator's state included) after
+    graphed blocks; a run resumed from it draws what the uninterrupted
+    graphed run draws, and both equal the uninterrupted eager run: the
+    generator's offset after replays is the eager loop's."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.utils import checkpoint as TC
+    dev = _device()
+    s, trial = _small_c2(dev)
+    cfg = TW.WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn, n_words=s.n_words,
+                        mwalk=4096, cap_spawn=8192, tau=1e-3,
+                        w_abs_target=1000.0, has_singles=True)
+    kw = dict(nstep=20, w_abs_begin=500.0, e_trial_initial=trial.e_trial,
+              verbose=False, max_eq_extensions=0)
+    ck = str(tmp_path / "walk_ck")
+    full = TW.run_walk(s, trial, cfg, nblk=2, nblk_eq=1, seed=11, **kw)
+    TW.run_walk(s, trial, cfg, nblk=1, nblk_eq=1, seed=11,
+                checkpoint_file=ck, **kw)
+    mid = TC.load_walker_state(ck, cfg, device=dev)
+    assert int(mid.step) == 40 and mid.rng_state is not None
+    rest = TW.run_walk(s, trial, cfg, nblk=1, nblk_eq=0, seed=999,
+                       resume_state=mid, **kw)
+    assert rest.e_blocks[0] == full.e_blocks[1]
+    np.testing.assert_array_equal(rest.w_abs_trace, full.w_abs_trace[40:])
+    _assert_same_walk(full.state, rest.state, {}, {})
+    monkeypatch.setattr(TW, "walk_block", TW._walk_block_eager)
+    eager = TW.run_walk(s, trial, cfg, nblk=2, nblk_eq=1, seed=11, **kw)
+    np.testing.assert_array_equal(eager.w_abs_trace, full.w_abs_trace)
+    _assert_same_walk(full.state, eager.state, {}, {})
