@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sqmc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
-    python3 chip_smoke.py --kernels   # phases 0-2 (2, 2b, 2d, 2c), then exit 1
+    python3 chip_smoke.py --kernels   # phases 0-2 (2-2e, 2c), then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
@@ -12,9 +12,10 @@
 
 Every walk below runs as the package runs it on the card: each block
 replays one captured generation (a CUDA graph, sqmc_tpu_torch/utils/
-cudagraph.py; the eager loop only on a mesh and under the sequential
-initiator rule), and the launch counts it reports are the eager loop's
-(the graph's recorded launches times its replays).
+cudagraph.py; the eager loop only on a mesh), and so do the dense
+engine's blocks, VMC's sweeps and CPMC's steps; the launch counts it
+reports are the eager loop's (the graph's recorded launches times its
+replays).
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -22,8 +23,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      back to the CPU); prints the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them, and the torch / CUDA versions;
-  1. build the four kernels from sqmc_tpu_torch/csrc (segscan.cu,
-     spmv.cu, hbselect.cu, slotpar.cu), one nvcc each, started together;
+  1. build the five kernels from sqmc_tpu_torch/csrc (segscan.cu,
+     spmv.cu, hbselect.cu, slotpar.cu, seqinit.cu), one nvcc each,
+     started together;
   2. the seg-scan kernel vs its plain PyTorch version on the card, at the
      walk's merge shape (720,896 rows x 6 fields), an f64 variant, one
      segment spanning everything, all segment starts, n = 1 and n = 127;
@@ -51,9 +53,14 @@ Phases, each reported on its own line; any failure exits nonzero:
      triangular-matmul form (K3) and torch.searchsorted (K4), with what
      ptxas reported of each kernel (registers, shared memory, spills)
      and each launch's blocks, threads and resident blocks per SM;
+  2e. the sequential initiator combine (K5) vs its plain version, bit
+     for bit: 720,896 merge rows in groups of 1 to ~30 rows, float32 and
+     float64 (plain on the card), and with one group of 30,000 rows
+     (plain on the CPU); prints what 2 prints and the longest group (no library
+     call computes the rule);
   2c. the kernels' own time per call (kernel_us) at the walk and C2
-     shapes, from one torch.profiler session (after 2d, whose cases it
-     profiles too);
+     shapes, from one torch.profiler session (after 2d and 2e, whose
+     cases it profiles too);
   3. the walk's main path on the 14-electron electron gas (3D HEG,
      r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
      (9475 dets, E_var = 58.276906085), the trial wavefunction with D = the
@@ -216,25 +223,36 @@ Phases, each reported on its own line; any failure exits nonzero:
      measured block more than 20% off the population target, e_mixed
      within max(5 sigma, 2 mHa) of the oracle, the largest |spawn weight|
      printed beside 11a's heat-bath walk's;
- 12. the captured walk against the eager loop: the bench's walk (11a's
-     file, trial and knobs) and phase 3's HEG-14 f32 cell, from the
-     initial state, one block of 100 generations each through
-     ``walk._walk_block_eager`` and through ``walk.walk_block`` (the
-     generation captured first, outside the timed block), from one seed:
-     the state arrays, the trace, the spawn histogram and the generators'
-     states equal bit for bit and the launch counts equal; prints both
-     paths' gen/s, the capture's seconds and memory pool and the graph's
-     replays a generation.
+ 12. every captured path against its eager loop, one block each from
+     one state and seed (the capture made first, outside the timed
+     block): the state arrays, the trace and the generators' states equal
+     bit for bit and the launch counts equal; each cell prints both
+     paths' rates, device ms a step (CUDA events around the block) and,
+     from a profiled window of 10 steps, kernel ms and host launches a
+     step: the bench's walk (11a's file, trial and knobs) and phase 3's
+     HEG-14 f32 cell, 100 generations through ``walk._walk_block_eager``
+     and ``walk.walk_block`` (also the capture's seconds and pool); 12b
+     the dense engine, 100 generations through
+     ``densewalk._dense_walk_block_eager`` and ``dense_walk_block``: 8b's
+     fictitious system (ndet 16,384) as release_node released at
+     generation 50 (two graphs), and 8c's 1x8 chain as fixed_node1; 12c
+     VMC on the 4x4 cluster (5 + 5, 256 walkers, g = 0.7), 50 sweeps;
+     12d CPMC on it (1,024 walkers), 20 steps and the mixed energy, with
+     the factorization kernels one step runs (which library); 12e phase
+     3's HEG-14 f32 cell under the sequential initiator rule (K5 in the
+     merge), then the longest merge group of three more generations and
+     K5's time on the last one's rows against its bound.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
 of seg_scan, hb_select and slot_parents from phases 3, 7, 8, 10, 11 and
 12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's counts in
-phase 10),
+phase 10), seq_init's from phases 7c and 12e,
 each path counted from 0; errors and times measured here: seg_scan at the
 walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
-hb_select and slot_parents at the walk's spawn shape) and ``{"ok": true,
-"device": {...}}``.
+hb_select and slot_parents at the walk's spawn shape, seq_init at the
+walk's merge length, 2e's float32 case) and ``{"ok": true, "device":
+{...}}``.
 """
 
 import functools
@@ -271,12 +289,13 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("seg_scan", "spmv", "hb_select", "slot_parents")
+KERNELS = ("seg_scan", "spmv", "hb_select", "slot_parents", "seq_init")
+F64_WALK = KERNELS[:4]                # an f64 heat-bath walk's kernels
 
 
 def _kernel_modules():
-    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
-    return dict(zip(KERNELS, (segscan, spmv, hbselect, slotpar)))
+    from sqmc_tpu_torch.ops import hbselect, segscan, seqinit, slotpar, spmv
+    return dict(zip(KERNELS, (segscan, spmv, hbselect, slotpar, seqinit)))
 
 
 def _reset_counts():
@@ -446,7 +465,7 @@ def phase_kernel_rows(calls=20):
 
 def _own_kernel(name):
     return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_select",
-                                   "k_slot_parents"))
+                                   "k_slot_parents", "k_seq_init"))
 
 
 HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
@@ -943,6 +962,104 @@ def phase_spawn_vs_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2e: the sequential initiator combine K5 vs its plain version
+# ---------------------------------------------------------------------------
+
+SEQ_LONG = 30_000                      # 2e's long group (the plain
+# version's passes number it, on the CPU: ~80 us a pass)
+
+
+def _seq_rows(n, seed, wdt, long_group=0):
+    """n merge rows in groups of 1 to ~30 rows (p_start 0.45), with one
+    group of `long_group` rows at a random place if asked; weights mixing
+    exact ties and zeros with floats whose running sums round, initiators
+    0-3 (3 permanent)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    starts = rng.random(n) < 0.45
+    if long_group:
+        at = int(rng.integers(1, n - long_group))
+        starts[at:at + long_group] = False
+        starts[at] = starts[at + long_group] = True
+    starts[0] = True
+    ties = rng.choice([-2.0, -1.0, 1.0, 2.0, 0.0], n)
+    floats = rng.standard_normal(n) * rng.choice([1e-3, 1.0, 1e3], n)
+    wts = np.where(rng.random(n) < 0.5, ties, floats).astype(wdt)
+    return starts, wts, rng.integers(0, 4, n).astype(np.int32)
+
+
+def _longest_group(neq):
+    """The most rows of one group of the merge rows (a device scalar)."""
+    import torch
+    idx = torch.arange(neq.shape[0], device=neq.device)
+    first = torch.cummax(torch.where(neq, idx, 0), 0).values
+    return (idx - first).max() + 1
+
+
+def _seq_bytes(n, wdt_bytes):
+    """K5's bytes: neq, the weights and the row initiators read once, the
+    running initiators written once."""
+    return n * (1 + wdt_bytes + 4 + 4)
+
+
+def phase_seq_init_vs_plain(dev):
+    """Phase 2e: K5 at the walk's merge length (720,896 rows) in groups of
+    1 to ~30 rows, float32 and float64, against its plain version on the
+    card, bit for bit (a second call the same bits); then with one group
+    of 30,000 rows, against the plain version on the CPU (its passes
+    number the longest group).  Prints what phase 2 prints and the longest group;
+    no PyTorch call computes this non-associative rule (library none).
+    Returns the float32 case's numbers."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.ops import cudabuild, seqinit
+    t_start = time.time()
+    for line in cudabuild.ptxas_summary(seqinit._SOURCE):
+        log(f"phase 2e ptxas {seqinit._SOURCE}: {line}")
+    out = {}
+    for name, wdt, long_group in (("merge_f32", np.float32, 0),
+                                  ("merge_f64", np.float64, 0),
+                                  ("long_group_f32", np.float32, SEQ_LONG)):
+        host = [torch.as_tensor(x) for x in _seq_rows(MERGE_N, 25, wdt,
+                                                      long_group)]
+        args = [x.to(dev) for x in host]
+        got = seqinit.sequential_initiator(*args)
+        again = seqinit.sequential_initiator(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if long_group:
+            ref = seqinit.sequential_initiator_plain(*host)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            where = "cpu"
+        else:
+            ref = seqinit.sequential_initiator_plain(*args).cpu()
+            plain_ms = _median_ms(
+                lambda a=args: seqinit.sequential_initiator_plain(*a),
+                reps=3, warm=1)
+            where = "card"
+        if not (torch.equal(got.cpu(), ref) and torch.equal(got, again)):
+            raise AssertionError(f"2e seq_init {name}: differs from the "
+                                 "plain version or from its second call")
+        fn = (lambda a=args: seqinit.sequential_initiator(*a))
+        ms = _median_ms(fn)
+        dev_us = _device_us(fn)
+        nbytes = _seq_bytes(MERGE_N, np.dtype(wdt).itemsize)
+        bound_us, bound_by = _bound_us(nbytes)
+        longest = int(_longest_group(args[0]))
+        log(f"phase 2e seq_init {name}: n={MERGE_N} longest_group={longest} "
+            f"match max_abs_err=0 wrapper_ms={ms:.4f} device_us={dev_us:.1f} "
+            f"bound_us={bound_us:.2f} bound_by={bound_by} bound_MB="
+            f"{nbytes / 1e6:.2f} share={bound_us / dev_us:.4f} "
+            f"plain_{where}_ms={plain_ms:.4f} library_ms=none")
+        PROFILED.append((f"seq_init {name}", fn))
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         device_us=dev_us, bound_us=bound_us,
+                         bound_by=bound_by, library_ms=None)
+    log(f"phase 2e seconds={time.time() - t_start:.2f}")
+    return out["merge_f32"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1136,7 +1253,7 @@ def phase_f64_walk(dev, system, trial):
         f"gen_per_s={out.steps_per_sec:.3f} pop={pop:.1f} "
         f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
         f"launches={counts} seconds={t_walk:.1f}")
-    _need("phase 5 f64 walk", counts, *KERNELS)
+    _need("phase 5 f64 walk", counts, *F64_WALK)
     if bool(out.state.overflow) or not (
             np.all(np.isfinite(out.w_abs_trace)) and np.isfinite(out.e_mixed)):
         raise AssertionError("non-finite or overflowing f64 walk")
@@ -1407,7 +1524,7 @@ def phase_cli_c2(dev, workdir):
             or abs(e_mix - oracle) > gate:
         raise AssertionError("e_mixed is not within max(5 sigma, 2 mHa) of "
                              "E_var + PT")
-    _need("phase 6b walk deck", c_walk, *KERNELS)
+    _need("phase 6b walk deck", c_walk, *F64_WALK)
     log(f"phase 6b stages: fcidump={t_write:.2f} cli_hci_pt={sec_hci:.2f} "
         f"device_davidson={t_dd:.2f} cli_walk={sec_walk:.2f}")
     return dict(hci=c_hci, device_davidson=dd_launches, walk=c_walk)
@@ -1464,7 +1581,7 @@ def phase_ts_oracle(dev):
             f"seconds={time.time() - t0:.2f}")
         if abs(err) > 1e-8:
             raise AssertionError(f"the z={z} oracle missed e0 by {err:.3e}")
-        _need(f"phase 6c z={z}", c, *KERNELS)
+        _need(f"phase 6c z={z}", c, *F64_WALK)
     return counts
 
 
@@ -2295,6 +2412,7 @@ def phase_dense_fictitious(dev, workdir):
     state = dw.init_dense_state(cfg, psi_t, psi_g, 2e5, r["e_exact"],
                                 device=dev)
     state, stats = dw.dense_walk_block(state, tables, cfg, 3000)
+    dw.release_graphs()                 # the graph holds the tables
     e_pn = float(stats["e_gen"][-1])
     drift = abs(e_pn - float(stats["e_gen"][-500]))
     log(f"phase 8b partial_node oracle: deterministic limit after 3000 "
@@ -3429,7 +3547,7 @@ def phase_entry(dev):
     log(f"phase 11b entry: calls=10 setup_seconds={t_setup:.2f} "
         f"ms_per_call={1e3 * t_calls / 10:.3f} w_abs={float(outs[-1][2]):.1f} "
         f"host_syncs_per_call={n_sync} sync_sites={sites} launches={c}")
-    _need("phase 11b entry", c, *KERNELS)
+    _need("phase 11b entry", c, *F64_WALK)
 
 
 def phase_proposal_walks(dev, hb_rec):
@@ -3487,34 +3605,111 @@ def phase_bench_all(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the captured walk against the eager loop
+# Phase 12: the captured paths against their eager loops
 # ---------------------------------------------------------------------------
 
 COUNTS12 = dict.fromkeys(KERNELS, 0)  # phase 12's launches, both paths
 GRAPH_GENS = 100                      # one block of each path, per cell
+PROFILE_STEPS = 10                    # the profiled window of each path
 
 
 def _same_walk(tag, a, b, sa, sb):
-    """Fail unless two walk states and block stats are equal bit for bit."""
+    """Fail unless two states (NamedTuples: tensors compared bit for bit,
+    host values by equality) and their stats are equal."""
     import torch
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
-        if (x is None) != (y is None) or (x is not None and (
-                x.dtype != y.dtype or not torch.equal(x, y))):
-            raise AssertionError(f"12 {tag}: captured and eager walks "
+        if isinstance(x, torch.Tensor):
+            same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        else:
+            same = x == y
+        if not same:
+            raise AssertionError(f"12 {tag}: captured and eager paths "
                                  f"differ in state field {f}")
     for k in sa:
         if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
-            raise AssertionError(f"12 {tag}: captured and eager walks "
+            raise AssertionError(f"12 {tag}: captured and eager paths "
                                  f"differ in stat {k}")
 
 
-def _graph_vs_eager(tag, system, trial, cfg, w0, smi):
-    """One block of GRAPH_GENS generations from one state and seed through
-    the eager loop and through the captured generation (captured first,
-    outside the timed block): bit for bit, the same launch counts; prints
-    both paths' gen/s, the capture's seconds and memory pool and the
-    graph's replays a generation."""
+def _timed_block(fn, n):
+    """fn() (a block of n steps) timed: (its result, steps a wall second,
+    ms a step between CUDA events around it)."""
+    import torch
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+    ev0.record()
+    t0 = time.perf_counter()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return out, n / (time.perf_counter() - t0), ev0.elapsed_time(ev1) / n
+
+
+def _profiled(fn, n):
+    """fn() (a block of n steps) under torch.profiler: (kernel ms a step,
+    host launches a step), "not measured" where the profiler returned no
+    such rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sqmc_tpu_torch.bench_walk import HOST_LAUNCHES
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us, rows, host = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            rows += 1
+        elif e.name.startswith(HOST_LAUNCHES):
+            host += 1
+    return (f"{dev_us / 1e3 / n:.4f}" if rows else "not_measured",
+            f"{host / n:.2f}" if host else "not_measured")
+
+
+def _path_cell(tag, unit, n, eager, graph, smi, counts_need=()):
+    """One block of n steps through the eager loop and through the
+    captured path, from one state and seed (the capture made beforehand by
+    the caller): equal bit for bit (each fn returns (state, stats)), the
+    same launch counts; then a window of PROFILE_STEPS steps of each under
+    the profiler.  Prints both paths' rates, device ms a step (CUDA events
+    around the block) and, from the profiles, kernel ms and host launches
+    a step.  Returns the graph's (state, stats)."""
+    out, rate, ev_ms, counts = {}, {}, {}, {}
+    for mode, fn in (("eager", eager), ("graph", graph)):
+        (out[mode], counts[mode]), rate[mode], ev_ms[mode] = _timed_block(
+            lambda fn=fn: _counted(lambda: fn(n), COUNTS12), n)
+    (a, sa), (b, sb) = out["eager"], out["graph"]
+    _same_walk(tag, a, b, sa, sb)
+    if counts["eager"] != counts["graph"]:
+        raise AssertionError(f"12 {tag}: launches {counts}")
+    prof = {m: _profiled(lambda fn=fn: fn(PROFILE_STEPS), PROFILE_STEPS)
+            for m, fn in (("eager", eager), ("graph", graph))}
+    log(f"phase 12 {tag}: steps={n} bitwise_equal=True "
+        f"eager_{unit}_per_s={rate['eager']:.3f} "
+        f"graph_{unit}_per_s={rate['graph']:.3f} "
+        f"eager_device_ms_per_step={ev_ms['eager']:.4f} "
+        f"graph_device_ms_per_step={ev_ms['graph']:.4f} "
+        f"eager_kernel_ms_per_step={prof['eager'][0]} "
+        f"graph_kernel_ms_per_step={prof['graph'][0]} "
+        f"eager_host_launches_per_step={prof['eager'][1]} "
+        f"graph_host_launches_per_step={prof['graph'][1]} "
+        f"launches={counts['graph']} [{smi}]")
+    _need(f"phase 12 {tag}", counts["graph"], *counts_need)
+    return b, sb
+
+
+def _graph_vs_eager(tag, system, trial, cfg, w0, smi, need):
+    """A walk: one block of GRAPH_GENS generations from one state and seed
+    through the eager loop and through the captured generation (captured
+    first, outside the timed block), _path_cell's checks and lines, the
+    generators' states equal; prints the capture's seconds and memory pool
+    and the graph's replays a generation.  Returns (tables, the graph's
+    final state)."""
     import torch
     from sqmc_tpu_torch.algo import walk as W
     dev = trial.psit_coef.device
@@ -3523,47 +3718,217 @@ def _graph_vs_eager(tag, system, trial, cfg, w0, smi):
     gens = {m: torch.Generator(device=dev).manual_seed(12)
             for m in ("eager", "graph")}
     graph = W._step_graph(st, tables, cfg, gens["graph"], GRAPH_GENS)
-    out, sec, counts = {}, {}, {}
-    for mode, block in (("eager", W._walk_block_eager),
-                        ("graph", W.walk_block)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[mode], counts[mode] = _counted(
-            lambda: block(st, tables, cfg, GRAPH_GENS, gens[mode]), COUNTS12)
-        torch.cuda.synchronize()
-        sec[mode] = time.perf_counter() - t0
-    (a, sa), (b, sb) = out["eager"], out["graph"]
-    _same_walk(tag, a, b, sa, sb)
+    start = {"eager": st, "graph": st}
+
+    def run(mode, block):
+        def fn(n):
+            out = block(start[mode], tables, cfg, n, gens[mode])
+            start[mode] = out[0]        # the profiled window continues
+            return out
+        return fn
+    b, sb = _path_cell(tag, "gen", GRAPH_GENS,
+                       run("eager", W._walk_block_eager),
+                       run("graph", W.walk_block), smi, need)
     if not torch.equal(gens["eager"].get_state(), gens["graph"].get_state()):
         raise AssertionError(f"12 {tag}: the generators' states differ")
-    if counts["eager"] != counts["graph"]:
-        raise AssertionError(f"12 {tag}: launches {counts}")
-    log(f"phase 12 {tag}: gens={GRAPH_GENS} bitwise_equal=True "
-        f"eager_gen_per_s={GRAPH_GENS / sec['eager']:.3f} "
-        f"graph_gen_per_s={GRAPH_GENS / sec['graph']:.3f} "
-        f"capture_seconds={graph.capture_seconds:.3f} "
-        f"pool_MB={graph.pool_bytes / 2**20:.1f} "
-        f"replays_per_gen={graph.replays / GRAPH_GENS:.2f} "
-        f"w_abs={float(sb['w_abs_gen'][-1]):.1f} launches={counts['graph']} "
-        f"[{smi}]")
+    log(f"phase 12 {tag}: capture_seconds={graph.capture_seconds:.3f} "
+        f"pool_MB={graph.pool_bytes / 2**20:.1f} replays={graph.replays} "
+        f"(the block's and the profiled window's) "
+        f"w_abs={float(sb['w_abs_gen'][-1]):.1f} [{smi}]")
     W.release_graphs()
-    _need(f"phase 12 {tag}", counts["graph"], "seg_scan", "hb_select",
-          "slot_parents")
+    return tables, b
+
+
+def _graph_dense(dev, smi):
+    """12b: the dense engine.  8b's fictitious system (ndet 16,384,
+    bosonic 0, the deck's seed 42) as release_node with importance
+    sampling, released at generation 50 of the block (two graphs), and
+    8c's 1x8 chain as fixed_node1 with its Gutzwiller guide."""
+    import numpy as np
+    import torch
+    from sqmc_tpu_torch.algo import densewalk as dw
+    from sqmc_tpu_torch.algo.guiding import (eval_guiding,
+                                             make_gutzwiller_guiding)
+    from sqmc_tpu_torch.cli import _seed4
+    from sqmc_tpu_torch.systems.hubbard.system import (
+        enumerate_dets, make_hubbard_dense_system, make_hubbard_real_system)
+    from sqmc_tpu_torch.systems.toy import make_fictitious_system
+
+    def cell(tag, system, cfg, psi_t, psi_g, w0):
+        tables = dw.build_dense_tables(system, cfg, psi_t, psi_g)
+        v = torch.as_tensor(psi_t, dtype=torch.float64, device=dev)
+        e_t = float(v @ (system.ham @ v) / (v @ v))
+        st = dw.init_dense_state(cfg, psi_t, psi_g, w0, e_t, seed=12,
+                                 device=dev)
+        dw.dense_walk_block(st, tables, cfg, GRAPH_GENS)      # the captures
+        start = {"eager": st, "graph": st}
+
+        def run(mode, block):
+            def fn(n):
+                out = block(start[mode], tables, cfg, n)
+                start[mode] = out[0]
+                return out
+            return fn
+        _path_cell(tag, "gen", GRAPH_GENS,
+                   run("eager", dw._dense_walk_block_eager),
+                   run("graph", dw.dense_walk_block), smi)
+        dw.release_graphs()
+
+    s = make_fictitious_system(FICT_NDET, 0, 1.0, 0.5, 0.5, 0.5,
+                               seed=_seed4(42), device=dev)
+    psi_t = np.zeros(FICT_NDET)
+    psi_t[0] = 1.0
+    cell("12b_dense_fictitious_release_node", s, dw.DenseWalkConfig(
+        ndet=FICT_NDET, tau=0.0039, w_abs_target=2e5, run_type="release_node",
+        release_step=GRAPH_GENS // 2, importance_sampling=1,
+        pop_ctrl_exponent=FICT_POP_CTRL), psi_t,
+        np.full(FICT_NDET, 0.0078125), 2e5)
+    del s
+    torch.cuda.empty_cache()
+    real = make_hubbard_real_system(1, 8, 1.0, 4.0, 2, 2, pbc=False,
+                                    device=dev)
+    toy = make_hubbard_dense_system(1, 8, 1.0, 4.0, 2, 2, pbc=False,
+                                    device=dev)
+    up, dn = (torch.as_tensor(x, device=dev) for x in enumerate_dets(8, 2, 2))
+    g = eval_guiding(make_gutzwiller_guiding(real, g=0.7), "gutzwiller", up,
+                     dn, 8, 2, 2)
+    cell("12b_dense_chain_fixed_node1", toy, dw.DenseWalkConfig(
+        ndet=toy.ndet, tau=0.02, w_abs_target=3000.0, run_type="fixed_node1",
+        importance_sampling=1, min_wt=0.5), g, g, 1500.0)
+
+
+def _graph_vmc(dev, smi):
+    """12c: VMC on the 4x4 cluster (5 + 5, U/t = 4, 256 walkers, 10 steps a
+    sweep, g = 0.7 as the `hubbard2` deck), one block of 50 sweeps."""
+    import torch
+    from sqmc_tpu_torch.systems.hubbard import meanfield, vmc
+    pu, pd, _ = meanfield.hartree_fock(4, 4, 1.0, 4.0, 5, 5, True)
+    st = vmc.init_vmc(pu, pd, 4, 4, 256, seed=12, device=dev)
+    nbr = torch.as_tensor(vmc.neighbor_table(4, 4, True), dtype=torch.int64,
+                          device=dev)
+    args = (torch.as_tensor(pu, device=dev), torch.as_tensor(pd, device=dev),
+            nbr, 0.7, 4.0, 1.0, 10, 16)
+    vmc.vmc_sweep(st, *args)                                  # the capture
+    start = {"eager": st, "graph": st}
+
+    def run(mode, sweep):
+        def fn(n):
+            es = []
+            for _ in range(n):
+                start[mode], e_loc = sweep(start[mode], *args)
+                es.append(e_loc)
+            return start[mode], {"e_loc": torch.stack(es)}
+        return fn
+    _, stats = _path_cell("12c_vmc_4x4", "sweep", 50,
+                          run("eager", vmc._vmc_sweep_eager),
+                          run("graph", vmc.vmc_sweep), smi)
+    log(f"phase 12 12c_vmc_4x4: e_vmc={float(stats['e_loc'].mean()):.6f} "
+        f"[{smi}]")
+    vmc.release_graphs()
+
+
+def _graph_cpmc(dev, smi):
+    """12d: CPMC on the same cluster (1,024 walkers, tau 0.05), one block of
+    20 steps and its mixed-energy measurement."""
+    from sqmc_tpu_torch.systems.hubbard import cpmc
+    cfg = cpmc.CpmcConfig(4, 4, 1.0, 4.0, 5, 5, tau=0.05, n_walkers=1024)
+    setup, st = cpmc.init_cpmc(cfg, seed=12, device=dev)
+    cpmc.cpmc_block(st, setup, cfg, 20)                       # the capture
+    start = {"eager": st, "graph": st}
+
+    def run(mode, block):
+        def fn(n):
+            start[mode], e_mix = block(start[mode], setup, cfg, n)
+            return start[mode], {"e_mix": e_mix}
+        return fn
+    _, stats = _path_cell("12d_cpmc_4x4", "step", 20,
+                          run("eager", cpmc._cpmc_block_eager),
+                          run("graph", cpmc.cpmc_block), smi)
+    log(f"phase 12 12d_cpmc_4x4: e_mix={float(stats['e_mix']):.6f} "
+        f"linalg_library={_cpmc_linalg_rows(cpmc, setup, cfg, st)} [{smi}]")
+    cpmc.release_graphs()
+
+
+def _cpmc_linalg_rows(cpmc, setup, cfg, st):
+    """The factorization kernels of one eager CPMC step under the pinned
+    library, by name (which library runs: cuBLAS / cuSOLVER or MAGMA)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cpmc._cpmc_block_eager(st, setup, cfg, 1)
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and any(
+                        k in e.name.lower() for k in (
+                            "getrf", "potrf", "trsm", "getrs", "magma",
+                            "lu_", "cholesky", "solve"))})
+    return "|".join(n[:48] for n in names) or "not_measured"
+
+
+def _graph_sequential(dev, smi, system, trial):
+    """12e: phase 3's HEG-14 f32 cell under initiator_rule="sequential"
+    (K5 in every generation's merge), then three more eager generations
+    from the graph's final state to read the longest merge group and time
+    K5 on that generation's own rows."""
+    import torch
+    from sqmc_tpu_torch.algo import walk as W
+    from sqmc_tpu_torch.algo.walk import WalkConfig
+    from sqmc_tpu_torch.ops import seqinit
+    cfg = WalkConfig(
+        mwalk=458_752, cap_spawn=262_144, norb=system.norb, nup=system.nup,
+        ndn=system.ndn, n_words=system.n_words, tau=2e-3,
+        w_abs_target=W_TARGET, spawn_granularity=2.0, min_wt=0.5,
+        r_initiator=0.5, f32_state=True, has_singles=False,
+        initiator_rule="sequential")
+    tables, st = _graph_vs_eager("12e_heg14_f32_sequential", system, trial,
+                                 cfg, W_BEGIN, smi,
+                                 ("seg_scan", "hb_select", "slot_parents",
+                                  "seq_init"))
+    seen = []
+    plain = seqinit.sequential_initiator
+
+    def spy(neq, s_wt, init_row):
+        seen.append((_longest_group(neq), neq.clone(), s_wt.clone(),
+                     init_row.clone()))
+        return plain(neq, s_wt, init_row)
+    seqinit.sequential_initiator = spy
+    try:
+        W._walk_block_eager(st, tables, cfg, 3,
+                            torch.Generator(device=dev).manual_seed(3))
+    finally:
+        seqinit.sequential_initiator = plain
+    longest = max(int(x[0]) for x in seen)
+    args = seen[-1][1:]
+    fn = (lambda: seqinit.sequential_initiator_cuda(*args))
+    nbytes = _seq_bytes(args[0].shape[0], args[1].element_size())
+    bound_us, bound_by = _bound_us(nbytes)
+    dev_us = _device_us(fn, calls=5, reps=3)    # ~30 ms a call
+    log(f"phase 12 12e_heg14_f32_sequential seq_init on the walk's rows: "
+        f"longest_group={longest} (last generation "
+        f"{int(seen[-1][0])}) rows={args[0].shape[0]} "
+        f"groups={int(args[0].sum())} "
+        f"wrapper_ms={_median_ms(fn, reps=5, warm=1):.4f} "
+        f"device_us={dev_us:.1f} bound_us={bound_us:.2f} bound_by={bound_by} "
+        f"share={bound_us / dev_us:.4f} [{smi}]")
 
 
 def phase_graph(dev, smi, system=None, trial=None):
-    """12: the bench's walk and HEG-14's (phase 3's system and trial when
-    given), captured and eager from one seed (_graph_vs_eager)."""
+    """12: every captured path against its eager loop: the bench's walk and
+    HEG-14's (phase 3's system and trial when given), the dense engine
+    (12b), VMC (12c), CPMC (12d) and HEG-14 under the sequential initiator
+    rule (12e)."""
     import torch
     from sqmc_tpu_torch import bench
     from sqmc_tpu_torch.algo.walk import WalkConfig
     t0 = time.time()
+    walk_kernels = ("seg_scan", "hb_select", "slot_parents")
     bsys, btrial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
                                                 **bench.TRIAL)
     _graph_vs_eager("bench", bsys, btrial,
                     WalkConfig(norb=bsys.norb, nup=bsys.nup, ndn=bsys.ndn,
                                n_words=bsys.n_words, **bench.WALK),
-                    bench.RUN["w_abs_begin"], smi)
+                    bench.RUN["w_abs_begin"], smi, walk_kernels)
+    del bsys, btrial
     if system is None:
         from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
         from sqmc_tpu_torch.systems.heg.system import make_heg_system
@@ -3575,7 +3940,17 @@ def phase_graph(dev, smi, system=None, trial=None):
         mwalk=458_752, cap_spawn=262_144, norb=system.norb, nup=system.nup,
         ndn=system.ndn, n_words=system.n_words, tau=2e-3,
         w_abs_target=W_TARGET, spawn_granularity=2.0, min_wt=0.5,
-        r_initiator=0.5, f32_state=True, has_singles=False), W_BEGIN, smi)
+        r_initiator=0.5, f32_state=True, has_singles=False), W_BEGIN, smi,
+        walk_kernels)
+    stamps = [time.time()]
+    for cell in (_graph_dense, _graph_vmc, _graph_cpmc):
+        cell(dev, smi)
+        stamps.append(time.time())
+    _graph_sequential(dev, smi, system, trial)
+    stamps.append(time.time())
+    log("phase 12 stages: " + " ".join(
+        f"12{x}={b - a:.2f}" for x, a, b in zip("bcde", stamps, stamps[1:]))
+        + " seconds")
     log(f"phase 12 seconds={time.time() - t0:.1f} launches={COUNTS12}")
 
 
@@ -3634,11 +4009,13 @@ def main():
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
     hb, slot = phase_spawn_vs_plain(dev)
+    seq = phase_seq_init_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
     hb["kernel_us"] = kernel_us["hb_select walk_heg14"]
     slot["kernel_us"] = kernel_us["slot_parents walk"]
+    seq["kernel_us"] = kernel_us["seq_init merge_f32"]
     PROFILED.clear()
     if "--kernels" in sys.argv[1:]:
         raise SystemExit("chip_smoke: --kernels ran phases 0-2 only; no "
@@ -3676,7 +4053,9 @@ def main():
               "sqmc_tpu/ops/prefix.py:53", launches["hb_select"], hb),
         entry("slot_parents", "sqmc_tpu_torch/csrc/slotpar.cu",
               "sqmc_tpu/algo/walk.py:1459", launches["slot_parents"],
-              slot)]}))
+              slot),
+        entry("seq_init", "sqmc_tpu_torch/csrc/seqinit.cu",
+              "sqmc_tpu/algo/walk.py:2090", launches["seq_init"], seq)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

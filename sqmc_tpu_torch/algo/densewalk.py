@@ -44,9 +44,11 @@ Projector construction per run_type (column j, off-diagonal i):
 
 The tables are built with torch on the system's device.  A block of
 generations runs without a host sync: the per-generation statistics stay
-on the device and run_dense_walk reads them once a block.  The random stream
-is an explicit ``torch.Generator`` on the device; the state carries its
-``get_state()`` between blocks.
+on the device and run_dense_walk reads them once a block.  On the card a
+block replays one captured generation (a CUDA graph, utils/cudagraph.py),
+the counterpart of the JAX package's jit over lax.scan; on the CPU it is
+the eager loop.  The random stream is an explicit ``torch.Generator`` on
+the device; the state carries its ``get_state()`` between blocks.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.cudagraph import GraphCache, StepGraph
 
 F64 = torch.float64
 
@@ -255,14 +259,22 @@ def _comb_reconfigure(w, u, n_comb: int):
     return torch.sign(w) * counts * (total / n_comb)
 
 
+def _released(cfg: DenseWalkConfig, step: int) -> bool:
+    """release_node: whether generation `step` (0-based) projects with the
+    exact projector; the host knows the step count, so it picks."""
+    return cfg.run_type == "release_node" and step >= cfg.release_step
+
+
 def _dense_step_impl(state: DenseWalkState, tables: DenseTables,
-                     cfg: DenseWalkConfig, gen: torch.Generator):
-    """One generation; every statistic stays on the device."""
+                     cfg: DenseWalkConfig, gen: torch.Generator,
+                     released: bool):
+    """One generation; every statistic stays on the device.  released:
+    _released(cfg, state.step), passed in because a captured step cannot
+    read the host's step count."""
     vmc = cfg.run_type == "vmc"
     dev = state.w.device
 
-    # release_node: the host knows the step count, so it picks the tensor
-    if cfg.run_type == "release_node" and state.step >= cfg.release_step:
+    if released:
         p_off, p_diag0 = tables.p_off_exact, tables.p_diag0_exact
     else:
         p_off, p_diag0 = tables.p_off, tables.p_diag0
@@ -350,15 +362,75 @@ def dense_walk_block(state: DenseWalkState, tables: DenseTables,
     """`nstep` generations with no host sync inside.  Returns (state,
     stats) with stats[k] an [nstep] float64 device tensor.  The random
     stream continues from state.rng_state, and the returned state carries
-    the generator's new state."""
+    the generator's new state.  On the card one captured generation
+    replayed `nstep` times (_replay_dense_block), the counterpart of the
+    JAX package's jit over lax.scan; on the CPU the eager loop
+    (_dense_walk_block_eager)."""
+    if state.w.device.type != "cuda":
+        return _dense_walk_block_eager(state, tables, cfg, nstep)
+    return _replay_dense_block(state, tables, cfg, nstep)
+
+
+def _dense_walk_block_eager(state: DenseWalkState, tables: DenseTables,
+                            cfg: DenseWalkConfig, nstep: int):
+    """dense_walk_block as a Python loop of eager generations: the CPU's
+    path, and on the card the reference the captured block is held to."""
     gen = torch.Generator(device=state.w.device)
     gen.set_state(state.rng_state)
     rows = []
     for _ in range(nstep):
-        state, st = _dense_step_impl(state, tables, cfg, gen)
+        state, st = _dense_step_impl(state, tables, cfg, gen,
+                                     _released(cfg, state.step))
         rows.append(torch.stack([st[k] for k in _STAT_KEYS]))
     trace = torch.stack(rows)
     state = state._replace(rng_state=gen.get_state())
+    return state, {k: trace[:, i] for i, k in enumerate(_STAT_KEYS)}
+
+
+# The captured generations of the dense walk: one graph per
+# (equilibrated, released), the host values the step reads, and one
+# generator for them.  A new (tables, cfg, device) drops them before the
+# next capture; run_dense_walk drops them when it returns.
+_GRAPHS = GraphCache()
+
+
+def release_graphs() -> None:
+    """Free the dense walk's captured generations and their pools (they
+    hold its tables)."""
+    _GRAPHS.clear()
+
+
+def _dense_capture(state, tables, cfg, released: bool, n: int):
+    """gen -> the captured generation for this `released` (bound here, not
+    read from the caller's loop: on the CPU the body runs at every
+    replay)."""
+    return lambda gen: StepGraph(
+        lambda s: _dense_step_impl(s, tables, cfg, gen, released),
+        state._replace(rng_state=None), gen, _STAT_KEYS, rows=max(n, 128))
+
+
+def _replay_dense_block(state, tables, cfg, nstep):
+    """dense_walk_block's generations through the captured graphs (on a
+    CPU state the runner runs the same body eagerly).  A release_node
+    block is split at release_step, each part on its own graph; the host
+    advances the step count and hands the generator's state back."""
+    rows = []
+    while nstep > 0:
+        released = _released(cfg, state.step)
+        n = nstep if released or cfg.run_type != "release_node" else \
+            min(nstep, cfg.release_step - state.step)
+        gen, g = _GRAPHS.get(
+            (id(tables), cfg, state.w.device), state.w.device,
+            _dense_capture(state, tables, cfg, released, n),
+            variant=(state.equilibrated, released), rows=n)
+        gen.set_state(state.rng_state)
+        new, trace, _ = g.block(state._replace(rng_state=None), n)
+        state = new._replace(step=state.step + n,
+                             equilibrated=state.equilibrated,
+                             rng_state=gen.get_state())
+        rows.append(trace)
+        nstep -= n
+    trace = torch.cat(rows)
     return state, {k: trace[:, i] for i, k in enumerate(_STAT_KEYS)}
 
 
@@ -435,6 +507,7 @@ def run_dense_walk(system, cfg: DenseWalkConfig, psi_t, psi_g=None,
                   f"{num / den if den else float('nan'):12.6f}  "
                   f"w_abs={float(state.w_abs_gen):10.1f}  "
                   f"e_trial={float(state.e_trial):12.6f}")
+    release_graphs()
     blocks = np.asarray(blocks)
     e_mixed = float(np.mean(blocks)) if len(blocks) else float("nan")
     e_err = float(np.std(blocks) / max(np.sqrt(len(blocks) - 1), 1)) \

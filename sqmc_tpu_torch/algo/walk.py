@@ -71,7 +71,7 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import hbselect, segscan, setalg, slotpar, spmv
+from ..ops import hbselect, segscan, seqinit, setalg, slotpar, spmv
 from ..ops.alias import setup_alias_np
 from ..systems.chem import slater
 from ..systems.chem.slater import SQRT2, SQRT2INV
@@ -133,7 +133,7 @@ class WalkConfig:
     cap_fresh: int = 0          # fresh-det buffer (0 = max(cap_spawn//8, 8192))
     # "group_max": a merged group's initiator is the max over its rows;
     # "sequential": the reference's order-dependent pairwise rule
-    # (do_walk.f90:5897-5950), a measurement mode (sequential_initiator_scan)
+    # (do_walk.f90:5897-5950), a measurement mode (ops/seqinit.py, K5)
     initiator_rule: str = "group_max"
     dense_proj_max: int = 16384
     # accepted for configurations written for the JAX package: the port's
@@ -1521,49 +1521,6 @@ def _min_wt_round(cfg, gen, wt, keep, imp):
     return wt, keep & ~kill
 
 
-def sequential_initiator_scan(neq, s_wt, init_row):
-    """The reference's order-dependent pairwise initiator combine
-    (merge_original_with_spawned2 do_walk.f90:5897-5950): walk each merge
-    group in sort order carrying (running weight, initiator); a same-sign
-    pair takes the max initiator, an opposite-sign pair the initiator of
-    the sign-winning walker (exact cancellation -> 0), except that a
-    permanent initiator (code 3) is never demoted.
-
-    The rule is not associative, so it cannot ride the fused segmented
-    scan.  It is iterated over the RANK of a row within its group
-    instead: one count scan (ops/segscan.py) gives every row's rank, and
-    pass k combines the rank-k row of every group that has one with the
-    running value of the row before it, vectorized over the groups.  The
-    number of passes is the largest group size less one, read from the
-    device once per call; no group is cut short, however long.  This is a
-    measurement mode (WalkConfig.initiator_rule "sequential"): each pass
-    is a handful of small device operations.
-
-    neq: [N] bool group-start flags of the sorted rows; s_wt: [N] signed
-    row weights; init_row: [N] i32 row initiator flags.  Returns the [N]
-    running initiator; a group's merged value stands at its END row."""
-    N = neq.shape[0]
-    dev = neq.device
-    ones = torch.ones(N, dtype=I32, device=dev)
-    rank = (segscan.seg_scan([ones], ["sum"], neq)[0] - 1).to(I64)
-    counts = torch.bincount(rank).tolist()        # rows per rank: one sync
-    order = torch.argsort(rank, stable=True)      # rank-major, rows ascending
-    acc_w = s_wt.clone()
-    acc_i = init_row.to(I32).clone()
-    off = counts[0]
-    for cnt in counts[1:]:
-        rows = order[off:off + cnt]
-        off += cnt
-        pw, pi = acc_w[rows - 1], acc_i[rows - 1]
-        w, ini = s_wt[rows], init_row[rows].to(I32)
-        a, r = pw.abs(), w.abs()
-        opp = torch.where(r > a, ini, torch.where(r == a, 0, pi))
-        opp = torch.where(pi == 3, pi, opp)
-        acc_i[rows] = torch.where(pw * w > 0, torch.maximum(pi, ini), opp).to(I32)
-        acc_w[rows] = pw + w
-    return acc_i
-
-
 def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
                      spawn_dn, spawn_wt, spawn_ok, child_imp, child_init,
                      overflow):
@@ -1630,7 +1587,7 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
         ["min", "max", "sum", "sum", "min", "max"], neq)
     g_wt = torch.where(g_u == 0, sc_wt - sc_dwt, sc_wt)
     if cfg.initiator_rule == "sequential":
-        g_init = sequential_initiator_scan(neq, s_wt, init_row)
+        g_init = seqinit.sequential_initiator(neq, s_wt, init_row)
     g_valid = is_end & (g_u <= 127)
     g_imp = torch.where(g_u == 0, 0, torch.where(g_u == 1, -2, g_u - 1)).to(I32)
     g_init = _initiator_update(cfg, g_wt, g_init, g_imp)
@@ -1938,15 +1895,13 @@ def _check_mesh(cfg: WalkConfig, tables: WalkTables) -> None:
                          "n_dev equal to the mesh's size")
 
 
-def _graphed(device: torch.device, tables: WalkTables, cfg: WalkConfig) -> bool:
+def _graphed(device: torch.device, tables: WalkTables) -> bool:
     """Whether walk_step / walk_block replay a captured generation (a CUDA
     graph, utils/cudagraph.py) or run the eager loop.  The card replays,
     except on a mesh (gloo cannot be captured; NCCL capture over several
-    cards is unverified) and under the sequential initiator rule, whose
-    rank counts are a host sync by design.  The CPU runs the eager loop,
-    the plain version that the CPU tests hold against the JAX package."""
-    return (device.type == "cuda" and tables.mesh is None
-            and cfg.initiator_rule != "sequential")
+    cards is unverified).  The CPU runs the eager loop, the plain version
+    that the CPU tests hold against the JAX package."""
+    return device.type == "cuda" and tables.mesh is None
 
 
 # The one captured generation of the process: a new (tables, generator,
@@ -1973,7 +1928,7 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         g = StepGraph(lambda s: _walk_step_impl(s, tables, cfg, gen),
                       state._replace(rng_state=None), gen, _TRACE_KEYS,
                       ("spawn_hist",),
-                      counters=(segscan, spmv, hbselect, slotpar),
+                      counters=(segscan, spmv, hbselect, slotpar, seqinit),
                       rows=max(nstep, 128))
         _GRAPH[key] = g
     return g
@@ -1985,7 +1940,7 @@ def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     caller owns; on the card one replay of the captured generation."""
     _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
-    if not _graphed(state.wt.device, tables, cfg):
+    if not _graphed(state.wt.device, tables):
         return _walk_step_impl(state, tables, cfg, gen)
     return _step_graph(state, tables, cfg, gen, 1).step(state)
 
@@ -2002,7 +1957,7 @@ def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     package's jit over lax.scan; elsewhere _walk_block_eager.  Returns
     (state, stats) with stats[k] an [nstep] device tensor per trace key
     and stats["spawn_hist"] the block's summed histogram."""
-    if not _graphed(state.wt.device, tables, cfg):
+    if not _graphed(state.wt.device, tables):
         return _walk_block_eager(state, tables, cfg, nstep, gen)
     _check_mesh(cfg, tables)
     return _replay_block(repair_caches(state, tables, cfg), tables, cfg,

@@ -58,13 +58,14 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOP = 12                              # profile rows printed
-OWN = ("k_seg_scan", "k_spmv", "k_hb_select", "k_slot_parents")
+OWN = ("k_seg_scan", "k_spmv", "k_hb_select", "k_slot_parents",
+       "k_seq_init")
 
 
 def _launch_counts():
     """{kernel: launches} of the kernel modules the imported package has."""
     out = {}
-    for name in ("segscan", "spmv", "hbselect", "slotpar"):
+    for name in ("segscan", "spmv", "hbselect", "slotpar", "seqinit"):
         mod = f"sqmc_tpu_torch.ops.{name}"
         if importlib.util.find_spec(mod) is not None:
             out[name] = importlib.import_module(mod).launches

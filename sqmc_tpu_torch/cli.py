@@ -27,7 +27,7 @@ correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
 launch counts (``Kernel launches: seg_scan=... spmv=... hb_select=...
-slot_parents=...``).
+slot_parents=... seq_init=...``).
 """
 
 from __future__ import annotations
@@ -467,9 +467,9 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
 
 def main(argv=None):
     import torch
-    from .ops import hbselect, segscan, slotpar, spmv
+    from .ops import hbselect, segscan, seqinit, slotpar, spmv
     kernels = dict(seg_scan=segscan, spmv=spmv, hb_select=hbselect,
-                   slot_parents=slotpar)
+                   slot_parents=slotpar, seq_init=seqinit)
 
     p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
     p.add_argument("-i", "--input", required=True)

@@ -11,7 +11,8 @@ positions [nw, ne], per-walker inverse Slater matrices [nw, ne, ne] updated
 by batched Sherman-Morrison row replacements, and the local energy
 evaluated over all electron hops of all walkers at once.  Every function
 here is written for the batch (the JAX package writes them for one walker
-and maps them); a sweep runs without a host sync.
+and maps them); a sweep runs without a host sync, and on the card it is
+one replay of a captured CUDA graph (utils/cudagraph.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...utils.cudagraph import GraphCache, StepGraph
 from .meanfield import hopping_matrix
 
 F64 = torch.float64
@@ -175,21 +177,75 @@ def _metropolis_step(gen, r_up, r_dn, minv_up, minv_dn, phi_up, phi_dn, nbr,
     return r_up, r_dn, minv_up, minv_dn
 
 
-def vmc_sweep(state: VmcState, phi_up, phi_dn, nbr, g, U, t,
-              nsteps: int, nsites: int):
-    """nsteps Metropolis steps for every walker + one local-energy
-    measurement, with no host sync.  Returns (new_state, e_loc [nw]).
-    The random stream continues from state.rng_state."""
-    gen = torch.Generator(device=state.r_up.device)
-    gen.set_state(state.rng_state)
-    g = torch.as_tensor(g, dtype=F64, device=state.r_up.device)
+def _sweep_body(state: VmcState, gen, phi_up, phi_dn, nbr, g, U, t,
+                nsteps: int, nsites: int):
+    """nsteps Metropolis steps + the local energy, over the state's
+    tensors (g a 0-dim float64 tensor on their device)."""
     r_up, r_dn, mu, md = state[:4]
     for _ in range(nsteps):
         r_up, r_dn, mu, md = _metropolis_step(
             gen, r_up, r_dn, mu, md, phi_up, phi_dn, nbr, g, nsites)
     e_loc = _local_energy(r_up, r_dn, mu, md, phi_up, phi_dn, nbr, g, U, t,
                           nsites)
-    return VmcState(r_up, r_dn, mu, md, gen.get_state()), e_loc
+    return state._replace(r_up=r_up, r_dn=r_dn, minv_up=mu,
+                          minv_dn=md), {"e_loc": e_loc}
+
+
+def vmc_sweep(state: VmcState, phi_up, phi_dn, nbr, g, U, t,
+              nsteps: int, nsites: int):
+    """nsteps Metropolis steps for every walker + one local-energy
+    measurement, with no host sync.  Returns (new_state, e_loc [nw]).
+    The random stream continues from state.rng_state.  On the card one
+    replay of the captured sweep (_replay_sweep), the counterpart of the
+    JAX package's jit over fori_loop; on the CPU the eager sweep."""
+    if state.r_up.device.type != "cuda":
+        return _vmc_sweep_eager(state, phi_up, phi_dn, nbr, g, U, t, nsteps,
+                                nsites)
+    return _replay_sweep(state, phi_up, phi_dn, nbr, g, U, t, nsteps, nsites)
+
+
+def _vmc_sweep_eager(state: VmcState, phi_up, phi_dn, nbr, g, U, t,
+                     nsteps: int, nsites: int):
+    """vmc_sweep as eager operations: the CPU's path, and on the card the
+    reference the captured sweep is held to."""
+    dev = state.r_up.device
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.rng_state)
+    g = torch.as_tensor(g, dtype=F64, device=dev)
+    new, stats = _sweep_body(state, gen, phi_up, phi_dn, nbr, g, U, t,
+                             nsteps, nsites)
+    return new._replace(rng_state=gen.get_state()), stats["e_loc"]
+
+
+# The captured sweep and its generator: a new (orbitals, neighbors, g, U,
+# t, nsteps, nsites, shapes, device) drops it before the next capture;
+# run_vmc drops it when it returns.
+_GRAPH = GraphCache()
+
+
+def release_graphs() -> None:
+    """Free the captured sweep and its memory pool."""
+    _GRAPH.clear()
+
+
+def _replay_sweep(state, phi_up, phi_dn, nbr, g, U, t, nsteps, nsites):
+    """vmc_sweep through the captured sweep (on a CPU state the runner runs
+    the same body eagerly): copy in, one replay, clones out."""
+    dev = state.r_up.device
+
+    def build(gen):
+        # g on the device once, not copied from the host in every sweep
+        g_t = torch.as_tensor(g, dtype=F64, device=dev)
+        return StepGraph(
+            lambda s: _sweep_body(s, gen, phi_up, phi_dn, nbr, g_t, U, t,
+                                  nsteps, nsites),
+            state._replace(rng_state=None), gen, ())
+    gen, graph = _GRAPH.get(
+        (id(phi_up), id(phi_dn), id(nbr), float(g), U, t, nsteps, nsites,
+         state.r_up.shape, state.r_dn.shape, dev), dev, build)
+    gen.set_state(state.rng_state)
+    new, stats = graph.step(state._replace(rng_state=None))
+    return new._replace(rng_state=gen.get_state()), stats["e_loc"]
 
 
 def run_vmc(l_x, l_y, t, U, nup, ndn, g: float, phi_up=None, phi_dn=None,
@@ -219,6 +275,7 @@ def run_vmc(l_x, l_y, t, U, nup, ndn, g: float, phi_up=None, phi_dn=None,
             # refresh inverses to kill Sherman-Morrison drift
             state = state._replace(minv_up=torch.linalg.inv(pu[state.r_up]),
                                    minv_dn=torch.linalg.inv(pd[state.r_dn]))
+    release_graphs()
     es = np.asarray(es)
     return float(es.mean()), float(es.std() / np.sqrt(max(len(es) - 1, 1)))
 

@@ -50,10 +50,12 @@ class StepGraph:
 
     step: ``state -> (new_state, stats)``, stats a dict of tensors, with no
     host sync inside.  state: a NamedTuple whose tensor fields, all on one
-    device, are the static inputs; its other fields pass through as the
-    step returns them.  gen: the generator the step draws from.
-    trace_keys: stats written each step as one float64 row; sum_keys:
-    stats summed over a block.  counters: modules with an integer
+    device, are the static inputs; its other fields (host values) are
+    frozen at the capture: a caller whose step reads them keys its graphs
+    on them and sets them on what the runner returns.  gen: the generator
+    the step draws from.  trace_keys: 0-dim stats written each step as
+    one float64 row (none: no trace); sum_keys: stats summed over a
+    block.  counters: modules with an integer
     ``launches``.  rows: the most steps a block may take.  A CUDA state is
     captured; a CPU state runs the body eagerly on every replay."""
 
@@ -98,8 +100,9 @@ class StepGraph:
         inputs = {t.untyped_storage().data_ptr() for t in self.static.values()}
         stats = {k: v.clone() if v.untyped_storage().data_ptr() in inputs
                  else v for k, v in stats.items()}
-        row = torch.stack([stats[k].to(F64) for k in self.trace_keys])
-        self.trace.index_copy_(0, self.slot, row[None])
+        if self.trace_keys:
+            row = torch.stack([stats[k].to(F64) for k in self.trace_keys])
+            self.trace.index_copy_(0, self.slot, row[None])
         for k in self.sum_keys:
             self.sums[k].add_(stats[k])
         self.slot.add_(1)
@@ -201,3 +204,29 @@ class StepGraph:
         self._replay(1)
         return (self._state_out(),
                 {k: v.clone() for k, v in self.out_stats.items()})
+
+
+class GraphCache:
+    """The captured steps of one loop (one dense walk, one VMC run, one
+    CPMC run) and the generator registered with all of them for their
+    lifetime.  A new loop key drops them, with their memory pools, before
+    the next capture; ``clear()`` drops them by hand."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self.key, self.gen, self.graphs = None, None, {}
+
+    def get(self, key, device, build, variant=None, rows: int = 1):
+        """(generator, graph) of loop `key` for `variant`: ``build(gen)``
+        captures the graph when there is none, or when it holds fewer than
+        `rows` steps.  The graph's step must hold what its key's ids name,
+        so that they stay unique while it lives."""
+        if key != self.key:
+            self.clear()
+            self.key, self.gen = key, torch.Generator(device=device)
+        g = self.graphs.get(variant)
+        if g is None or g.rows < rows:
+            g = self.graphs[variant] = build(self.gen)
+        return self.gen, g

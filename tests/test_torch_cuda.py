@@ -1420,15 +1420,16 @@ def test_entry_runs_a_generation_on_card():
 # eager loop, is the reference, bit for bit
 # ---------------------------------------------------------------------------
 
-GRAPH_CELLS = ("bench", "heg14_f32", "entry_f64", "ct_hubbardk",
-               "cauchy_schwarz", "uniform")
+GRAPH_CELLS = ("bench", "heg14_f32", "heg14_f32_sequential", "entry_f64",
+               "ct_hubbardk", "cauchy_schwarz", "uniform")
 
 
 def _graph_cell(name, dev):
     """(system, trial, cfg, w_abs_begin) of a walk the repo runs on the
     card, at its full width: the port's bench (synthetic C2-shaped file,
     heat-bath with singles, f32 state, bf16 dense projector), chip_smoke's
-    HEG-14 f32 cell, entry()'s f64 walk (its D projection through K2),
+    HEG-14 f32 cell (also under the sequential initiator rule, K5 in the
+    merge), entry()'s f64 walk (its D projection through K2),
     phase 7a's continuous-time chain on the 4x4 Hubbard-k cluster and
     phase 11c's two proposals on the bench's file (twice its capacities:
     these walks outgrow the bench's)."""
@@ -1447,14 +1448,16 @@ def _graph_cell(name, dev):
         return s, trial, WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn,
                                     n_words=s.n_words, **knobs), \
             bench.RUN["w_abs_begin"]
-    if name == "heg14_f32":
+    if name.startswith("heg14_f32"):
         from sqmc_tpu_torch.systems.heg.system import make_heg_system
         s = make_heg_system(3, 0.5, 14, 7, 1.49, device=dev)
         trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=2000,
                                          n_imp=20000)
+        rule = "sequential" if name.endswith("sequential") else "group_max"
         return s, trial, WalkConfig(norb=s.norb, nup=7, ndn=7, n_words=1,
                                     tau=2e-3, spawn_granularity=2.0,
-                                    r_initiator=0.5, **big), 1.4e5
+                                    r_initiator=0.5, initiator_rule=rule,
+                                    **big), 1.4e5
     if name == "entry_f64":
         import os
         from sqmc_tpu_torch import entry as E
@@ -1489,8 +1492,8 @@ def _assert_same_walk(a, b, sa, sb):
 
 
 def _kernel_counts():
-    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
-    return [m.launches for m in (segscan, spmv, hbselect, slotpar)]
+    from sqmc_tpu_torch.ops import hbselect, segscan, seqinit, slotpar, spmv
+    return [m.launches for m in (segscan, spmv, hbselect, slotpar, seqinit)]
 
 
 @pytest.mark.cuda
@@ -1503,7 +1506,8 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
     generators' states after each block (replays continue the walk's own
     Philox stream), and the kernel launch counts of the graphed blocks
     equal the eager blocks' (K1, K3, K4 in every cell but the CT chain and
-    the two proposals, which run no K3; K2 in entry()'s f64 walk)."""
+    the two proposals, which run no K3; K2 in entry()'s f64 walk; K5 under
+    the sequential rule)."""
     from sqmc_tpu_torch.algo import walk as TW
     dev = _device()
     s, trial, cfg, w0 = _graph_cell(name, dev)
@@ -1523,9 +1527,11 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
         eager = [y - x for x, y in zip(c0, c1)]
         assert [y - x for x, y in zip(c1, c2)] == eager
     assert not bool(b.overflow) and int(b.nwalk) > 1000
-    want = {"bench": [1, 0, 1, 1], "heg14_f32": [1, 0, 1, 1],
-            "entry_f64": [1, 1, 1, 1], "ct_hubbardk": [1, 0, 0, 1],
-            "cauchy_schwarz": [1, 0, 0, 1], "uniform": [1, 0, 0, 1]}[name]
+    want = {"bench": [1, 0, 1, 1, 0], "heg14_f32": [1, 0, 1, 1, 0],
+            "heg14_f32_sequential": [1, 0, 1, 1, 1],
+            "entry_f64": [1, 1, 1, 1, 0], "ct_hubbardk": [1, 0, 0, 1, 0],
+            "cauchy_schwarz": [1, 0, 0, 1, 0],
+            "uniform": [1, 0, 0, 1, 0]}[name]
     assert [int(d > 0) for d in eager] == want, eager
     g = TW._GRAPH[next(iter(TW._GRAPH))]
     print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
@@ -1638,3 +1644,220 @@ def test_checkpoint_after_graphed_blocks_resumes_the_same_walk(
     eager = TW.run_walk(s, trial, cfg, nblk=2, nblk_eq=1, seed=11, **kw)
     np.testing.assert_array_equal(eager.w_abs_trace, full.w_abs_trace)
     _assert_same_walk(full.state, eager.state, {}, {})
+
+
+# ---------------------------------------------------------------------------
+# K5: the sequential initiator combine (ops/seqinit.py, csrc/seqinit.cu)
+# ---------------------------------------------------------------------------
+
+SEQ_N = 458_752 + 262_144              # the walk's merge rows: mwalk + cap
+SEQ_LONG = 100_000                     # one group this long
+
+
+def seq_rows(n, seed, wdt, long_group=SEQ_LONG):
+    """n merge rows in groups of 1 to ~20 rows (a third single rows), one
+    group of `long_group` rows at a random place, weights mixing exact ties
+    and zeros with floats whose running sums round, initiators 0-3."""
+    rng = np.random.default_rng(seed)
+    starts = rng.random(n) < 0.45
+    at = int(rng.integers(1, n - long_group))
+    starts[at:at + long_group] = False
+    starts[at] = True
+    starts[at + long_group] = True
+    starts[0] = True
+    ties = rng.choice([-2.0, -1.0, 1.0, 2.0, 0.0], n)
+    floats = rng.standard_normal(n) * rng.choice([1e-3, 1.0, 1e3], n)
+    wts = np.where(rng.random(n) < 0.5, ties, floats).astype(wdt)
+    return starts, wts, rng.integers(0, 4, n).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [np.float32, np.float64], ids=["f32", "f64"])
+def test_seq_init_kernel_matches_plain(wdt):
+    """K5 against its plain version (run on the CPU, its home: the rank
+    passes number the longest group, 1e5 here), bit for bit, at the walk's
+    merge length with one group of 1e5 rows; a second call gives the same
+    bits, and each call counts one launch."""
+    from sqmc_tpu_torch.ops import seqinit
+    dev = _device()
+    starts, wts, inits = seq_rows(SEQ_N, 5, wdt)
+    args = [torch.as_tensor(x) for x in (starts, wts, inits)]
+    before = seqinit.launches
+    got = seqinit.sequential_initiator(*[a.to(dev) for a in args])
+    again = seqinit.sequential_initiator(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    assert seqinit.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == (SEQ_N,)
+    ref = seqinit.sequential_initiator_plain(*args)
+    assert torch.equal(got.cpu(), ref) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_seq_init_wrapper_raises_on_bad_input():
+    from sqmc_tpu_torch.ops import seqinit
+    dev = _device()
+    neq = torch.ones(4, dtype=torch.bool, device=dev)
+    w = torch.ones(4, device=dev)
+    ini = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):               # int64 initiators
+        seqinit.sequential_initiator(neq, w, ini.long())
+    with pytest.raises(ValueError):               # float16 weights
+        seqinit.sequential_initiator(neq, w.half(), ini)
+    with pytest.raises(ValueError):               # weights on the CPU
+        seqinit.sequential_initiator(neq, w.cpu(), ini)
+
+
+# ---------------------------------------------------------------------------
+# The dense engine, VMC and CPMC captured: the eager loops are the
+# reference, bit for bit
+# ---------------------------------------------------------------------------
+
+DENSE_GRAPH_CASES = {"none": ("none", 0, False),
+                     "fixed_node1": ("fixed_node1", 1, False),
+                     "release_node": ("release_node", 1, False),
+                     "sr": ("sr", 1, False), "vmc": ("vmc", 1, False),
+                     "exponential": ("none", 0, True),
+                     "exponential_fixed_node2": ("fixed_node2", 1, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DENSE_GRAPH_CASES))
+def test_dense_graph_equals_eager_bit_for_bit(case):
+    """The dense engine on a fictitious matrix of 2,048 dets: two blocks of
+    30 generations (the second equilibrated; release_node's first crosses
+    its release step, 12) through dense_walk_block (captured generations
+    replayed) and through the eager loop from one seed: w, the sums, the
+    trace and the generator's state equal bit for bit (sr's comb adds
+    exact 1.0s: its index_add_ sums in any order to the same bits)."""
+    from sqmc_tpu_torch.algo import densewalk as dw
+    from sqmc_tpu_torch.systems.toy import make_fictitious_system
+    dev = _device()
+    run_type, imp, expo = DENSE_GRAPH_CASES[case]
+    s = make_fictitious_system(2048, 0, 1.0, 0.5, 0.5, 0.5, seed=(1, 2, 3, 4),
+                               device=dev)
+    psi_t = np.zeros(2048)
+    psi_t[:8] = 1.0
+    psi_g = np.full(2048, 0.02)
+    cfg = dw.DenseWalkConfig(ndet=2048, tau=0.002, w_abs_target=2e4,
+                             run_type=run_type, importance_sampling=imp,
+                             release_step=12, sr_nwalk=20000, min_wt=0.5,
+                             use_exponential_projector=expo,
+                             pop_ctrl_exponent=100.0)
+    tables = dw.build_dense_tables(s, cfg, psi_t, psi_g)
+    st = dw.init_dense_state(cfg, psi_t, psi_g, 1e4, -1.0, seed=3,
+                             device=dev)
+    a = b = st
+    for blk in range(2):
+        if blk:
+            a, b = (x._replace(equilibrated=True) for x in (a, b))
+        a, sa = dw._dense_walk_block_eager(a, tables, cfg, 30)
+        b, sb = dw.dense_walk_block(b, tables, cfg, 30)
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if isinstance(x, torch.Tensor):
+                assert x.dtype == y.dtype and torch.equal(x, y), (blk, f)
+            else:
+                assert x == y, (blk, f)
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), (blk, k)
+        a, b = dw.end_of_dense_block(a), dw.end_of_dense_block(b)
+    assert float(b.w_abs_gen) > 1000
+    dw.release_graphs()
+
+
+@pytest.mark.cuda
+def test_vmc_graph_equals_eager_bit_for_bit():
+    """VMC on the 4x4 cluster (5 + 5, 256 walkers, 10 steps a sweep): 6
+    sweeps through vmc_sweep (one replay a sweep) and through the eager
+    sweep, the inverses refreshed after the third (outside the graph):
+    positions, inverses, local energies and the generator's state equal
+    bit for bit."""
+    from sqmc_tpu_torch.systems.hubbard import meanfield, vmc
+    dev = _device()
+    pu, pd, _ = meanfield.hartree_fock(4, 4, 1.0, 4.0, 5, 5, True)
+    st = vmc.init_vmc(pu, pd, 4, 4, 256, seed=7, device=dev)
+    nbr = torch.as_tensor(vmc.neighbor_table(4, 4, True), dtype=torch.int64,
+                          device=dev)
+    pu = torch.as_tensor(pu, device=dev)
+    pd = torch.as_tensor(pd, device=dev)
+    args = (pu, pd, nbr, 0.7, 4.0, 1.0, 10, 16)
+    a = b = st
+    for sweep in range(6):
+        a, ea = vmc._vmc_sweep_eager(a, *args)
+        b, eb = vmc.vmc_sweep(b, *args)
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (sweep, f)
+        assert torch.equal(ea, eb), sweep
+        if sweep == 2:
+            a, b = (x._replace(minv_up=torch.linalg.inv(pu[x.r_up]),
+                               minv_dn=torch.linalg.inv(pd[x.r_dn]))
+                    for x in (a, b))
+    assert vmc._GRAPH.graphs[None].replays == 6
+    vmc.release_graphs()
+
+
+@pytest.mark.cuda
+def test_cpmc_graph_equals_eager_bit_for_bit():
+    """CPMC on the 4x4 cluster (5 + 5, 1,024 walkers, tau 0.05): two
+    blocks of 10 steps through cpmc_block (one replay a step) and through
+    the eager loop, with the host's comb between them: walkers, log
+    weights, alive flags, the mixed energies and the generator's state
+    equal bit for bit."""
+    from sqmc_tpu_torch.systems.hubbard import cpmc
+    dev = _device()
+    cfg = cpmc.CpmcConfig(4, 4, 1.0, 4.0, 5, 5, tau=0.05, n_walkers=1024)
+    setup, st = cpmc.init_cpmc(cfg, seed=1, device=dev)
+    a = b = st
+    idx = torch.as_tensor(np.random.default_rng(0).integers(0, 1024, 1024),
+                          device=dev)
+    for blk in range(2):
+        a, ea = cpmc._cpmc_block_eager(a, setup, cfg, 10)
+        b, eb = cpmc.cpmc_block(b, setup, cfg, 10)
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (blk, f)
+        assert torch.equal(ea, eb) and bool(torch.isfinite(eb)), blk
+        a, b = (x._replace(phi_up=x.phi_up[idx], phi_dn=x.phi_dn[idx])
+                for x in (a, b))
+    assert cpmc._GRAPH.graphs[None].replays == 20
+    cpmc.release_graphs()
+
+
+@pytest.mark.cuda
+def test_captured_paths_replay_without_a_sync():
+    """After their captures, a dense block, a VMC sweep and a CPMC block
+    (its measurement included) run under torch's sync debug mode set to
+    raise: the replays, the copies in and out and the generator's state
+    handed back never wait on the card."""
+    from sqmc_tpu_torch.algo import densewalk as dw
+    from sqmc_tpu_torch.systems.hubbard import cpmc, meanfield, vmc
+    from sqmc_tpu_torch.systems.toy import make_fictitious_system
+    dev = _device()
+    s = make_fictitious_system(512, 0, 1.0, 0.5, 0.5, 0.5, device=dev)
+    g = np.full(512, 0.05)
+    dcfg = dw.DenseWalkConfig(ndet=512, tau=0.002, w_abs_target=5e3,
+                              run_type="sr", importance_sampling=1)
+    tables = dw.build_dense_tables(s, dcfg, g, g)
+    dst = dw.init_dense_state(dcfg, g, g, 5e3, -1.0, device=dev)
+    dst, _ = dw.dense_walk_block(dst, tables, dcfg, 5)
+    pu, pd, _ = meanfield.hartree_fock(4, 4, 1.0, 4.0, 5, 5, True)
+    vst = vmc.init_vmc(pu, pd, 4, 4, 64, device=dev)
+    nbr = torch.as_tensor(vmc.neighbor_table(4, 4, True), dtype=torch.int64,
+                          device=dev)
+    vargs = (torch.as_tensor(pu, device=dev), torch.as_tensor(pd, device=dev),
+             nbr, 0.7, 4.0, 1.0, 10, 16)
+    vst, _ = vmc.vmc_sweep(vst, *vargs)
+    ccfg = cpmc.CpmcConfig(4, 4, 1.0, 4.0, 5, 5, n_walkers=64)
+    setup, cst = cpmc.init_cpmc(ccfg, device=dev)
+    cst, _ = cpmc.cpmc_block(cst, setup, ccfg, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dst, dstats = dw.dense_walk_block(dst, tables, dcfg, 5)
+        vst, e_loc = vmc.vmc_sweep(vst, *vargs)
+        cst, e_mix = cpmc.cpmc_block(cst, setup, ccfg, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(dstats["e_gen"]).all())
+    assert bool(torch.isfinite(e_loc).all()) and bool(torch.isfinite(e_mix))
+    for mod in (dw, vmc, cpmc):
+        mod.release_graphs()

@@ -150,16 +150,15 @@ def test_walk_step_through_runner_equals_eager_step():
 
 
 def test_graph_rule_picks_eager_on_cpu_sequential_and_mesh(monkeypatch):
-    """The card replays a captured generation; the CPU, the sequential
-    initiator rule and a mesh run the eager loop.  On a CPU state
-    walk_block never reaches the runner."""
+    """The card replays a captured generation under either initiator rule
+    (the sequential rule is the kernel K5 on the card, no host sync); the
+    CPU and a mesh run the eager loop.  On a CPU state walk_block never
+    reaches the runner, whatever the rule."""
     tables, cfg, st = _walk("heg")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert TW._graphed(cuda, tables, cfg)
-    assert not TW._graphed(cpu, tables, cfg)
-    seq = TW.WalkConfig(**{**cfg.__dict__, "initiator_rule": "sequential"})
-    assert not TW._graphed(cuda, tables, seq)
-    assert not TW._graphed(cuda, tables._replace(mesh=object()), cfg)
+    assert TW._graphed(cuda, tables)
+    assert not TW._graphed(cpu, tables)
+    assert not TW._graphed(cuda, tables._replace(mesh=object()))
 
     def no_graph(*a, **k):
         raise AssertionError("the CPU reached the captured walk")
@@ -167,6 +166,8 @@ def test_graph_rule_picks_eager_on_cpu_sequential_and_mesh(monkeypatch):
     monkeypatch.setattr(TW, "_step_graph", no_graph)
     TW.walk_block(st, tables, cfg, 2, _gen())
     TW.walk_step(st, tables, cfg, _gen())
+    seq = TW.WalkConfig(**{**cfg.__dict__, "initiator_rule": "sequential"})
+    TW.walk_block(st, tables, seq, 2, _gen())
 
 
 class _CountingStep:

@@ -25,6 +25,7 @@ from sqmc_tpu.algo.semistoch import build_trial_wavefunction as j_trial
 from sqmc_tpu.systems.hubbard.system import make_hubbard_real_system as j_real
 from sqmc_tpu_torch import convert
 from sqmc_tpu_torch.algo import walk as TW
+from sqmc_tpu_torch.ops import seqinit
 
 torch.set_num_threads(1)
 
@@ -286,7 +287,7 @@ def test_sequential_scan_matches_pairwise_rule(seed, p_start):
     starts[0] = True
     wts = rng.choice([-2.0, -1.0, 1.0, 2.0, 3.0, 0.0], n).astype(np.float32)
     inits = rng.integers(0, 4, n).astype(np.int32)
-    got = TW.sequential_initiator_scan(
+    got = seqinit.sequential_initiator(
         torch.as_tensor(starts), torch.as_tensor(wts),
         torch.as_tensor(inits)).numpy()
     np.testing.assert_array_equal(got, _reference_rule(starts, wts, inits))
@@ -300,14 +301,14 @@ def test_sequential_scan_permanent_and_order():
     order dependent where group-max is not (the cases of
     tests/test_initiator_sequential.py)."""
     t = torch.as_tensor
-    got = TW.sequential_initiator_scan(
+    got = seqinit.sequential_initiator(
         t([True, False, False, True, False]),
         t([1.0, -1.0, -2.0, 1.0, -1.0]), t([3, 1, 1, 2, 1], dtype=torch.int32))
     assert got[2] == 3 and got[4] == 0
     rows = [(1.0, 2), (-2.0, 0), (3.0, 1)]
 
     def run(order):
-        return int(TW.sequential_initiator_scan(
+        return int(seqinit.sequential_initiator(
             t([True, False, False]), t([rows[i][0] for i in order]),
             t([rows[i][1] for i in order], dtype=torch.int32))[-1])
 
