@@ -55,8 +55,12 @@ Phases, each reported on its own line; any failure exits nonzero:
      and each launch's blocks, threads and resident blocks per SM;
   2e. the sequential initiator combine (K5) vs its plain version, bit
      for bit: 720,896 merge rows in groups of 1 to ~30 rows, float32 and
-     float64 (plain on the card), and with one group of 30,000 rows
-     (plain on the CPU); prints what 2 prints and the longest group (no library
+     float64 (plain on the card), with one group of 30,000 rows (plain on
+     the CPU), and the walk's shape: 138,866 rows of occupied dets in
+     short groups, then one group of 582,030 zero-weight empty slots
+     (plain on the card); prints what 2 prints, the longest group and
+     the longest group of active rows (a start or a nonzero weight: the
+     serial chain runs over those alone) and the active rows (no library
      call computes the rule);
   2c. the kernels' own time per call (kernel_us) at the walk and C2
      shapes, from one torch.profiler session (after 2d and 2e, whose
@@ -123,7 +127,8 @@ Phases, each reported on its own line; any failure exits nonzero:
      against FCI (the electron gas has (pr|pr) = 0, so that proposal has no
      support there); the sequential initiator rule and the two-level merge
      in the deterministic limit against the full-sort group-max trace
-     (1e-10); save, load and resume of a walker state giving the same
+     (1e-10), with K5 then held on that walk's own merge rows bit for bit
+     against its plain version on the card and timed; save, load and resume of a walker state giving the same
      next block as the uninterrupted run;
   8. the small-model family (decks and logs in build/smoke_phase8/):
      8a the dense `hubbard` deck through the CLI at full width, the 3x3
@@ -240,8 +245,10 @@ Phases, each reported on its own line; any failure exits nonzero:
      12d CPMC on it (1,024 walkers), 20 steps and the mixed energy, with
      the factorization kernels one step runs (which library); 12e phase
      3's HEG-14 f32 cell under the sequential initiator rule (K5 in the
-     merge), then the longest merge group of three more generations and
-     K5's time on the last one's rows against its bound.
+     merge), then three more generations: their longest merge group and
+     longest active group, K5 on the last one's rows bit for bit against
+     its plain version on the card, its time against its bound, and the
+     graphed gen/s beside the group-max cell's.
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
@@ -966,7 +973,7 @@ def phase_spawn_vs_plain(dev):
 # ---------------------------------------------------------------------------
 
 SEQ_LONG = 30_000                      # 2e's long group (the plain
-# version's passes number it, on the CPU: ~80 us a pass)
+# version's passes number its active rows, on the CPU: ~80 us a pass)
 
 
 def _seq_rows(n, seed, wdt, long_group=0):
@@ -988,6 +995,28 @@ def _seq_rows(n, seed, wdt, long_group=0):
     return starts, wts, rng.integers(0, 4, n).astype(np.int32)
 
 
+SEQ_EMPTY = 582_030                    # HEG-14's group of empty slots
+
+
+def _seq_walk_rows(seed, wdt):
+    """The walk's merge rows (MERGE_N): the first rows those of occupied
+    dets in groups of 1 to ~20 (15% zero weights: dead walkers), then one
+    group of SEQ_EMPTY empty slots, all of weight 0 (as phase 12e finds
+    them at HEG-14)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    occ = MERGE_N - SEQ_EMPTY
+    starts = np.zeros(MERGE_N, bool)
+    starts[:occ] = rng.random(occ) < 0.4
+    starts[0] = starts[occ] = True
+    ties = rng.choice([-2.0, -1.0, 1.0, 2.0], occ)
+    floats = rng.standard_normal(occ) * rng.choice([1e-3, 1.0, 1e3], occ)
+    w = np.where(rng.random(occ) < 0.5, ties, floats)
+    w[rng.random(occ) < 0.15] = 0.0
+    wts = np.concatenate([w, np.zeros(SEQ_EMPTY)]).astype(wdt)
+    return starts, wts, rng.integers(0, 4, MERGE_N).astype(np.int32)
+
+
 def _longest_group(neq):
     """The most rows of one group of the merge rows (a device scalar)."""
     import torch
@@ -996,10 +1025,12 @@ def _longest_group(neq):
     return (idx - first).max() + 1
 
 
-def _seq_bytes(n, wdt_bytes):
-    """K5's bytes: neq, the weights and the row initiators read once, the
-    running initiators written once."""
-    return n * (1 + wdt_bytes + 4 + 4)
+def _seq_bytes(n, wdt_bytes, n_active):
+    """K5's bytes: neq and the weights read once, the row initiators of the
+    n_active active rows read once (an inactive row's result depends only
+    on the carry of the last active row before it), the running
+    initiators written once."""
+    return n * (1 + wdt_bytes + 4) + 4 * n_active
 
 
 def phase_seq_init_vs_plain(dev):
@@ -1007,9 +1038,11 @@ def phase_seq_init_vs_plain(dev):
     1 to ~30 rows, float32 and float64, against its plain version on the
     card, bit for bit (a second call the same bits); then with one group
     of 30,000 rows, against the plain version on the CPU (its passes
-    number the longest group).  Prints what phase 2 prints and the longest group;
-    no PyTorch call computes this non-associative rule (library none).
-    Returns the float32 case's numbers."""
+    number the longest active group); then the walk's shape (one group of
+    582,030 zero-weight rows), plain on the card.  Prints what phase 2
+    prints, the longest group, the longest active group and the active
+    rows; no PyTorch call computes this non-associative rule (library
+    none).  Returns the float32 merge case's numbers."""
     import numpy as np
     import torch
     from sqmc_tpu_torch.ops import cudabuild, seqinit
@@ -1017,22 +1050,26 @@ def phase_seq_init_vs_plain(dev):
     for line in cudabuild.ptxas_summary(seqinit._SOURCE):
         log(f"phase 2e ptxas {seqinit._SOURCE}: {line}")
     out = {}
-    for name, wdt, long_group in (("merge_f32", np.float32, 0),
-                                  ("merge_f64", np.float64, 0),
-                                  ("long_group_f32", np.float32, SEQ_LONG)):
-        host = [torch.as_tensor(x) for x in _seq_rows(MERGE_N, 25, wdt,
-                                                      long_group)]
+    for name, rows, on_cpu in (
+            ("merge_f32", _seq_rows(MERGE_N, 25, np.float32), False),
+            ("merge_f64", _seq_rows(MERGE_N, 25, np.float64), False),
+            ("long_group_f32", _seq_rows(MERGE_N, 25, np.float32, SEQ_LONG),
+             True),
+            ("walk_f32", _seq_walk_rows(25, np.float32), False)):
+        host = [torch.as_tensor(x) for x in rows]
         args = [x.to(dev) for x in host]
         got = seqinit.sequential_initiator(*args)
         again = seqinit.sequential_initiator(*args)
         torch.cuda.synchronize()
+        stats = {}
         t0 = time.perf_counter()
-        if long_group:
-            ref = seqinit.sequential_initiator_plain(*host)
+        if on_cpu:
+            ref = seqinit.sequential_initiator_plain(*host, stats=stats)
             plain_ms = (time.perf_counter() - t0) * 1e3
             where = "cpu"
         else:
-            ref = seqinit.sequential_initiator_plain(*args).cpu()
+            ref = seqinit.sequential_initiator_plain(*args,
+                                                     stats=stats).cpu()
             plain_ms = _median_ms(
                 lambda a=args: seqinit.sequential_initiator_plain(*a),
                 reps=3, warm=1)
@@ -1043,10 +1080,12 @@ def phase_seq_init_vs_plain(dev):
         fn = (lambda a=args: seqinit.sequential_initiator(*a))
         ms = _median_ms(fn)
         dev_us = _device_us(fn)
-        nbytes = _seq_bytes(MERGE_N, np.dtype(wdt).itemsize)
+        nbytes = _seq_bytes(MERGE_N, rows[1].itemsize, stats["active"])
         bound_us, bound_by = _bound_us(nbytes)
         longest = int(_longest_group(args[0]))
         log(f"phase 2e seq_init {name}: n={MERGE_N} longest_group={longest} "
+            f"longest_active_group={stats['passes'] + 1} "
+            f"active_rows={stats['active']} "
             f"match max_abs_err=0 wrapper_ms={ms:.4f} device_us={dev_us:.1f} "
             f"bound_us={bound_us:.2f} bound_by={bound_by} bound_MB="
             f"{nbytes / 1e6:.2f} share={bound_us / dev_us:.4f} "
@@ -2074,7 +2113,9 @@ def phase_merge_and_checkpoint_oracles(dev, workdir):
     """7c, third part, on HEG-4 with D = the whole space (every spawn is
     discarded, so a generation does not depend on the random stream): the
     sequential initiator rule and the two-level merge give the full-sort
-    group-max trace to 1e-10; then, on the stochastic walk, a state saved
+    group-max trace to 1e-10 (and K5 on the sequential walk's own rows,
+    one more generation, against its plain version: _seq_on_walk_rows);
+    then, on the stochastic walk, a state saved
     after two blocks and loaded again continues exactly as the
     uninterrupted run."""
     import numpy as np
@@ -2110,6 +2151,9 @@ def phase_merge_and_checkpoint_oracles(dev, workdir):
             f"seg_scan_launches={c['seg_scan']} spmv_launches={c['spmv']}")
         if not dev_ < 1e-10:
             raise AssertionError(f"7c: the {name} trace left the full-sort one")
+        if name == "sequential" and st.wt.is_cuda:
+            log(f"phase 7c deterministic limit sequential seq_init on the "
+                f"walk's rows: {_seq_on_walk_rows(st, tab, cfg, 1)}")
 
     trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=30, n_imp=10)
     cfg = TW.WalkConfig(**dict(kw, r_initiator=0.0))
@@ -3611,6 +3655,7 @@ def phase_bench_all(dev, smi):
 COUNTS12 = dict.fromkeys(KERNELS, 0)  # phase 12's launches, both paths
 GRAPH_GENS = 100                      # one block of each path, per cell
 PROFILE_STEPS = 10                    # the profiled window of each path
+RATES12 = {}                          # phase 12: tag -> {path: rate}
 
 
 def _same_walk(tag, a, b, sa, sb):
@@ -3700,6 +3745,7 @@ def _path_cell(tag, unit, n, eager, graph, smi, counts_need=()):
         f"graph_host_launches_per_step={prof['graph'][1]} "
         f"launches={counts['graph']} [{smi}]")
     _need(f"phase 12 {tag}", counts["graph"], *counts_need)
+    RATES12[tag] = rate
     return b, sb
 
 
@@ -3865,51 +3911,76 @@ def _cpmc_linalg_rows(cpmc, setup, cfg, st):
     return "|".join(n[:48] for n in names) or "not_measured"
 
 
+def _seq_on_walk_rows(st, tables, cfg, ngen):
+    """K5 on a walk's own merge rows: ngen eager generations from state st
+    with K5's arguments recorded, then K5 on the last generation's rows
+    against its plain version on the card, bit for bit, and its device
+    time against its bound.  Launches made here are outside every counted
+    run.  Returns the fields of the log line."""
+    import torch
+    from sqmc_tpu_torch.algo import walk as W
+    from sqmc_tpu_torch.ops import seqinit
+    dev = st.wt.device
+    seen = []
+    kernel = seqinit.sequential_initiator
+
+    def spy(neq, s_wt, init_row):
+        seen.append((neq.clone(), s_wt.clone(), init_row.clone()))
+        return kernel(neq, s_wt, init_row)
+    seqinit.sequential_initiator = spy
+    try:
+        W._walk_block_eager(st, tables, cfg, ngen,
+                            torch.Generator(device=dev).manual_seed(3))
+    finally:
+        seqinit.sequential_initiator = kernel
+    longest = []
+    for args in seen:
+        stats = {}
+        ref = seqinit.sequential_initiator_plain(*args, stats=stats)
+        longest.append((int(_longest_group(args[0])), stats["passes"] + 1))
+    got = seqinit.sequential_initiator_cuda(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("seq_init on the walk's rows: differs from the "
+                             "plain version")
+    fn = (lambda: seqinit.sequential_initiator_cuda(*args))
+    nbytes = _seq_bytes(args[0].shape[0], args[1].element_size(),
+                        stats["active"])
+    bound_us, bound_by = _bound_us(nbytes)
+    dev_us = _device_us(fn)
+    return (f"longest_group={max(x[0] for x in longest)} "
+            f"longest_active_group={max(x[1] for x in longest)} "
+            f"(last generation {longest[-1][0]} / {longest[-1][1]}) "
+            f"rows={args[0].shape[0]} active_rows={stats['active']} "
+            f"groups={int(args[0].sum())} match max_abs_err=0 "
+            f"wrapper_ms={_median_ms(fn, reps=5, warm=1):.4f} "
+            f"device_us={dev_us:.1f} bound_us={bound_us:.3f} "
+            f"bound_by={bound_by} share={bound_us / dev_us:.4f}")
+
+
 def _graph_sequential(dev, smi, system, trial):
     """12e: phase 3's HEG-14 f32 cell under initiator_rule="sequential"
     (K5 in every generation's merge), then three more eager generations
-    from the graph's final state to read the longest merge group and time
-    K5 on that generation's own rows."""
-    import torch
-    from sqmc_tpu_torch.algo import walk as W
+    from the graph's final state to read the longest merge group and the
+    longest group of active rows, and to hold K5 on that generation's own
+    rows to its plain version on the card, bit for bit, and time it
+    (_seq_on_walk_rows)."""
     from sqmc_tpu_torch.algo.walk import WalkConfig
-    from sqmc_tpu_torch.ops import seqinit
+    tag = "12e_heg14_f32_sequential"
     cfg = WalkConfig(
         mwalk=458_752, cap_spawn=262_144, norb=system.norb, nup=system.nup,
         ndn=system.ndn, n_words=system.n_words, tau=2e-3,
         w_abs_target=W_TARGET, spawn_granularity=2.0, min_wt=0.5,
         r_initiator=0.5, f32_state=True, has_singles=False,
         initiator_rule="sequential")
-    tables, st = _graph_vs_eager("12e_heg14_f32_sequential", system, trial,
-                                 cfg, W_BEGIN, smi,
+    tables, st = _graph_vs_eager(tag, system, trial, cfg, W_BEGIN, smi,
                                  ("seg_scan", "hb_select", "slot_parents",
                                   "seq_init"))
-    seen = []
-    plain = seqinit.sequential_initiator
-
-    def spy(neq, s_wt, init_row):
-        seen.append((_longest_group(neq), neq.clone(), s_wt.clone(),
-                     init_row.clone()))
-        return plain(neq, s_wt, init_row)
-    seqinit.sequential_initiator = spy
-    try:
-        W._walk_block_eager(st, tables, cfg, 3,
-                            torch.Generator(device=dev).manual_seed(3))
-    finally:
-        seqinit.sequential_initiator = plain
-    longest = max(int(x[0]) for x in seen)
-    args = seen[-1][1:]
-    fn = (lambda: seqinit.sequential_initiator_cuda(*args))
-    nbytes = _seq_bytes(args[0].shape[0], args[1].element_size())
-    bound_us, bound_by = _bound_us(nbytes)
-    dev_us = _device_us(fn, calls=5, reps=3)    # ~30 ms a call
-    log(f"phase 12 12e_heg14_f32_sequential seq_init on the walk's rows: "
-        f"longest_group={longest} (last generation "
-        f"{int(seen[-1][0])}) rows={args[0].shape[0]} "
-        f"groups={int(args[0].sum())} "
-        f"wrapper_ms={_median_ms(fn, reps=5, warm=1):.4f} "
-        f"device_us={dev_us:.1f} bound_us={bound_us:.2f} bound_by={bound_by} "
-        f"share={bound_us / dev_us:.4f} [{smi}]")
+    line = _seq_on_walk_rows(st, tables, cfg, 3)
+    log(f"phase 12 {tag} seq_init on the walk's rows: {line} "
+        f"graph_gen_per_s={RATES12[tag]['graph']:.3f} "
+        f"group_max_graph_gen_per_s={RATES12['heg14_f32']['graph']:.3f} "
+        f"[{smi}]")
 
 
 def phase_graph(dev, smi, system=None, trial=None):

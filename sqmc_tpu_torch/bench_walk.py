@@ -42,7 +42,11 @@ call, chip_smoke.py's CUDA-graph timing) -- the heat-bath selection (K3)
 at phase 2d's walk and chem shapes and at shapes no walk of the package
 runs (18 and 34 electrons at 2n = 52, 20 at 2n = 260 with R2 read through
 L1/L2), the slot -> parent expand (K4) at phase 2d's two shapes -- each
-first held against its plain version with phase 2d's criteria.
+first held against its plain version with phase 2d's criteria; then the
+sequential initiator combine (K5) at phase 2e's four row sets, bit for
+bit against its plain version, its device us a call and, from one
+profiler session over them, each of its kernels' us a call (mark and
+compact, walk, fill).
 
 --repo DIR imports the package from DIR instead of the directory above
 this file, so that two checkouts can be timed in one process-per-run
@@ -52,6 +56,7 @@ sequence on one card (old, new, new, old) with the same script.
 import argparse
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
@@ -247,6 +252,63 @@ def kernels(args, smi):
         print(f"bench_walk {args.tag} kernel: slot_parents {name} M={m} "
               f"cap={cap} total={goal} device_us={us:.1f} [{smi}]",
               flush=True)
+    seq_kernels(args, smi, smoke)
+
+
+def seq_kernels(args, smi, smoke, calls=20):
+    """K5 at phase 2e's row sets: bit for bit against its plain version,
+    device us a call, then each of its kernels' us a call (one profiler
+    session)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from sqmc_tpu_torch.ops import seqinit
+    dev = torch.device("cuda")
+    cases = {}
+    for name, wdt, rows in (
+            ("merge_f32", np.float32, lambda w: smoke._seq_rows(
+                smoke.MERGE_N, 25, w)),
+            ("merge_f64", np.float64, lambda w: smoke._seq_rows(
+                smoke.MERGE_N, 25, w)),
+            ("walk_f32", np.float32, lambda w: smoke._seq_walk_rows(25, w)),
+            ("long_group_f32", np.float32, lambda w: smoke._seq_rows(
+                smoke.MERGE_N, 25, w, smoke.SEQ_LONG))):
+        host = [torch.as_tensor(x) for x in rows(wdt)]
+        a = [x.to(dev) for x in host]
+        stats = {}
+        if not torch.equal(seqinit.sequential_initiator(*a).cpu(),
+                           seqinit.sequential_initiator_plain(*host,
+                                                              stats=stats)):
+            raise AssertionError(f"seq_init {name}: differs")
+        us = smoke._device_us(lambda a=a: seqinit.sequential_initiator(*a))
+        print(f"bench_walk {args.tag} kernel: seq_init {name} "
+              f"n={a[0].shape[0]} active_rows={stats['active']} "
+              f"longest_active_group={stats['passes'] + 1} "
+              f"device_us={us:.1f} [{smi}]",
+              flush=True)
+        cases[name] = a
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, a in cases.items():
+            with record_function("case:" + name):
+                for _ in range(calls):
+                    seqinit.sequential_initiator(*a)
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name[5:]: (e.time_range.start, e.time_range.end)
+              for e in events if e.name.startswith("case:")}
+    for name, (lo, hi) in ranges.items():
+        rows = {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and "k_seq_init" in e.name
+                    and lo <= e.time_range.start <= hi):
+                key = re.search(r"k_seq_init_\w+", e.name).group(0)
+                rows[key] = rows.get(key, 0.0) + e.time_range.elapsed_us()
+        print(f"bench_walk {args.tag} kernel: seq_init {name} kernel_us "
+              + " ".join(f"{k}={v / calls:.1f}" for k, v in sorted(rows.items()))
+              + f" [{smi}]", flush=True)
 
 
 def c2_deck(args, smi):

@@ -309,27 +309,159 @@ def _seq_rows(seed, wdt):
     return starts, wts, inits
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+def _zero_rows(case, wdt):
+    """Zero-heavy merge rows for the skip of the zero-weight runs (starts,
+    weights, initiators; row 0 starts a group, as in the walk):
+    walk_like   the walk's merge scaled down ~100x: 1,360 rows of occupied
+                dets in short groups (dead walkers' zero rows among them),
+                then one group of 5,680 empty slots, all of weight 0;
+    cancel_runs small integer weights, so that running sums cancel exactly
+                and zero runs follow, with every initiator before them;
+    neg_zero    -0.0 and +0.0 weights, at starts and inside groups;
+    zero_starts group starts of weight 0 (initiators 0-3);
+    ends_on_zeros  groups whose last rows are zero-weight;
+    all_zero    every weight zero;
+    nan_gaps    groups that start with weight 0 (initiator 1 or 2), then
+                zero rows or none, then a NaN weight: the one row whose
+                result z of the carry at a gap decides (a NaN compares
+                false, so the rule keeps the carried initiator);
+    n1          one row."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    inits = None
+    if case == "walk_like":
+        occ, empty = 1360, 5680
+        starts = np.zeros(occ + empty, bool)
+        starts[:occ] = rng.random(occ) < 0.4
+        starts[occ] = True
+        ties = rng.choice([-2.0, -1.0, 1.0, 2.0], occ)
+        floats = rng.standard_normal(occ) * rng.choice([1e-3, 1.0, 1e3], occ)
+        w = np.where(rng.random(occ) < 0.5, ties, floats)
+        w[rng.random(occ) < 0.15] = 0.0
+        wts = np.concatenate([w, np.zeros(empty)])
+    elif case == "cancel_runs":
+        n = 6000
+        starts = rng.random(n) < 0.08
+        wts = rng.choice([-2.0, -1.0, 1.0, 2.0], n)
+        wts[rng.random(n) < 0.35] = 0.0
+    elif case == "neg_zero":
+        n = 3000
+        starts = rng.random(n) < 0.2
+        wts = rng.choice([-0.0, 0.0, -1.0, 1.0, 0.5, -2.0], n)
+    elif case == "zero_starts":
+        n = 3000
+        starts = rng.random(n) < 0.3
+        wts = rng.choice([-1.0, 1.0, 3.0], n) * rng.random(n)
+        wts[starts & (rng.random(n) < 0.7)] = 0.0
+        wts[rng.random(n) < 0.2] = 0.0
+    elif case == "ends_on_zeros":
+        sizes = rng.integers(2, 30, 200)
+        n = int(sizes.sum())
+        first = np.cumsum(sizes) - sizes
+        starts = np.zeros(n, bool)
+        starts[first] = True
+        wts = rng.standard_normal(n)
+        for a, size, z in zip(first, sizes, rng.integers(1, 10, 200)):
+            wts[a + max(size - z, 1):a + size] = 0.0
+    elif case == "all_zero":
+        n = 2000
+        starts = rng.random(n) < 0.1
+        wts = np.zeros(n)
+    elif case == "nan_gaps":
+        groups = [[0.0] + [0.0] * int(rng.integers(0, 3)) + [np.nan, 1.0]
+                  for _ in range(300)]
+        starts = np.concatenate([[True] + [False] * (len(g) - 1)
+                                 for g in groups])
+        wts = np.concatenate(groups)
+        inits = np.where(starts, rng.integers(1, 3, len(wts)),
+                         rng.integers(0, 4, len(wts))).astype(np.int32)
+    else:                                       # n1
+        starts, wts, inits = (np.array([True]), np.array([0.0]),
+                              np.array([2], np.int32))
+    starts[0] = True
+    if inits is None:
+        inits = rng.integers(0, 4, starts.shape[0]).astype(np.int32)
+    return starts, wts.astype(wdt), inits
+
+
+ZERO_CASES = ["walk_like", "cancel_runs", "neg_zero", "zero_starts",
+              "ends_on_zeros", "all_zero", "nan_gaps", "n1"]
+
+
+def _jax_seq(starts, wts, inits):
+    import jax.numpy as jnp
+    return np.asarray(JW.sequential_initiator_scan(
+        jnp.asarray(starts), jnp.asarray(wts), jnp.asarray(inits),
+        jnp.dtype(wts.dtype)))
+
+
+@pytest.mark.parametrize("case", [0, 1, 2] + ZERO_CASES)
 @pytest.mark.parametrize("wdt", [np.float32, np.float64],
                          ids=["f32", "f64"])
-def test_seqinit_plain_matches_jax_scan(wdt, seed):
-    """ops/seqinit.py's plain version (the CPU path of K5) equals the JAX
-    package's sequential_initiator_scan exactly, in the walk's two weight
-    types; a code-3 row is never demoted, an exact cancellation gives 0."""
-    import jax.numpy as jnp
-    starts, wts, inits = _seq_rows(seed, wdt)
+def test_seqinit_plain_matches_jax_scan(wdt, case):
+    """ops/seqinit.py's plain version (the CPU path of K5), which skips the
+    zero-weight rows that start no group, equals the JAX package's
+    sequential_initiator_scan (every row, no skip) exactly, in the walk's
+    two weight types: mixed rows (seeds 0-2: a code-3 row is never demoted,
+    an exact cancellation gives 0) and the zero-heavy rows of
+    _zero_rows, each with the corner it is there for."""
+    rows = _seq_rows(case, wdt) if isinstance(case, int) else \
+        _zero_rows(case, wdt)
+    starts, wts, inits = rows
     got = seqinit.sequential_initiator(
-        torch.as_tensor(starts), torch.as_tensor(wts),
-        torch.as_tensor(inits)).numpy()
-    ref = np.asarray(JW.sequential_initiator_scan(
-        jnp.asarray(starts), jnp.asarray(wts), jnp.asarray(inits),
-        jnp.dtype(wdt)))
-    assert got.dtype == np.int32
+        *(torch.as_tensor(x) for x in rows)).numpy()
+    ref = _jax_seq(*rows)
+    assert got.dtype == np.int32 and got.shape == starts.shape
     np.testing.assert_array_equal(got, ref)
-    # the rule's corner cases occur in these rows
     prev = np.roll(got, 1)
-    assert ((~starts) & (prev == 3) & (got == 3)).any()
-    assert ((~starts) & (got == 0) & (inits > 0)).any()
+    zero = (wts == 0) & ~starts
+    if isinstance(case, int):             # the rule's corner cases occur
+        assert ((~starts) & (prev == 3) & (got == 3)).any()
+        assert ((~starts) & (got == 0) & (inits > 0)).any()
+    elif case == "walk_like":
+        assert zero[1360:].sum() == 5679 and zero[:1360].any()
+    elif case == "cancel_runs":
+        # an exact cancellation followed by a zero run, after every
+        # running initiator 0-3
+        gid = np.cumsum(starts)
+        csum = np.array([wts[gid == g].astype(np.float64).cumsum()
+                         for g in np.unique(gid)], dtype=object)
+        run = np.concatenate(csum)
+        cancel = (~starts) & (wts != 0) & (run == 0) & np.roll(zero, -1)
+        assert set(prev[cancel]) == {0, 1, 2, 3}
+    elif case == "neg_zero":
+        nz = np.signbit(wts) & (wts == 0)
+        assert (nz & starts).any() and (nz & ~starts).any()
+    elif case == "zero_starts":
+        assert ((wts == 0) & starts & (inits > 0)).sum() > 100
+    elif case == "ends_on_zeros":
+        assert (zero & np.roll(starts, -1)).sum() > 150
+    elif case == "nan_gaps":               # z at the gap, kept by the NaN
+        nan = np.isnan(wts)
+        gap = nan & (np.roll(wts, 1) == 0) & ~np.roll(starts, 1)
+        assert gap.any() and (nan & ~gap).any()
+        assert (got[gap] == 0).all() and (got[nan & ~gap] > 0).all()
+    elif case == "all_zero":               # z of each group's start
+        head = inits[np.flatnonzero(starts)][np.cumsum(starts) - 1]
+        assert not wts.any()
+        np.testing.assert_array_equal(got, np.where(
+            starts | (head == 3), head, 0))
+
+
+def test_seqinit_plain_passes_number_the_longest_active_group():
+    """The plain version ranks only the active rows: its passes number the
+    longest group of ACTIVE rows less one (a handful at the walk-like
+    rows), not the longest group (the 5,680 empty slots)."""
+    starts, wts, inits = _zero_rows("walk_like", np.float32)
+    stats = {}
+    seqinit.sequential_initiator_plain(
+        torch.as_tensor(starts), torch.as_tensor(wts),
+        torch.as_tensor(inits), stats=stats)
+    active = starts | (wts != 0)
+    gid = np.cumsum(starts)
+    longest_active = np.bincount(gid[active]).max()
+    assert stats["active"] == active.sum()
+    assert stats["passes"] == longest_active - 1
+    assert longest_active < 60 and np.bincount(gid).max() == 5680
 
 
 def test_seqinit_cases_by_hand():

@@ -1692,6 +1692,142 @@ def test_seq_init_kernel_matches_plain(wdt):
     assert torch.equal(got.cpu(), ref) and torch.equal(got, again)
 
 
+SEQ_TILE = 2048                        # the kernel's tile (csrc/seqinit.cu)
+SEQ_EMPTY = 582_030                    # HEG-14's group of empty slots
+
+
+def seq_zero_rows(case, wdt):
+    """Zero-heavy rows for the skip of the zero-weight runs (row 0 starts a
+    group):
+    walk           the walk's merge rows: 720,896, the first 138,866 of
+                   occupied dets in short groups (15% dead walkers' zero
+                   rows), then one group of 582,030 empty slots of weight 0;
+    tile_crossing  zero runs of 1,000-6,000 rows across every tile boundary,
+                   inside groups whose active rows lie on both sides;
+    one_active     every weight zero and no start but row 0;
+    ragged         N not a multiple of the tile (7 tiles + 1,237 rows),
+                   30% zeros in short groups;
+    wide_codes     a group of 12,000 rows, 20% zeros, whose initiators
+                   leave 0-3 (-2 to 6) in its middle third (the warp
+                   walk's maps carry any int32 initiator);
+    nan_gaps       groups that start with weight 0 (initiator 1 or 2),
+                   then zero rows, then a NaN weight, whose result z at
+                   the gap decides; at every tile boundary one such group
+                   whose NaN row lies in the next tile (the warp walk's
+                   gap);
+    n1             one row of weight 0."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ties = [-2.0, -1.0, 1.0, 2.0]
+    if case == "walk":
+        occ = SEQ_N - SEQ_EMPTY
+        starts = np.zeros(SEQ_N, bool)
+        starts[:occ] = rng.random(occ) < 0.4
+        starts[occ] = True
+        w = np.where(rng.random(occ) < 0.5, rng.choice(ties, occ),
+                     rng.standard_normal(occ) * rng.choice([1e-3, 1.0, 1e3],
+                                                          occ))
+        w[rng.random(occ) < 0.15] = 0.0
+        wts = np.concatenate([w, np.zeros(SEQ_EMPTY)])
+    elif case == "tile_crossing":
+        n = 40 * SEQ_TILE + 300
+        starts = rng.random(n) < 0.3
+        wts = rng.choice(ties, n) * rng.random(n)
+        for b in range(SEQ_TILE, n, SEQ_TILE):
+            lo, hi = b - int(rng.integers(1, 3000)), b + int(rng.integers(0, 3000))
+            starts[lo:min(hi, n)] = False
+            wts[lo:min(hi, n)] = 0.0
+    elif case == "one_active":
+        n = 3 * SEQ_TILE + 5
+        starts, wts = np.zeros(n, bool), np.zeros(n)
+    elif case == "ragged":
+        n = 7 * SEQ_TILE + 1237
+        starts = rng.random(n) < 0.45
+        wts = rng.choice(ties + [0.0, 0.0], n)
+    elif case == "wide_codes":
+        n = 20_000
+        starts = rng.random(n) < 0.4
+        starts[4000:16_000] = False
+        starts[4000] = starts[16_000] = True
+        wts = rng.choice(ties + [0.5, -0.5], n) * (rng.random(n) > 0.2)
+    elif case == "nan_gaps":
+        n = 20 * SEQ_TILE
+        starts = np.zeros(n, bool)
+        wts = np.ones(n)
+        for a in range(0, n - 16, 16):        # away from the boundaries
+            if 32 <= a % SEQ_TILE < SEQ_TILE - 16:
+                starts[a] = True
+                wts[a:a + 14] = 0.0
+                wts[a + 14] = np.nan
+        for b in range(SEQ_TILE, n, SEQ_TILE):   # across them
+            starts[b - 8] = True
+            wts[b - 8:b + 6] = 0.0
+            wts[b + 6] = np.nan
+    else:                                      # n1
+        starts, wts = np.zeros(1, bool), np.zeros(1)
+    starts[0] = True
+    inits = rng.integers(0, 4, starts.shape[0]).astype(np.int32)
+    if case == "nan_gaps":
+        inits[starts] = rng.integers(1, 3, int(starts.sum()))
+    if case == "wide_codes":
+        inits[8000:12_000] = rng.integers(-2, 7, 4000)
+    return starts, wts.astype(wdt), inits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["walk", "tile_crossing", "one_active",
+                                  "ragged", "wide_codes", "nan_gaps", "n1"])
+@pytest.mark.parametrize("wdt", [np.float32, np.float64], ids=["f32", "f64"])
+def test_seq_init_kernel_matches_plain_on_zero_heavy_rows(wdt, case):
+    """K5 skips the zero-weight rows that start no group: bit for bit its
+    plain version (on the CPU) on the walk's merge rows (one zero group of
+    582,030 rows), zero runs across tile boundaries, one active row in
+    all, ragged lengths, a long group with initiators outside 0-3, and
+    NaN weights after zero runs; each call counts one launch."""
+    from sqmc_tpu_torch.ops import seqinit
+    dev = _device()
+    args = [torch.as_tensor(x) for x in seq_zero_rows(case, wdt)]
+    before = seqinit.launches
+    got = seqinit.sequential_initiator(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    assert seqinit.launches == before + 1
+    stats = {}
+    ref = seqinit.sequential_initiator_plain(*args, stats=stats)
+    assert torch.equal(got.cpu(), ref)
+    if case == "one_active":
+        assert stats["active"] == 1
+    if case == "walk":
+        assert stats["passes"] < 100
+
+
+@pytest.mark.cuda
+def test_seq_init_in_captured_graph_equals_eager():
+    """K5 captured in a CUDA graph (its memset, three launches and scratch
+    inside the capture), replayed on new rows in the same buffers, equals
+    the eager call on those rows bit for bit."""
+    from sqmc_tpu_torch.ops import seqinit
+    dev = _device()
+    first = [torch.as_tensor(x, device=dev)
+             for x in seq_zero_rows("walk", np.float32)]
+    second = [torch.as_tensor(x, device=dev)
+              for x in seq_rows(SEQ_N, 6, np.float32, long_group=30_000)]
+    static = [x.clone() for x in first]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        seqinit.sequential_initiator(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = seqinit.sequential_initiator(*static)
+    for rows in (first, second):
+        for dst, src in zip(static, rows):
+            dst.copy_(src)
+        g.replay()
+        eager = seqinit.sequential_initiator(*rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 @pytest.mark.cuda
 def test_seq_init_wrapper_raises_on_bad_input():
     from sqmc_tpu_torch.ops import seqinit
