@@ -1,0 +1,11 @@
+"""Device ms a generation of the fill: the compaction to [M] and the fresh
+dets' diagonal and C(T) index, from the walk's device marks
+(sqmc_tpu_torch/algo/walk.py block_report) over the last block of the
+untraced window; the six pieces sum to the block's device wall time a
+generation."""
+
+from benchmark import inside
+
+
+def read(run):
+    return inside.piece_ms(run, "fill")

@@ -1,0 +1,11 @@
+"""Device ms a generation of the finalize: population control and
+estimators, then the step graph's trace row, sums and copy-back, from
+the walk's device marks (sqmc_tpu_torch/algo/walk.py block_report) over
+the last block of the untraced window; the six pieces sum to the block's
+device wall time a generation."""
+
+from benchmark import inside
+
+
+def read(run):
+    return inside.piece_ms(run, "finalize")

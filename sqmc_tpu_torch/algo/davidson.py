@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timers
 from ..utils.precision import full_fp32_matmul
 from .sparseham import SparseHam
 
@@ -44,7 +45,9 @@ def davidson(H: SparseHam, n_states: int = 1,
     float64 numpy arrays.  initial: optional [n, k] starting vectors.
     matvec_fn: optional replacement for the COO matvec, called on a
     float64 [n, k] tensor on H's device - e.g. ops.spmv.BlockEllSpmv, the
-    device-Davidson matvec."""
+    device-Davidson matvec.  Traced (utils/timers), it counts
+    davidson_iters and matvecs (vectors multiplied by H) on the open
+    span."""
     full_fp32_matmul()
     n = H.n
     k = n_states
@@ -55,6 +58,7 @@ def davidson(H: SparseHam, n_states: int = 1,
     mv = matvec_fn if matvec_fn is not None else (lambda V: matvec(H, V))
 
     def apply(V):
+        timers.count("matvecs", V.shape[1])
         return mv(torch.as_tensor(V, device=dev)).cpu().numpy()
 
     if m_max is None:
@@ -78,6 +82,7 @@ def davidson(H: SparseHam, n_states: int = 1,
     theta_old = np.full(k, np.inf)
     evals = None
     X = V[:, :k]
+    it = -1
     for it in range(max_iter):
         G = V.T @ W
         G = 0.5 * (G + G.T)
@@ -121,6 +126,7 @@ def davidson(H: SparseHam, n_states: int = 1,
         HT = apply(T)
         V = np.concatenate([V, T], axis=1)
         W = np.concatenate([W, HT], axis=1)
+    timers.count("davidson_iters", it + 1)
     return np.asarray(evals), np.asarray(X)
 
 

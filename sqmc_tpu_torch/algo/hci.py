@@ -45,6 +45,7 @@ import torch
 from .. import dets as dets_mod
 from ..ops import setalg
 from ..ops.spmv import BlockEllSpmv
+from ..utils import timers
 from ..utils.precision import full_fp32_matmul
 from ..utils.timers import phase
 from .connect import generate_connections
@@ -154,7 +155,24 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
     returned in place of the variational stage (n_iters = 0); with
     dump_wf_var the result is written there.
     mesh: parallel.dist.Mesh (see the module docstring); rank 0 alone
-    prints."""
+    prints.
+
+    Traced (utils/timers): span "hci.run", one "hci.iteration" a pass of
+    the loop (iteration 0: the HF start), each with "hci.select" (the
+    candidates), "hci.ham" (the sparse H, ended by the copy of its
+    diagonal to the host, a synchronize) and "hci.davidson" (ended by the
+    host reading the eigenvectors; counters davidson_iters, matvecs and
+    the SpMV calls' spmv_calls, spmv_rows, spmv_nnz, spmv_cols); the
+    dedupe, setdiff and sort between them are the iteration's own time."""
+    with timers.span("hci.run"):
+        return _run_hci(system, eps_var, eps_var_sched, n_states, max_iters,
+                        verbose, device_davidson, mesh, wf_cache_dir,
+                        active_space, diagonalizer, dump_wf_var)
+
+
+def _run_hci(system, eps_var, eps_var_sched, n_states, max_iters, verbose,
+             device_davidson, mesh, wf_cache_dir, active_space, diagonalizer,
+             dump_wf_var) -> HCIResult:
     if mesh is not None:
         from ..parallel.dist import check_mesh, make_sharded_matvec, \
             owner_unique_dets
@@ -197,14 +215,15 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
                 energies=np.asarray(cached["energies"][:n_states]),
                 diag=np.asarray(cached["diag"], np.float64), n_iters=0)
 
-    up = torch.as_tensor(system.hf_up[None, :], device=dev)
-    dn = torch.as_tensor(system.hf_dn[None, :], device=dev)
-    wts = np.zeros((1, n_states))
-    wts[0, 0] = 1.0
-    min_H_done = np.full(1, 1e99)
-
-    H = build_sparse_ham(system.table, up, dn, nup, ndn, norb, **ts)
-    energies = np.full(n_states, float(H.diag[0]))
+    with timers.span("hci.iteration"):
+        up = torch.as_tensor(system.hf_up[None, :], device=dev)
+        dn = torch.as_tensor(system.hf_dn[None, :], device=dev)
+        wts = np.zeros((1, n_states))
+        wts[0, 0] = 1.0
+        min_H_done = np.full(1, 1e99)
+        with timers.span("hci.ham"):
+            H = build_sparse_ham(system.table, up, dn, nup, ndn, norb, **ts)
+            energies = np.full(n_states, float(H.diag[0]))
     if verbose:
         print(f"Iteration   0 eps1={eps_var:8.1e} ndets={1:9d} energy="
               + " ".join(f"{e:16.9f}" for e in energies), flush=True)
@@ -214,102 +233,110 @@ def run_hci(system, eps_var: float, eps_var_sched=None, n_states: int = 1,
 
     n_iter_done = 0
     for it in range(1, max_iters + 1):
-        eps = eps_var_sched[it - 1] if it <= len(eps_var_sched) else final_eps
-        n_old = len(up)
-        coeffs = np.max(np.abs(wts), axis=1) if it > 1 else wts[:, 0].copy()
-        coeffs = np.where(coeffs == 0.0, 1e-300, np.abs(coeffs))
+        with timers.span("hci.iteration"):
+            eps = (eps_var_sched[it - 1] if it <= len(eps_var_sched)
+                   else final_eps)
+            n_old = len(up)
+            coeffs = (np.max(np.abs(wts), axis=1) if it > 1
+                      else wts[:, 0].copy())
+            coeffs = np.where(coeffs == 0.0, 1e-300, np.abs(coeffs))
 
-        gen_mask = coeffs * min_H_done > eps
-        eps_per_ref = eps / coeffs
-        with phase("get_next_det_list", enabled=verbose):
-            if gen_mask.any():
-                gm = torch.as_tensor(gen_mask, device=dev)
-                cu, cd, _, _ = generate_connections(
-                    system, up[gm], dn[gm],
-                    torch.as_tensor(eps_per_ref[gen_mask], device=dev),
-                    torch.as_tensor(min_H_done[gen_mask], device=dev),
-                    mesh=mesh)
-            else:
-                cu = up[:0]
-                cd = dn[:0]
-        min_H_done = np.minimum(min_H_done, eps_per_ref)
+            gen_mask = coeffs * min_H_done > eps
+            eps_per_ref = eps / coeffs
+            with phase("get_next_det_list", enabled=verbose,
+                       name="hci.select"):
+                if gen_mask.any():
+                    gm = torch.as_tensor(gen_mask, device=dev)
+                    cu, cd, _, _ = generate_connections(
+                        system, up[gm], dn[gm],
+                        torch.as_tensor(eps_per_ref[gen_mask], device=dev),
+                        torch.as_tensor(min_H_done[gen_mask], device=dev),
+                        mesh=mesh)
+                else:
+                    cu = up[:0]
+                    cd = dn[:0]
+            min_H_done = np.minimum(min_H_done, eps_per_ref)
 
-        if mesh is not None:
-            # the union of the ranks' candidates, unique, on every rank
-            cu, cd = owner_unique_dets(mesh, cu, cd)
-        elif len(cu):
-            cu, cd, _, _ = setalg.unique_dets(cu, cd)
-        if len(cu):
-            new_mask = setalg.setdiff_dets(cu, cd, up, dn)
-            cu, cd = cu[new_mask], cd[new_mask]
-        if len(cu) and active_space is not None:
-            keep = _active_space_mask(cu, cd, active_space, nup, ndn, norb)
-            cu, cd = cu[keep], cd[keep]
-        n_total = n_old + len(cu)
+            if mesh is not None:
+                # the union of the ranks' candidates, unique, on every rank
+                cu, cd = owner_unique_dets(mesh, cu, cd)
+            elif len(cu):
+                cu, cd, _, _ = setalg.unique_dets(cu, cd)
+            if len(cu):
+                new_mask = setalg.setdiff_dets(cu, cd, up, dn)
+                cu, cd = cu[new_mask], cd[new_mask]
+            if len(cu) and active_space is not None:
+                keep = _active_space_mask(cu, cd, active_space, nup, ndn,
+                                          norb)
+                cu, cd = cu[keep], cd[keep]
+            n_total = n_old + len(cu)
 
-        if n_total == n_old:
-            if verbose:
-                print("Cycling hci iteration because no new dets", flush=True)
-            if it >= len(eps_var_sched) or eps == eps_var_sched[-1]:
+            if n_total == n_old:
+                if verbose:
+                    print("Cycling hci iteration because no new dets",
+                          flush=True)
+                if it >= len(eps_var_sched) or eps == eps_var_sched[-1]:
+                    break
+                continue
+            if n_total <= int(1.00001 * n_old) and eps == eps_var_sched[-1]:
+                if verbose:
+                    print("Exiting variational part because of number of new "
+                          "dets criterion", flush=True)
                 break
-            continue
-        if n_total <= int(1.00001 * n_old) and eps == eps_var_sched[-1]:
+
+            up2 = torch.cat([up, cu])
+            dn2 = torch.cat([dn, cd])
+            order = setalg.lexsort_dets(up2, dn2)
+            up2, dn2 = up2[order], dn2[order]
+            prev_pos = torch.nonzero(order < n_old).reshape(-1)
+            prev_map = torch.empty(n_old, dtype=torch.int64, device=dev)
+            prev_map[order[prev_pos]] = prev_pos
+            pm = prev_map.cpu().numpy()
+            wts2 = np.zeros((n_total, n_states))
+            wts2[pm] = wts
+            mhd2 = np.full(n_total, 1e99)
+            mhd2[pm] = min_H_done
+
+            with phase("generate_sparse_ham", enabled=verbose,
+                       name="hci.ham"):
+                H = build_sparse_ham(system.table, up2, dn2, nup, ndn, norb,
+                                     prev=H, prev_map=prev_map, **ts)
+                diag_np = H.diag.cpu().numpy()
+            X0 = wts2.copy()
+            for s in range(n_states):
+                if np.linalg.norm(X0[:, s]) < 1e-12:
+                    X0[np.argsort(diag_np)[s], s] = 1.0
+            with phase("davidson", enabled=verbose, name="hci.davidson"):
+                if diagonalizer == "arpack":
+                    evals, evecs = arpack_diagonalize(H, n_states, initial=X0)
+                elif (device_davidson and H.n >= 2000
+                      and (mesh is None or mesh.size == 1)):
+                    # the whole matrix on one card: the float32 block-ELL SpMV
+                    evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
+                                            matvec_fn=BlockEllSpmv(H))
+                    evals = np.array([_rayleigh_f64(H, evecs[:, s])
+                                      for s in range(n_states)])
+                elif mesh is not None and H.n >= 200:
+                    evals, evecs = davidson(
+                        H, n_states, initial=X0, tol=1e-10,
+                        matvec_fn=make_sharded_matvec(H, mesh))
+                else:
+                    evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
+
+            up, dn, wts, min_H_done = up2, dn2, evecs, mhd2
+            old_energies = energies
+            energies = evals
+            n_iter_done = it
             if verbose:
-                print("Exiting variational part because of number of new "
-                      "dets criterion", flush=True)
-            break
-
-        up2 = torch.cat([up, cu])
-        dn2 = torch.cat([dn, cd])
-        order = setalg.lexsort_dets(up2, dn2)
-        up2, dn2 = up2[order], dn2[order]
-        prev_pos = torch.nonzero(order < n_old).reshape(-1)
-        prev_map = torch.empty(n_old, dtype=torch.int64, device=dev)
-        prev_map[order[prev_pos]] = prev_pos
-        pm = prev_map.cpu().numpy()
-        wts2 = np.zeros((n_total, n_states))
-        wts2[pm] = wts
-        mhd2 = np.full(n_total, 1e99)
-        mhd2[pm] = min_H_done
-
-        with phase("generate_sparse_ham", enabled=verbose):
-            H = build_sparse_ham(system.table, up2, dn2, nup, ndn, norb,
-                                 prev=H, prev_map=prev_map, **ts)
-        X0 = wts2.copy()
-        diag_np = H.diag.cpu().numpy()
-        for s in range(n_states):
-            if np.linalg.norm(X0[:, s]) < 1e-12:
-                X0[np.argsort(diag_np)[s], s] = 1.0
-        with phase("davidson", enabled=verbose):
-            if diagonalizer == "arpack":
-                evals, evecs = arpack_diagonalize(H, n_states, initial=X0)
-            elif (device_davidson and H.n >= 2000
-                  and (mesh is None or mesh.size == 1)):
-                # the whole matrix on one card: the float32 block-ELL SpMV
-                evals, evecs = davidson(H, n_states, initial=X0, tol=3e-6,
-                                        matvec_fn=BlockEllSpmv(H))
-                evals = np.array([_rayleigh_f64(H, evecs[:, s])
-                                  for s in range(n_states)])
-            elif mesh is not None and H.n >= 200:
-                evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10,
-                                        matvec_fn=make_sharded_matvec(H, mesh))
-            else:
-                evals, evecs = davidson(H, n_states, initial=X0, tol=1e-10)
-
-        up, dn, wts, min_H_done = up2, dn2, evecs, mhd2
-        old_energies = energies
-        energies = evals
-        n_iter_done = it
-        if verbose:
-            print(f"Iteration{it:4d} eps1={eps:8.1e} ndets={n_total:9d} "
-                  "energy=" + " ".join(f"{e:16.9f}" for e in energies),
-                  flush=True)
-        if (np.max(np.abs(energies - old_energies)) < 1e-5
-                and eps == eps_var_sched[-1]):
-            if verbose:
-                print("Exiting variational part because of energy criterion",
+                print(f"Iteration{it:4d} eps1={eps:8.1e} ndets={n_total:9d} "
+                      "energy=" + " ".join(f"{e:16.9f}" for e in energies),
                       flush=True)
-            break
+            if (np.max(np.abs(energies - old_energies)) < 1e-5
+                    and eps == eps_var_sched[-1]):
+                if verbose:
+                    print("Exiting variational part because of energy "
+                          "criterion", flush=True)
+                break
 
     if verbose:
         print(f"Final Iteration{n_iter_done:4d} {len(up):9d} dets, energy="

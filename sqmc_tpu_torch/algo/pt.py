@@ -40,6 +40,7 @@ from ..ops.alias import sample_alias, setup_alias_np
 from ..parallel.dist import check_mesh, det_owner, route_by_owner
 from .connect import count_doubles, generate_connections
 from .sparseham import diag_elements_batched, ts_diag_elements
+from ..utils import timers
 from ..utils.timers import phase
 
 
@@ -78,17 +79,23 @@ def second_order_pt(system, up, dn, wts, var_energy: float, eps_pt: float,
                     verbose: bool = True, batch: int = 2048, mesh=None):
     """Deterministic screened PT-2.  up/dn: sorted variational dets [n, W]
     (int64 words); wts: [n] coefficients of the state.  Returns
-    (delta_e2, n_connected).  mesh: see the module docstring."""
+    (delta_e2, n_connected).  mesh: see the module docstring.
+
+    Traced (utils/timers): span "pt.run", ended by the host reading the
+    energy (a synchronize), with counters pt_candidates (screened
+    connections generated, duplicates included) and pt_connected."""
     check_mesh(mesh)
     verbose = verbose and (mesh is None or mesh.rank == 0)
     dev = system.device
-    up, dn = up.to(dev), dn.to(dev)
-    wts = _f64(wts, dev)
-    coeffs = wts.abs()
-    coeffs = torch.where(coeffs == 0.0, 1e-300, coeffs)
-    with phase("Deterministic 2nd-order PT correction", enabled=verbose):
+    with phase("Deterministic 2nd-order PT correction", enabled=verbose,
+               name="pt.run"):
+        up, dn = up.to(dev), dn.to(dev)
+        wts = _f64(wts, dev)
+        coeffs = wts.abs()
+        coeffs = torch.where(coeffs == 0.0, 1e-300, coeffs)
         cu, cd, h, ref = generate_connections(system, up, dn, eps_pt / coeffs,
                                               batch=batch, mesh=mesh)
+        timers.count("pt_candidates", len(cu))
         cu_u, cd_u, (num,) = _merge_by_owner(mesh, cu, cd, [h * wts[ref]])
         # connections counted as the reference does: unique candidates
         # plus the references themselves (ref:
@@ -106,6 +113,7 @@ def second_order_pt(system, up, dn, wts, var_energy: float, eps_pt: float,
         diag_e = _diag(system, cu_u[ext], cd_u[ext])
         delta_e2 = _total(mesh, torch.sum(num[ext] ** 2
                                           / (var_energy - diag_e)))
+        timers.count("pt_connected", n_connected)
     if verbose:
         print(f"Number of connected dets={n_connected}", flush=True)
         print(f"2nd-order PT energy lowering={delta_e2:26.9f}", flush=True)

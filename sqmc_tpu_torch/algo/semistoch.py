@@ -23,6 +23,7 @@ import torch
 
 from ..dets import host_u64 as _u64
 from ..ops import setalg
+from ..utils import timers
 from .connect import generate_connections
 from .hci import run_hci
 from .sparseham import SparseHam, build_sparse_ham
@@ -90,12 +91,15 @@ def _assemble_trial(system, up, dn, wts, n_psi_t: int, imp_up,
 def build_trial_wavefunction(system, eps_var: float = 2e-3,
                              n_psi_t: int = 200, n_imp: int = 1000,
                              verbose: bool = False) -> TrialWavefunction:
-    """Psi_T + D + C(T) for the walk, from one HCI run."""
-    res = run_hci(system, eps_var=eps_var, eps_var_sched=[eps_var] * 10,
-                  verbose=verbose)
-    wts = torch.as_tensor(res.wts[:, 0], device=res.up.device)
-    iu, idn, _ = _top_by_coef(res.up, res.dn, wts, n_imp)
-    return _assemble_trial(system, res.up, res.dn, wts, n_psi_t, iu, idn)
+    """Psi_T + D + C(T) for the walk, from one HCI run (traced: span
+    "trial.build", which ends with device work possibly still queued)."""
+    with timers.span("trial.build"):
+        res = run_hci(system, eps_var=eps_var, eps_var_sched=[eps_var] * 10,
+                      verbose=verbose)
+        wts = torch.as_tensor(res.wts[:, 0], device=res.up.device)
+        iu, idn, _ = _top_by_coef(res.up, res.dn, wts, n_imp)
+        return _assemble_trial(system, res.up, res.dn, wts, n_psi_t, iu,
+                               idn)
 
 
 def generate_space_iterate(system, n_iters: int, n_initiators, n_truncate,
@@ -188,7 +192,17 @@ def build_trial_from_cards(system, trial_wf_iters: int, norb_trial_wf,
     hamiltonian_mod.f90:113-115; D = the top size_deterministic dets of
     the same final expansion, semistoch.f90:263,403-420).  The last
     iteration keeps at least size_deterministic dets; trial_wf_iters == 0
-    leaves Psi_T = HF."""
+    leaves Psi_T = HF.  Traced: span "trial.build", as
+    build_trial_wavefunction's."""
+    with timers.span("trial.build"):
+        return _trial_from_cards(system, trial_wf_iters, norb_trial_wf,
+                                 n_initiators_trial_wf, n_truncate_trial_wf,
+                                 size_deterministic, verbose)
+
+
+def _trial_from_cards(system, trial_wf_iters, norb_trial_wf,
+                      n_initiators_trial_wf, n_truncate_trial_wf,
+                      size_deterministic, verbose) -> TrialWavefunction:
     size_det = max(int(size_deterministic), 1)
     n_psi_t = int(n_truncate_trial_wf[-1]) if trial_wf_iters > 0 else 1
     n_trunc = [int(x) for x in n_truncate_trial_wf]

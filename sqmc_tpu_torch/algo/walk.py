@@ -26,6 +26,10 @@ the (up, dn) key:
 Inside a generation nothing waits on the device: shapes are capacity-
 bounded (count -> cumsum -> fixed slots) and compactions are order-
 preserving scatters; ``overflow`` is read once per block by the driver.
+Each generation writes N_MARKS device timestamps (ops/mark.py) at the
+boundaries of its PIECES (projection, spawn, annihilation, fill,
+finalize); :func:`block_report` reads them, and the per-generation
+counters, for the last block run.
 On the card the generation is captured once as a CUDA graph and a block
 replays it (``walk_block``; ``_graphed`` names the exceptions), the
 counterpart of the JAX package's one compiled program per block.
@@ -73,9 +77,11 @@ from .. import dets
 from ..dets import flip
 from ..ops import hbselect, segscan, seqinit, setalg, slotpar, spmv
 from ..ops.alias import setup_alias_np
+from ..ops.mark import Marks
 from ..systems.chem import slater
 from ..systems.chem.slater import SQRT2, SQRT2INV
 from ..systems.heatbath import tri_le, tri_lt
+from ..utils import timers
 from ..utils.cudagraph import StepGraph
 from ..utils.precision import full_fp32_matmul
 
@@ -839,10 +845,12 @@ def _ct_free(tables: WalkTables) -> bool:
 def _fill_fresh(cfg, tables, up, dn, diag, ct, need):
     """Diagonal elements and (unless the C(T)-in-D estimator is active)
     C(T) indices for the rows flagged in `need`, through a cap_fresh-sized
-    compaction buffer.  Returns (diag, ct, overflow)."""
+    compaction buffer.  Returns (diag, ct, overflow, the float64 count of
+    rows flagged)."""
     M = up.shape[0]
     F = cfg.cap_fresh_eff
-    overflow = need.sum() > F
+    n_fresh = need.sum(dtype=F64)
+    overflow = n_fresh > F
     fidx = _compact_index(need, F, M)
     fi = fidx.clamp(max=M - 1)
     f_up, f_dn = up[fi], dn[fi]
@@ -850,7 +858,7 @@ def _fill_fresh(cfg, tables, up, dn, diag, ct, need):
     diag = _set_drop(diag, fidx, f_diag.to(diag.dtype))
     if not _ct_free(tables):
         ct = _set_drop(ct, fidx, _search_ct(tables, cfg, f_up, f_dn))
-    return diag, ct, overflow
+    return diag, ct, overflow, n_fresh
 
 
 def repair_caches(state: WalkState, tables: WalkTables, cfg) -> WalkState:
@@ -864,8 +872,8 @@ def repair_caches(state: WalkState, tables: WalkTables, cfg) -> WalkState:
         need = need | (alive & (state.ct == -2))
     if not bool(need.any()):
         return state
-    diag, ct, ovf = _fill_fresh(cfg, tables, state.up, state.dn, state.diag,
-                                state.ct, need)
+    diag, ct, ovf, _ = _fill_fresh(cfg, tables, state.up, state.dn,
+                                   state.diag, state.ct, need)
     return state._replace(diag=diag, ct=ct, overflow=state.overflow | ovf)
 
 
@@ -1287,10 +1295,17 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
             torch.where(take_single, sng_ok, dbl_ok))
 
 
+def _no_mark(k: int) -> None:
+    pass
+
+
 def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
-                    gen: torch.Generator):
+                    gen: torch.Generator, mark=_no_mark):
     """One MC generation.  Returns (new_state, stats) with stats a dict of
-    0-d device tensors plus the [N_HIST_BINS] spawn histogram."""
+    0-d device tensors plus the [N_HIST_BINS] spawn histogram.  mark(k)
+    writes device timestamp k (0 .. 4, the first four PIECES' starts and
+    the fill's end; the caller writes the last after the finalize)."""
+    mark(0)
     M, CAP, norb = cfg.mwalk, cfg.cap_spawn, cfg.norb
     dev = state.wt.device
     wdt = F32 if cfg.f32_state else F64
@@ -1333,6 +1348,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
             # against the D weights of the step's INPUT state
             ct_dots = (tables.ct_num_imp @ w_imp.to(F64),
                        tables.ct_den_imp @ w_imp.to(F64))
+    mark(1)
 
     # ---------------- spawn slot allocation -------------------------------
     # one draw for the parent-level stream and the per-slot streams
@@ -1473,6 +1489,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         child_imp = torch.where(spawn_ok, routed["imp"], 10 ** 6).to(I32)
         child_init = torch.where(spawn_ok, routed["init"], 0).to(I32)
         overflow = overflow | route_ovf
+    mark(2)
 
     # ---------------- diagonal move + projection on parents ----------------
     if ct_mode:
@@ -1490,7 +1507,8 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
 
     merge = _full_sort_merge if cfg.full_sort_merge else _two_level_merge
     out = merge(state, cfg, tables, gen, alive, wt_par, spawn_up, spawn_dn,
-                spawn_wt, spawn_ok, child_imp, child_init, overflow)
+                spawn_wt, spawn_ok, child_imp, child_init, overflow, mark)
+    mark(4)
     return _finalize_step(state, tables, cfg, gen, *out, total_spawn, spawn_wt,
                           spawn_ok, ct_dots)
 
@@ -1523,7 +1541,7 @@ def _min_wt_round(cfg, gen, wt, keep, imp):
 
 def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
                      spawn_dn, spawn_wt, spawn_ok, child_imp, child_init,
-                     overflow):
+                     overflow, mark=_no_mark):
     """Annihilation by one stable key sort of walkers + spawns and one
     fused segmented scan (ref: merge_original_with_spawned2,
     do_walk.f90:5866; merge rules :5898-5960).
@@ -1599,6 +1617,7 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     kill = tiny & (u_rnd >= aw / cfg.min_wt)
     rounded = tiny & ~kill
     keep = keep & ~kill
+    mark(3)
 
     # ---------------- compact to [M] (order-preserving) --------------------
     nwalk_new = keep.sum().to(I32)
@@ -1631,10 +1650,10 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     # index here
     fresh = (out_diag > DIAG_UNKNOWN_THRESHOLD) if _ct_free(tables) \
         else (out_ct == -2)
-    out_diag, out_ct, fresh_ovf = _fill_fresh(cfg, tables, out_up, out_dn,
-                                              out_diag, out_ct, fresh)
+    out_diag, out_ct, fresh_ovf, n_fresh = _fill_fresh(
+        cfg, tables, out_up, out_dn, out_diag, out_ct, fresh)
     return (out_up, out_dn, out_wt, out_init, out_imp, out_diag, out_ct,
-            nwalk_new, overflow | fresh_ovf)
+            nwalk_new, overflow | fresh_ovf, n_fresh)
 
 
 def _search_sorted_dets(cfg, list_up, list_dn, q_up, q_dn):
@@ -1667,7 +1686,7 @@ def _scatter_rows(M, fill, dtype, dev, shape_tail, *pairs):
 
 def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
                      spawn_dn, spawn_wt, spawn_ok, child_imp, child_init,
-                     overflow):
+                     overflow, mark=_no_mark):
     """Annihilation without the big sort (ref shape:
     merge_original_with_spawned2/3, do_walk.f90:5866,6087):
 
@@ -1739,6 +1758,7 @@ def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     # group values stand at each group's FIRST row
     keep_n = neq & keep_g[gid]
     n_wt_pos, n_init_pos, n_imp_pos = gn_wt[gid], gn_init[gid], gn_imp[gid]
+    mark(3)
 
     # ---- level 3: rank merge of the two sorted survivor lists -------------
     kw_i = torch.cumsum(keep_w.to(I64), 0)
@@ -1769,10 +1789,10 @@ def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
                   torch.full((NEW,), -2, dtype=I64, device=dev))
     fresh = (out_diag > DIAG_UNKNOWN_THRESHOLD) if _ct_free(tables) \
         else (out_ct == -2)
-    out_diag, out_ct, fresh_ovf = _fill_fresh(cfg, tables, out_up, out_dn,
-                                              out_diag, out_ct, fresh)
+    out_diag, out_ct, fresh_ovf, n_fresh = _fill_fresh(
+        cfg, tables, out_up, out_dn, out_diag, out_ct, fresh)
     return (out_up, out_dn, out_wt, out_init, out_imp, out_diag, out_ct,
-            nwalk_new, overflow | fresh_ovf)
+            nwalk_new, overflow | fresh_ovf, n_fresh)
 
 
 def _comb_reconfigure(w, u, n_comb: int):
@@ -1791,7 +1811,7 @@ def _comb_reconfigure(w, u, n_comb: int):
 
 
 def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
-                   out_imp, out_diag, out_ct, nwalk_new, overflow,
+                   out_imp, out_diag, out_ct, nwalk_new, overflow, n_fresh,
                    total_spawn, spawn_wt, spawn_ok, ct_dots=None):
     """Sorella comb (run_type sr), reweight, estimators (float64) and
     population control (ref do_walk.f90:2178, :2880-2889)."""
@@ -1832,12 +1852,13 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
             torch.stack([e_num_gen, e_den_gen, w_abs_gen]).to(F64),
             torch.stack([nwalk_new.to(F64),
                          (overflow | state.overflow).to(F64),
-                         total_spawn.to(F64)]), hist.to(F64)]))
+                         total_spawn.to(F64), n_fresh]), hist.to(F64)]))
         e_num_gen, e_den_gen, w_abs_gen = tot[0], tot[1], tot[2]
         nwalk_stat = tot[3].to(I32)
         overflow = tot[4] > 0
         total_spawn = tot[5].to(I64)
-        hist = tot[6:].to(I64)
+        n_fresh = tot[6]
+        hist = tot[7:].to(I64)
 
     e_num_blk = state.e_num_blk + e_num_gen
     e_den_blk = state.e_den_blk + e_den_gen
@@ -1878,6 +1899,9 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
                                                e_den_gen),
                  n_spawn=total_spawn,
                  reweight_factor_inv=state.reweight_factor_inv,
+                 # spawn slots that left the spawn piece with a nonzero
+                 # weight (the histogram's count), and new dets filled
+                 n_spawn_ok=hist.sum(dtype=F64), n_fresh=n_fresh,
                  spawn_hist=hist)
     return new_state, stats
 
@@ -1925,11 +1949,13 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         _GRAPH.clear()
         # the step holds tables and gen, so their ids stay unique while the
         # graph lives; the host-side generator state is not the step's input
-        g = StepGraph(lambda s: _walk_step_impl(s, tables, cfg, gen),
-                      state._replace(rng_state=None), gen, _TRACE_KEYS,
-                      ("spawn_hist",),
-                      counters=(segscan, spmv, hbselect, slotpar, seqinit),
-                      rows=max(nstep, 128))
+        with timers.span("walk.capture"):
+            g = StepGraph(
+                lambda s, mark: _walk_step_impl(s, tables, cfg, gen, mark),
+                state._replace(rng_state=None), gen, _TRACE_KEYS,
+                ("spawn_hist",),
+                counters=(segscan, spmv, hbselect, slotpar, seqinit),
+                rows=max(nstep, 128), marks=N_MARKS)
         _GRAPH[key] = g
     return g
 
@@ -1941,12 +1967,65 @@ def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
     if not _graphed(state.wt.device, tables):
-        return _walk_step_impl(state, tables, cfg, gen)
-    return _step_graph(state, tables, cfg, gen, 1).step(state)
+        marks = Marks(N_MARKS, 1, state.wt.device)
+        t0 = time.perf_counter()
+        new, stats = _walk_step_impl(state, tables, cfg, gen, marks)
+        marks.last()
+        _note_block(marks, 1, time.perf_counter() - t0, stats)
+        return new, stats
+    g = _step_graph(state, tables, cfg, gen, 1)
+    new, stats = g.step(state)
+    _note_block(g.marks, 1, g.enqueue_seconds, stats)
+    return new, stats
 
 
 _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
-               "reweight_factor_inv")
+               "reweight_factor_inv", "n_spawn_ok", "n_fresh")
+
+# The generation's pieces, delimited by its N_MARKS device timestamps
+# (mark k starts piece k; the last mark ends the finalize, after the step
+# graph's copy-back), and what the last block run left to read
+PIECES = ("project", "spawn", "annihilate", "fill", "finalize")
+N_MARKS = len(PIECES) + 1
+_LAST_BLOCK: dict = {}
+
+
+def _note_block(marks: Marks, gens: int, enqueue_s: float, stats) -> None:
+    _LAST_BLOCK.update(marks=marks, gens=gens, enqueue_s=enqueue_s,
+                       stats=stats)
+
+
+def block_report() -> dict | None:
+    """What the last walk_block (or walk_step) ran, from its device marks
+    and its per-generation counters (reading synchronizes; nothing on the
+    walk's path calls it), or None before the first block:
+
+      gens              generations in the block
+      piece_ns          mean ns a generation of each of PIECES and of
+                        "replay_gap": from the last mark of a generation
+                        to the first of the next (the device waiting
+                        between replays), summed over the block's gaps
+                        and divided by its generations, so the six sum to
+                        wall_ns_per_gen
+      wall_ns_per_gen   first mark of the block to its last, a generation
+      host_enqueue_ms_per_gen   host time spent enqueueing the block's
+                        replays (the eager loop: running them), a
+                        generation
+      n_spawn, n_spawn_ok, n_fresh   the counters summed over the block
+                        (spawn slots drawn, accepted, new dets filled)"""
+    if not _LAST_BLOCK:
+        return None
+    n = _LAST_BLOCK["gens"]
+    m = _LAST_BLOCK["marks"].read(n).astype(np.int64)
+    ns = {p: float((m[:, i + 1] - m[:, i]).sum()) / n
+          for i, p in enumerate(PIECES)}
+    ns["replay_gap"] = float((m[1:, 0] - m[:-1, -1]).sum()) / n
+    stats = _LAST_BLOCK["stats"]
+    return {"gens": n, "piece_ns": ns,
+            "wall_ns_per_gen": float(m[-1, -1] - m[0, 0]) / n,
+            "host_enqueue_ms_per_gen": _LAST_BLOCK["enqueue_s"] * 1e3 / n,
+            **{k: float(stats[k].sum())
+               for k in ("n_spawn", "n_spawn_ok", "n_fresh")}}
 
 
 def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
@@ -1956,21 +2035,37 @@ def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     generation replayed `nstep` times, the counterpart of the JAX
     package's jit over lax.scan; elsewhere _walk_block_eager.  Returns
     (state, stats) with stats[k] an [nstep] device tensor per trace key
-    and stats["spawn_hist"] the block's summed histogram."""
-    if not _graphed(state.wt.device, tables):
-        return _walk_block_eager(state, tables, cfg, nstep, gen)
-    _check_mesh(cfg, tables)
-    return _replay_block(repair_caches(state, tables, cfg), tables, cfg,
-                         nstep, gen)
+    and stats["spawn_hist"] the block's summed histogram.
+
+    Traced (utils/timers), the block is span "walk.block" with counters
+    gens (nstep) and lost (nstep when the block overflowed, to be run
+    again): reading the overflow flag synchronizes, which only the traced
+    block does, so its span ends when the device has run the block.  It
+    opens no profiler range: around the replays it would become the
+    parent of every replayed kernel in torch.profiler's events, and
+    reading them took 6.5 times as long (126 s against 19 s for 300
+    generations of the C2-shaped bench walk on an H100); the device marks
+    delimit the generations in the trace instead."""
+    with timers.span("walk.block", profiler_range=False, gens=nstep) as sp:
+        if not _graphed(state.wt.device, tables):
+            out = _walk_block_eager(state, tables, cfg, nstep, gen)
+        else:
+            _check_mesh(cfg, tables)
+            out = _replay_block(repair_caches(state, tables, cfg), tables,
+                                cfg, nstep, gen)
+        if sp is not None:
+            sp.counts["lost"] = nstep * int(bool(out[0].overflow))
+    return out
 
 
 def _replay_block(state, tables, cfg, nstep, gen):
     """walk_block's generations through the captured graph (on a CPU
     state the runner runs the same body eagerly)."""
-    new, trace, sums = _step_graph(state, tables, cfg, gen, nstep).block(
-        state, nstep)
+    g = _step_graph(state, tables, cfg, gen, nstep)
+    new, trace, sums = g.block(state, nstep)
     stats = {k: trace[:, i] for i, k in enumerate(_TRACE_KEYS)}
     stats["spawn_hist"] = sums["spawn_hist"]
+    _note_block(g.marks, nstep, g.enqueue_seconds, stats)
     return new, stats
 
 
@@ -1981,13 +2076,19 @@ def _walk_block_eager(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     _check_mesh(cfg, tables)
     state = repair_caches(state, tables, cfg)
     rows, hist = [], None
+    marks = Marks(N_MARKS, nstep, state.wt.device)
+    t0 = time.perf_counter()
     for _ in range(nstep):
-        state, st = _walk_step_impl(state, tables, cfg, gen)
+        state, st = _walk_step_impl(state, tables, cfg, gen, marks)
         rows.append(torch.stack([st[k].to(F64) for k in _TRACE_KEYS]))
         hist = st["spawn_hist"] if hist is None else hist + st["spawn_hist"]
+        marks.last()
+        marks.slot.add_(1)
+    t1 = time.perf_counter()
     trace = torch.stack(rows)
     stats = {k: trace[:, i] for i, k in enumerate(_TRACE_KEYS)}
     stats["spawn_hist"] = hist
+    _note_block(marks, nstep, t1 - t0, stats)
     return state, stats
 
 
@@ -2198,6 +2299,17 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
                     print(f"extending equilibration (pop_off={pop_off}, "
                           f"drift={drift})", flush=True)
         iblk += 1
+    if verbose and iblk:
+        # the last block's device time a generation by piece, with no
+        # profiler (the same numbers as block_report)
+        rep = block_report()
+        ms = " ".join(f"{k}={v * 1e-6:.4f}" for k, v in rep["piece_ns"].items())
+        print(f"Generation pieces (last block, {rep['gens']} gens, ms/gen): "
+              f"{ms} wall={rep['wall_ns_per_gen'] * 1e-6:.4f} "
+              f"host_enqueue={rep['host_enqueue_ms_per_gen']:.4f} "
+              f"spawn_accept="
+              f"{100.0 * rep['n_spawn_ok'] / max(rep['n_spawn'], 1.0):.2f}% "
+              f"fresh/gen={rep['n_fresh'] / rep['gens']:.1f}", flush=True)
     release_graphs()
     state = end_of_block(state)
 

@@ -27,7 +27,12 @@ correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
 launch counts (``Kernel launches: seg_scan=... spmv=... hb_select=...
-slot_parents=... seq_init=...``).
+slot_parents=... seq_init=...``); a walk prints, before it, its last
+block's device time a generation by piece (``Generation pieces ...``,
+algo/walk.py block_report).  ``--profile DIR`` writes a torch.profiler
+Chrome trace in which the program's spans (utils/timers: walk.block,
+hci.iteration, pt.run, ...) and the walk's device marks (``sqmc_mark<k>``
+kernels) name the rows.
 """
 
 from __future__ import annotations

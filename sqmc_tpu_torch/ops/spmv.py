@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import timers
 from . import cudabuild
 
 BLOCK_ROWS = 512            # the ELL row count rounds up to this (JAX's n_pad)
@@ -247,10 +248,17 @@ def spmv(x, cols, vals, row_ptr, row_nnz):
 class _RowPtrSpmv:
     """y = H x for a SparseHam in one of the layouts, on H's device, in the
     layout's value type (float32 unless asked otherwise); x is [n] or
-    [n, m] and y comes back in x's dtype."""
+    [n, m] and y comes back in x's dtype.  Traced (utils/timers), each
+    call counts spmv_calls, spmv_rows, spmv_nnz (stored entries read) and
+    spmv_cols (m) on the open span, from host-side shapes."""
 
     def __call__(self, x):
         x = torch.as_tensor(x, device=self.cols.device)
+        if timers.tracing():
+            timers.count("spmv_calls", 1)
+            timers.count("spmv_rows", self.n)
+            timers.count("spmv_nnz", self.nnz)
+            timers.count("spmv_cols", 1 if x.dim() == 1 else x.shape[1])
         y = spmv(x.to(self.vals.dtype), self.cols, self.vals, self.row_ptr,
                  self.row_nnz)
         return y.to(x.dtype)
@@ -262,6 +270,7 @@ class _RowPtrSpmv:
         self.vals = torch.as_tensor(vals, device=dev)
         self.row_ptr = torch.as_tensor(row_ptr, device=dev)
         self.row_nnz = torch.as_tensor(row_nnz, device=dev)
+        self.nnz = int(np.asarray(row_nnz).sum())
 
 
 class EllSpmv(_RowPtrSpmv):

@@ -16,6 +16,13 @@ holds the advanced offset.  A warm-up step on a side stream (lazy kernel
 loads and launch attributes, the cuBLAS workspace of the capture stream)
 runs before the capture; the generator's state is put back after it.
 
+Marks: with ``marks=n`` the runner owns an int64 ``[rows, n]`` buffer of
+device timestamps (ops/mark.py) at the trace's row index: the step is
+called as ``step(state, mark)`` and writes marks 0 .. n - 2 at its
+pieces' boundaries, and the runner writes the last one after the
+copy-back.  ``enqueue_seconds`` is the host time the last block's (or
+step's) replays took to enqueue: two clock reads, no sync.
+
 Launch counters: the kernel wrappers count in Python, and a replay calls
 no wrapper.  The counters' change while the step is recorded is added
 times the replays after each block (warm-up and recording leave the
@@ -32,6 +39,8 @@ import contextlib
 import time
 
 import torch
+
+from ..ops.mark import Marks
 
 F64 = torch.float64
 
@@ -56,11 +65,13 @@ class StepGraph:
     the step draws from.  trace_keys: 0-dim stats written each step as
     one float64 row (none: no trace); sum_keys: stats summed over a
     block.  counters: modules with an integer
-    ``launches``.  rows: the most steps a block may take.  A CUDA state is
-    captured; a CPU state runs the body eagerly on every replay."""
+    ``launches``.  rows: the most steps a block may take.  marks: the
+    number of device timestamps a step (0: none; see the module
+    docstring).  A CUDA state is captured; a CPU state runs the body
+    eagerly on every replay."""
 
     def __init__(self, step, state, gen, trace_keys, sum_keys=(),
-                 counters=(), rows: int = 1):
+                 counters=(), rows: int = 1, marks: int = 0):
         self.fields = tuple(f for f in state._fields
                             if isinstance(getattr(state, f), torch.Tensor))
         devs = {getattr(state, f).device for f in self.fields}
@@ -70,7 +81,6 @@ class StepGraph:
         dev = devs.pop()
         self.device = dev
         self.capture = dev.type == "cuda"
-        self.step_fn = step
         self.gen = gen
         self.trace_keys = tuple(trace_keys)
         self.sum_keys = tuple(sum_keys)
@@ -80,6 +90,11 @@ class StepGraph:
         self.trace = torch.zeros((self.rows, len(self.trace_keys)),
                                  dtype=F64, device=dev)
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.marks = (Marks(marks, self.rows, dev, self.slot) if marks
+                      else None)
+        self.step_fn = (step if self.marks is None
+                        else lambda s: step(s, self.marks))
+        self.enqueue_seconds = 0.0
         self.graph = None
         self.capture_seconds = 0.0
         self.pool_bytes = 0
@@ -93,7 +108,8 @@ class StepGraph:
 
     def _body(self):
         """One step over the static buffers: the new state copied into
-        them, the trace row at the device-side index, the sums added."""
+        them, the trace row at the device-side index, the sums added, the
+        last mark after the copy-back."""
         new, stats = self.step_fn(self._static_state())
         # a stat that is an input buffer (a value of the step's input
         # state) is taken before the new state overwrites it
@@ -105,12 +121,14 @@ class StepGraph:
             self.trace.index_copy_(0, self.slot, row[None])
         for k in self.sum_keys:
             self.sums[k].add_(stats[k])
-        self.slot.add_(1)
         moves = [(getattr(new, f), self.static[f]) for f in self.fields]
         moves = [(s.clone() if s.untyped_storage().data_ptr() in inputs
                   else s, d) for s, d in moves if s is not d]
         for src, dst in moves:
             dst.copy_(src)
+        if self.marks is not None:
+            self.marks.last()
+        self.slot.add_(1)
         return new, stats
 
     def _build(self, state):
@@ -172,11 +190,13 @@ class StepGraph:
 
     def _replay(self, n: int):
         before = _counts(self.counters)
+        t0 = time.perf_counter()
         for _ in range(n):
             if self.graph is not None:
                 self.graph.replay()
             else:
                 _, self.out_stats = self._body()
+        self.enqueue_seconds = time.perf_counter() - t0
         self.replays += n
         _set_counts(self.counters,
                     [b + d * n for b, d in zip(before, self.delta)])

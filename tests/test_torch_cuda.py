@@ -160,6 +160,48 @@ def test_generation_never_waits_on_the_card():
     assert not bool(st.overflow) and int(st.nwalk) > 0
 
 
+@pytest.mark.cuda
+def test_generation_marks_agree_with_cuda_events():
+    """One captured block of 200 generations: its five pieces plus the
+    gaps between generations (the device marks' first-to-last time) agree
+    within 3% with CUDA events recorded around the block, and every mark
+    of every generation is written in order, captured and eager alike."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s = make_heg_system(3, 1.0, 4, 2, 1.6, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=1e-3, n_psi_t=30, n_imp=40)
+    cfg = TW.WalkConfig(mwalk=4096, cap_spawn=8192, norb=s.norb, nup=2,
+                        ndn=2, n_words=1, tau=5e-3, w_abs_target=2000.0,
+                        has_singles=False, f32_state=True, r_initiator=0.5)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, 1000.0, trial.e_trial, tables)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 200
+    st, _ = TW.walk_block(st, tables, cfg, n, gen)      # capture and warm
+    st = TW.end_of_block(st)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    st, _ = TW.walk_block(st, tables, cfg, n, gen)
+    b.record()
+    torch.cuda.synchronize()
+    events_ms = a.elapsed_time(b)
+    rep = TW.block_report()
+    m = TW._LAST_BLOCK["marks"].read(n)
+    assert rep["gens"] == n and (m > 0).all()
+    assert (np.diff(m.reshape(-1)) >= 0).all()
+    marks_ms = sum(rep["piece_ns"].values()) * n * 1e-6
+    assert abs(marks_ms - events_ms) <= 0.03 * events_ms, (marks_ms,
+                                                           events_ms)
+    TW.release_graphs()
+    st, _ = TW._walk_block_eager(TW.end_of_block(st), tables, cfg, 5, gen)
+    m = TW._LAST_BLOCK["marks"].read(5)
+    assert (m > 0).all() and (np.diff(m.reshape(-1)) >= 0).all()
+
+
 def _sym_coo(n, seed):
     """Strictly-upper COO + diagonal with skewed row lengths."""
     rng = np.random.default_rng(seed)
