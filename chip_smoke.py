@@ -46,11 +46,17 @@ Phases, each reported on its own line; any failure exits nonzero:
      2n = 38, HEG-14's R2; once more with the last 30% of the slots the
      walk's empty-slot sentinel, as the walk hands them), at 6b's chem
      shape with singles (26 orbitals, 4 + 4) and with integer R2 (same
-     bits), the slot -> parent expand
+     bits), the heat-bath proposal (K3b, the kernel every heat-bath walk
+     launches) against its plain version at 262,144 slots of the four
+     shapes of tests/torch_spawn_emulation.py (the C2-shaped walk's f32
+     sng_pack, HEG-14 without singles, C2 with the float64 rows, a
+     70-orbital two-word system) with the card tests' criteria, the
+     slot -> parent expand
      (K4) at the walk's shape (458,752 walkers, 262,144 slots) below and
      above the capacity; printed as 2 and 2b print, the library calls
      being torch.cumsum of one [262,144, 2n] row set and its
-     triangular-matmul form (K3) and torch.searchsorted (K4), with what
+     triangular-matmul form (K3; K3b has none) and torch.searchsorted
+     (K4), with what
      ptxas reported of each kernel (registers, shared memory, spills)
      and each launch's blocks, threads and resident blocks per SM;
   2e. the sequential initiator combine (K5) vs its plain version, bit
@@ -252,12 +258,13 @@ Phases, each reported on its own line; any failure exits nonzero:
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
-of seg_scan, hb_select and slot_parents from phases 3, 7, 8, 10, 11 and
-12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's counts in
-phase 10), seq_init's from phases 7c and 12e,
+of seg_scan, hb_select, hb_spawn and slot_parents from phases 3, 7, 8,
+10, 11 and 12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's
+counts in phase 10), seq_init's from phases 7c and 12e,
 each path counted from 0; errors and times measured here: seg_scan at the
 walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
-hb_select and slot_parents at the walk's spawn shape, seq_init at the
+hb_select and slot_parents at the walk's spawn shape, hb_spawn at 2d's
+C2-shaped f32 case, seq_init at the
 walk's merge length, 2e's float32 case) and ``{"ok": true, "device":
 {...}}``.
 """
@@ -296,13 +303,17 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("seg_scan", "spmv", "hb_select", "slot_parents", "seq_init")
-F64_WALK = KERNELS[:4]                # an f64 heat-bath walk's kernels
+KERNELS = ("seg_scan", "spmv", "hb_select", "hb_spawn", "slot_parents",
+           "seq_init")
+# an f64 heat-bath walk's kernels
+F64_WALK = ("seg_scan", "spmv", "hb_spawn", "slot_parents")
 
 
 def _kernel_modules():
-    from sqmc_tpu_torch.ops import hbselect, segscan, seqinit, slotpar, spmv
-    return dict(zip(KERNELS, (segscan, spmv, hbselect, slotpar, seqinit)))
+    from sqmc_tpu_torch.ops import (hbselect, hbspawn, segscan, seqinit,
+                                    slotpar, spmv)
+    return dict(zip(KERNELS, (segscan, spmv, hbselect, hbspawn, slotpar,
+                              seqinit)))
 
 
 def _reset_counts():
@@ -472,7 +483,8 @@ def phase_kernel_rows(calls=20):
 
 def _own_kernel(name):
     return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_select",
-                                   "k_slot_parents", "k_seq_init"))
+                                   "k_hb_spawn", "k_slot_parents",
+                                   "k_seq_init"))
 
 
 HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
@@ -853,6 +865,79 @@ def _spawn_case_line(name, fn, plain, nbytes, ops, err, lib):
                 bound_us=bound_us, bound_by=bound_by, library_ms=first)
 
 
+def _spawn_bytes(args, single):
+    """The least bytes of K3b on these inputs: each slot reads its words
+    and five uniforms and writes the child's words, its factor and flag
+    (32 W + 49 B); a double reads six cells of the heat-bath tables
+    (32 B); a single its alias cells and row total (20 B) and, of its
+    row, h_pr, U[p, r] and the terms at the occupied orbitals (4 B each
+    from sng_pack, 8 from the float64 rows); R2 and u_rowsum once."""
+    import torch
+    from sqmc_tpu_torch import dets
+    from sqmc_tpu_torch.ops import hbselect
+    tables, up, dn, norb, singles, _, _, streams = args
+    cap, W = up.shape
+    nbytes = cap * (32 * W + 49) + 32 * int((~single).sum())
+    nbytes += tables.R2.numel() * 4 + (norb * 8 if singles else 0)
+    if singles:
+        n_up = dets.to_bits(up, norb).sum(1)
+        n_dn = dets.to_bits(dn, norb).sum(1)
+        o_s = hbselect.hb_select(up, dn, norb, tables.R2, tables.u_rowsum,
+                                 streams[1], streams[2]).o_s
+        same = torch.where(o_s < norb, n_up, n_dn)
+        e = 4 if tables.sng_pack.numel() else 8
+        nbytes += int((((n_up + n_dn + same + 2) * e + 20)[single]).sum())
+    return nbytes
+
+
+def _hb_spawn_cases(dev):
+    """2d's K3b cases: hbspawn.propose against propose_plain at 262,144
+    slots of each shape of tests/torch_spawn_emulation.py (a third random
+    dets, the rest the walk's own), by that module's compare_with_plain
+    (the card tests' criteria); the same bits on a second call; one launch
+    a call and no K3.  Returns {"spawn_<shape>": summary}."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.ops import hbselect, hbspawn
+    workdir = os.path.join(HERE, "build", "smoke_phase2d")
+    os.makedirs(workdir, exist_ok=True)
+    out = {}
+    for name in se.SPAWN_CASES:
+        args, _ = se.spawn_inputs(name, dev, workdir, SPAWN_CAP, seed=21)
+        tables, up, _, norb, singles, _, wdt, _ = args
+        before, sel0 = hbspawn.launches, hbselect.launches
+        got = hbspawn.propose(*args)
+        torch.cuda.synchronize()
+        if hbspawn.launches != before + 1 or hbselect.launches != sel0:
+            raise AssertionError(f"2d hb_spawn {name}: launches "
+                                 f"{hbspawn.launches - before} K3b, "
+                                 f"{hbselect.launches - sel0} K3")
+        again = hbspawn.propose(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"2d hb_spawn {name}: a second call gave "
+                                 "other bits")
+        ref = hbspawn.propose_plain(*args)
+        match = se.compare_with_plain(args, got, ref)
+        single = se.singles_taken(args)
+        err = float((got[2] - ref[2]).abs().max())
+        src = hbspawn.singles_source(tables, singles, wdt)
+        shape = hbspawn.launch_shape(SPAWN_CAP, up.shape[1], norb,
+                                     wdt == torch.float64, src, dev)
+        log(f"phase 2d hb_spawn {name} launch: " + " ".join(
+            f"{k}={v}" for k, v in shape.items()))
+        log(f"phase 2d hb_spawn {name}: {match}")
+        fn = (lambda a=args: hbspawn.propose(*a))
+        out[f"spawn_{name}"] = _spawn_case_line(
+            f"hb_spawn {name} cap={SPAWN_CAP} norb={norb} "
+            f"words={up.shape[1]}", fn,
+            lambda a=args: hbspawn.propose_plain(*a),
+            _spawn_bytes(args, single), 0.0, err, {})
+        PROFILED.append((f"hb_spawn {name}", fn))
+        del got, again, ref
+    return out
+
+
 def phase_spawn_vs_plain(dev):
     """Phase 2d: K3 at the walk's spawn shape (CAP 262,144 slots of HEG-14
     dets, 2n = 38, HEG-14's R2), at 6b's chem shape with singles and with
@@ -937,6 +1022,8 @@ def phase_spawn_vs_plain(dev):
         PROFILED.append((f"hb_select {name}", fn))
         del x, tri, got, ref, again
 
+    out.update(_hb_spawn_cases(dev))
+
     log("phase 2d slot_parents launch: " + " ".join(
         f"{k}={v}" for k, v in
         slotpar.launch_shape(SPAWN_M, SPAWN_CAP, dev).items()))
@@ -965,7 +1052,7 @@ def phase_spawn_vs_plain(dev):
              torch.searchsorted(c, s, right=True)})
         PROFILED.append((f"slot_parents {name}", fn))
     log(f"phase 2d seconds={time.time() - t_start:.2f}")
-    return out["walk_heg14"], out["slot_walk"]
+    return out["walk_heg14"], out["spawn_c2_f32_pack"], out["slot_walk"]
 
 
 # ---------------------------------------------------------------------------
@@ -1184,7 +1271,7 @@ def phase_main_path(dev, nblk=NBLK, nblk_eq=NBLK_EQ):
     if out.capacity_grows or np.abs(blocks / W_TARGET - 1).max() > 0.2:
         raise AssertionError(f"population bursts: block w_abs {blocks}, "
                              f"{out.capacity_grows} capacity growths")
-    _need("phase 3 main path", launches, "seg_scan", "hb_select",
+    _need("phase 3 main path", launches, "seg_scan", "hb_spawn",
           "slot_parents")
     if abs(bias) >= gate:
         raise AssertionError(f"|e_mixed - oracle| = {abs(bias):.6f} >= "
@@ -1802,7 +1889,7 @@ def phase_hubbard_k(dev, workdir, smi):
             f"gate_mHa={1e3 * gate:.4f} launches={c} "
             f"seconds={time.time() - t0:.1f} [{smi}]")
         _need(f"7a {name}", c, "seg_scan", "slot_parents",
-              *(("hb_select",) if name == "linear" else ()))
+              *(("hb_spawn",) if name == "linear" else ()))
     HUB_RESULTS.update(e_var=e_var, e_tot=e_tot)
     return e_tot
 
@@ -3455,7 +3542,7 @@ def phase_mesh(dev, system=None, res=None, trial=None, warm=None):
             f"e_mixed={out.e_mixed:.9f} +- {out.e_err:.9f} "
             f"bias_mHa={1e3 * dev_:.4f} gate_mHa={1e3 * gate:.4f} "
             f"launches={c}")
-        _need("10a", c, "seg_scan", "hb_select", "slot_parents")
+        _need("10a", c, "seg_scan", "hb_spawn", "slot_parents")
         walkers = _walkers(out.state)
 
         # 10c: serial references, then one NCCL rank
@@ -3549,7 +3636,7 @@ def phase_bench(dev, smi):
         raise AssertionError(f"11a: |e_mixed - oracle| = "
                              f"{abs(rec['bias_mHa']):.4f} mHa >= "
                              f"{1e3 * gate:.4f}")
-    _need("phase 11a bench", c, "seg_scan", "hb_select", "slot_parents")
+    _need("phase 11a bench", c, "seg_scan", "hb_spawn", "slot_parents")
     return rec
 
 
@@ -3974,7 +4061,7 @@ def _graph_sequential(dev, smi, system, trial):
         r_initiator=0.5, f32_state=True, has_singles=False,
         initiator_rule="sequential")
     tables, st = _graph_vs_eager(tag, system, trial, cfg, W_BEGIN, smi,
-                                 ("seg_scan", "hb_select", "slot_parents",
+                                 ("seg_scan", "hb_spawn", "slot_parents",
                                   "seq_init"))
     line = _seq_on_walk_rows(st, tables, cfg, 3)
     log(f"phase 12 {tag} seq_init on the walk's rows: {line} "
@@ -3992,7 +4079,7 @@ def phase_graph(dev, smi, system=None, trial=None):
     from sqmc_tpu_torch import bench
     from sqmc_tpu_torch.algo.walk import WalkConfig
     t0 = time.time()
-    walk_kernels = ("seg_scan", "hb_select", "slot_parents")
+    walk_kernels = ("seg_scan", "hb_spawn", "slot_parents")
     bsys, btrial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
                                                 **bench.TRIAL)
     _graph_vs_eager("bench", bsys, btrial,
@@ -4026,9 +4113,10 @@ def phase_graph(dev, smi, system=None, trial=None):
 
 
 def phase_build():
-    """Every kernel, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together (K3b, hb_spawn,
+    is built with K3: one source)."""
     from concurrent.futures import ThreadPoolExecutor
-    mods = _kernel_modules().values()
+    mods = [m for k, m in _kernel_modules().items() if k != "hb_spawn"]
     t0 = time.time()
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = [ex.submit(mod.build) for mod in mods]
@@ -4079,12 +4167,13 @@ def main():
                          "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
-    hb, slot = phase_spawn_vs_plain(dev)
+    hb, spawn, slot = phase_spawn_vs_plain(dev)
     seq = phase_seq_init_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
     hb["kernel_us"] = kernel_us["hb_select walk_heg14"]
+    spawn["kernel_us"] = kernel_us["hb_spawn c2_f32_pack"]
     slot["kernel_us"] = kernel_us["slot_parents walk"]
     seq["kernel_us"] = kernel_us["seq_init merge_f32"]
     PROFILED.clear()
@@ -4122,6 +4211,8 @@ def main():
               "sqmc_tpu/ops/spmv_pallas.py:83", launches["spmv"], sp),
         entry("hb_select", "sqmc_tpu_torch/csrc/hbselect.cu",
               "sqmc_tpu/ops/prefix.py:53", launches["hb_select"], hb),
+        entry("hb_spawn", "sqmc_tpu_torch/csrc/hbselect.cu",
+              "sqmc_tpu/algo/walk.py:1539", launches["hb_spawn"], spawn),
         entry("slot_parents", "sqmc_tpu_torch/csrc/slotpar.cu",
               "sqmc_tpu/algo/walk.py:1459", launches["slot_parents"],
               slot),

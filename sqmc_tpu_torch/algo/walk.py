@@ -75,7 +75,9 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import hbselect, segscan, seqinit, setalg, slotpar, spmv
+from ..ops import hbselect, hbspawn, segscan, seqinit, setalg, slotpar, spmv
+from ..ops.hbspawn import in_window as _in_window
+from ..ops.hbspawn import parity_sign as _sign
 from ..ops.alias import setup_alias_np
 from ..ops.mark import Marks
 from ..systems.chem import slater
@@ -877,15 +879,6 @@ def repair_caches(state: WalkState, tables: WalkTables, cfg) -> WalkState:
     return state._replace(diag=diag, ct=ct, overflow=state.overflow | ovf)
 
 
-def _sign(n: torch.Tensor) -> torch.Tensor:
-    return torch.where(n % 2 == 0, 1.0, -1.0).to(F64)
-
-
-def _in_window(x, a_pos, b_pos):
-    return ((x >= torch.minimum(a_pos, b_pos))
-            & (x < torch.maximum(a_pos, b_pos))).to(I32)
-
-
 def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
     """Continuous-time off-diagonal chains of the exponential projector
     (ref: move_uniform_exponential_projector do_walk.f90:3803, the
@@ -1087,208 +1080,84 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
     """One proposed excitation per spawn slot for the linear projector:
     a double from cfg.proposal or (chem) a single, with the spawn-weight
     factor -tau H / p(proposal).  `streams` = (ub, up_, ue, ua2, ur), five
-    [CAP] uniform streams.  Returns (spawn_up, spawn_dn, factor, ok)."""
+    [CAP] uniform streams.  Returns (spawn_up, spawn_dn, factor, ok).
+
+    The heat-bath proposal is ops/hbspawn.py's: one kernel launch (K3b)
+    on the card, its plain version on the CPU."""
     CAP, norb = up_w.shape[0], cfg.norb
     nup, ndn = cfg.nup, cfg.ndn
     dev = up_w.device
-    ub, up_, ue, ua2, ur = streams
-    ntri_s = norb * (norb - 1) // 2
-    zero64 = torch.zeros((), dtype=F64, device=dev)
-    heatbath = cfg.proposal == "fast_heatbath"
-    if cfg.has_singles or not heatbath:
-        bits_up_c = dets.to_bits(up_w, norb)
-        bits_dn_c = dets.to_bits(dn_w, norb)
+    if cfg.proposal == "fast_heatbath":
+        return hbspawn.propose(tables, up_w, dn_w, norb, cfg.has_singles, tau,
+                               wdt, streams)
 
-    R2 = tables.R2
-    if heatbath:
-        # hierarchical pair selection (and the singles draw) in one
-        # kernel: spin-orbital a ~ m_a = sum_occ R2[a, q], then b | a ~
-        # R2[a, b] over occupied b; the realized unordered-pair probability
-        # is the two-path sum of realized cumulative cells
-        sel = hbselect.hb_select(up_w, dn_w, norb, R2,
-                                 tables.u_rowsum if cfg.has_singles else None,
-                                 up_, ue)
-        o_s, utot, diff_sng = sel.o_s, sel.utot, sel.c_s
-        m_tot = sel.m_tot
-        w2_b = (0.5 * m_tot).to(wdt)
-    else:
-        if cfg.has_singles:
-            bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)
-            o_s, utot, diff_sng = hbselect.singles_rows(
-                bits2, tables.u_rowsum, up_)
-        p_pair, q_pair, pr_weight = pair_weights(cfg, tables, bits_up_c,
-                                                 bits_dn_c, wdt)
-        n_uu, n_dd = nup * (nup - 1) // 2, ndn * (ndn - 1) // 2
-        pair_rows = hbselect.flat_cumsum(pr_weight.to(F32))
-        w2_b = pair_rows[:, -1].to(wdt)
+    ub, up_, ue, ua2, ur = streams
+    zero64 = torch.zeros((), dtype=F64, device=dev)
+    bits_up_c = dets.to_bits(up_w, norb)
+    bits_dn_c = dets.to_bits(dn_w, norb)
+    if cfg.has_singles:
+        bits2 = torch.cat([bits_up_c, bits_dn_c], dim=1).to(F32)
+        o_s, utot, diff_sng = hbselect.singles_rows(
+            bits2, tables.u_rowsum, up_)
+    p_pair, q_pair, pr_weight = pair_weights(cfg, tables, bits_up_c,
+                                             bits_dn_c, wdt)
+    n_uu, n_dd = nup * (nup - 1) // 2, ndn * (ndn - 1) // 2
+    pair_rows = hbselect.flat_cumsum(pr_weight.to(F32))
+    w2_b = pair_rows[:, -1].to(wdt)
     utot_b = utot.to(wdt) if cfg.has_singles else \
         torch.zeros(CAP, dtype=F64, device=dev)
     psing_b = torch.where(utot_b + w2_b > 0, utot_b / (utot_b + w2_b), zero64)
-    take_single = (ub < psing_b) if cfg.has_singles else \
-        torch.zeros(CAP, dtype=torch.bool, device=dev)
 
     # ---- doubles ----
-    if heatbath:
-        o1, o2, s1q, s2q, p_pair_q = sel.o1, sel.o2, sel.s1q, sel.s2q, sel.p_pair_q
-        pair_fail = ((o1 == o2) | (m_tot <= 0) | (s1q <= 0) | (s2q <= 0)
-                     | (p_pair_q <= 0))
-        up1 = o1 < norb
-        up2 = o2 < norb
-        orb1 = torch.where(up1, o1, o1 - norb)
-        orb2 = torch.where(up2, o2, o2 - norb)
-        same_up_k = up1 & up2
-        kk = torch.where(same_up_k, 0, torch.where(~up1 & ~up2, 1, 2))
-        opp = kk == 2
-        # opposite-spin: pp = the up orbital, qq = the dn orbital;
-        # same-spin: pp < qq
-        pp = torch.where(opp, torch.where(up1, orb1, orb2), torch.minimum(orb1, orb2))
-        qq = torch.where(opp, torch.where(up1, orb2, orb1), torch.maximum(orb1, orb2))
-        a_s = torch.minimum(pp, qq)
-        b_s = torch.maximum(pp, qq)
-        rc = torch.where(opp, ntri_s + tri_le(a_s, b_s), tri_lt(a_s, b_s))
-        st = tables.hb_start[rc]
-        cnt = tables.hb_count[rc]
-        S_exact = tables.hb_rowsum[rc]
-        # O(1) in-row target ~ |H|: uniform slot, then accept-or-alias
-        n_cat = tables.hb_alias_q.shape[0]
-        slot = torch.minimum((ur * cnt).to(I64), (cnt - 1).clamp(min=0))
-        i0 = (st + slot).clamp(0, n_cat - 1)
-        rv = torch.where(ua2.to(F32) < tables.hb_alias_q[i0],
-                         tables.hb_rs_own[i0], tables.hb_rs_partner[i0])
-        rs = rv.abs().to(I64) - 1
-        r_tab = rs // norb
-        s_tab = rs % norb
-        swp = opp & (pp > qq)
-        r = torch.where(swp, s_tab, r_tab)
-        s = torch.where(swp, r_tab, s_tab)
-        val_tab = rv.to(F64)                     # carries the sign only
+    pair_i = hbselect.count_le(pair_rows, (up_ * w2_b).to(F32), cfg.npairs - 1)
+    pp = p_pair.gather(1, pair_i[:, None])[:, 0]
+    qq = q_pair.gather(1, pair_i[:, None])[:, 0]
+    kk = torch.where(pair_i < n_uu, 0,
+                     torch.where(pair_i < n_uu + n_dd, 1, 2))
+    opp = kk == 2
+    if cfg.proposal == "uniform":
+        # r, s uniform over orbitals (ref off_diagonal_move_chem:4237)
+        r = (ue * norb).to(I64).clamp(max=norb - 1)
+        s = (ua2 * norb).to(I64).clamp(max=norb - 1)
+        p_rs = torch.where(opp, 1.0 / norb ** 2, 2.0 / norb ** 2).to(F64)
+        extra_fail = ~opp & (r == s)
     else:
-        pair_i = hbselect.count_le(pair_rows, (up_ * w2_b).to(F32), cfg.npairs - 1)
-        pp = p_pair.gather(1, pair_i[:, None])[:, 0]
-        qq = q_pair.gather(1, pair_i[:, None])[:, 0]
-        kk = torch.where(pair_i < n_uu, 0,
-                         torch.where(pair_i < n_uu + n_dd, 1, 2))
-        same_up_k = kk == 0
-        opp = kk == 2
-        if cfg.proposal == "uniform":
-            # r, s uniform over orbitals (ref off_diagonal_move_chem:4237)
-            r = (ue * norb).to(I64).clamp(max=norb - 1)
-            s = (ua2 * norb).to(I64).clamp(max=norb - 1)
-            p_rs = torch.where(opp, 1.0 / norb ** 2, 2.0 / norb ** 2).to(F64)
-            extra_fail = ~opp & (r == s)
-        else:
-            # r ~ c_p, s ~ c_q with c_p(r) = sqrt|(pr|pr)|
-            u34 = torch.rand((2, CAP), dtype=F64, device=dev, generator=gen)
-            slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
-            r = torch.where(u34[0] < tables.cs_aliasq[pp, slot_r], slot_r,
-                            tables.cs_aliasJ[pp, slot_r])
-            slot_s = (ua2 * norb).to(I64).clamp(max=norb - 1)
-            s = torch.where(u34[1] < tables.cs_aliasq[qq, slot_s], slot_s,
-                            tables.cs_aliasJ[qq, slot_s])
-            cpq = (tables.cs_rowsum[pp].clamp(min=TINY)
-                   * tables.cs_rowsum[qq].clamp(min=TINY))
-            p_dir = tables.cs_c[pp, r] * tables.cs_c[qq, s] / cpq
-            p_swp = tables.cs_c[pp, s] * tables.cs_c[qq, r] / cpq
-            p_rs = torch.where(opp, p_dir, p_dir + p_swp)
-            extra_fail = (~opp & (r == s)) | (p_rs <= 0)
-        # same-spin target pairs are unordered: r < s (p_rs sums both)
-        r, s = (torch.where(opp, r, torch.minimum(r, s)),
-                torch.where(opp, s, torch.maximum(r, s)))
-        # exact element: same-spin (pr|qs) - (ps|qr), opposite-spin (pr|qs)
-        tb = tables.table
-        e_dir = tb.eri_value(pp, r, qq, s)
-        val_tab = torch.where(opp, e_dir, e_dir - tb.eri_value(pp, s, qq, r))
-
-    r_occ = torch.where(opp | (kk == 0), dets.get_orb(up_w, r), dets.get_orb(dn_w, r))
-    s_occ = torch.where(opp, dets.get_orb(dn_w, s),
-                        torch.where(kk == 0, dets.get_orb(up_w, s),
-                                    dets.get_orb(dn_w, s)))
-    dbl_ok = ~(r_occ | s_occ)
-
-    words_same = torch.where(same_up_k[:, None], up_w, dn_w)
-    c1 = (dets.count_below(words_same, pp, r) - _in_window(pp, pp, r)
-          - _in_window(qq, pp, r))
-    c2 = (dets.count_below(words_same, qq, s) - _in_window(pp, qq, s)
-          - _in_window(qq, qq, s))
-    cu_ = dets.count_below(up_w, pp, r) - _in_window(pp, pp, r)
-    cd_ = dets.count_below(dn_w, qq, s) - _in_window(qq, qq, s)
-    gamma = torch.where(opp, _sign(cu_ + cd_), _sign(c1 + c2))
+        # r ~ c_p, s ~ c_q with c_p(r) = sqrt|(pr|pr)|
+        u34 = torch.rand((2, CAP), dtype=F64, device=dev, generator=gen)
+        slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
+        r = torch.where(u34[0] < tables.cs_aliasq[pp, slot_r], slot_r,
+                        tables.cs_aliasJ[pp, slot_r])
+        slot_s = (ua2 * norb).to(I64).clamp(max=norb - 1)
+        s = torch.where(u34[1] < tables.cs_aliasq[qq, slot_s], slot_s,
+                        tables.cs_aliasJ[qq, slot_s])
+        cpq = (tables.cs_rowsum[pp].clamp(min=TINY)
+               * tables.cs_rowsum[qq].clamp(min=TINY))
+        p_dir = tables.cs_c[pp, r] * tables.cs_c[qq, s] / cpq
+        p_swp = tables.cs_c[pp, s] * tables.cs_c[qq, r] / cpq
+        p_rs = torch.where(opp, p_dir, p_dir + p_swp)
+        extra_fail = (~opp & (r == s)) | (p_rs <= 0)
+    # same-spin target pairs are unordered: r < s (p_rs sums both)
+    r, s = (torch.where(opp, r, torch.minimum(r, s)),
+            torch.where(opp, s, torch.maximum(r, s)))
+    # exact element: same-spin (pr|qs) - (ps|qr), opposite-spin (pr|qs)
+    tb = tables.table
+    e_dir = tb.eri_value(pp, r, qq, s)
+    val_tab = torch.where(opp, e_dir, e_dir - tb.eri_value(pp, s, qq, r))
+    dbl_up, dbl_dn, gamma, dbl_ok = hbspawn.excite_double(up_w, dn_w, pp, qq,
+                                                          r, s, kk)
     h_signed_dbl = gamma * val_tab
-    if heatbath:
-        # p(spawn) = (1 - p_single) p{pair} |H| / S_exact: dividing by
-        # exactly the realized probability keeps E[spawn] = -tau H w
-        # independent of how the selection cumulatives were rounded (exact
-        # S/diff correction)
-        w_dbl = torch.where(
-            pair_fail, zero64,
-            -tau * torch.sign(h_signed_dbl) * S_exact.to(wdt)
-            / ((1.0 - psing_b) * p_pair_q.to(wdt)).clamp(min=TINY))
-    else:
-        prw_sel = pr_weight.gather(1, pair_i[:, None])[:, 0]
-        p_sel = (prw_sel / w2_b.clamp(min=TINY) * p_rs
-                 * (1.0 - psing_b).clamp(min=TINY))
-        w_dbl = torch.where(extra_fail | (p_sel <= 0), zero64,
-                            -tau * h_signed_dbl / p_sel.clamp(min=TINY))
-    dbl_up = torch.where(
-        opp[:, None], dets.set_orb(dets.clear_orb(up_w, pp), r),
-        torch.where(same_up_k[:, None],
-                    dets.set_orb(dets.set_orb(dets.clear_orb(
-                        dets.clear_orb(up_w, pp), qq), r), s), up_w))
-    dbl_dn = torch.where(
-        opp[:, None], dets.set_orb(dets.clear_orb(dn_w, qq), s),
-        torch.where(same_up_k[:, None], dn_w,
-                    dets.set_orb(dets.set_orb(dets.clear_orb(
-                        dets.clear_orb(dn_w, pp), qq), r), s)))
+    prw_sel = pr_weight.gather(1, pair_i[:, None])[:, 0]
+    p_sel = (prw_sel / w2_b.clamp(min=TINY) * p_rs
+             * (1.0 - psing_b).clamp(min=TINY))
+    w_dbl = torch.where(extra_fail | (p_sel <= 0), zero64,
+                        -tau * h_signed_dbl / p_sel.clamp(min=TINY))
     if not cfg.has_singles:
         return dbl_up, dbl_dn, w_dbl, dbl_ok
 
     # ---- singles (chem, real-space Hubbard) ----
-    e_up = o_s < norb
-    p_s = torch.where(e_up, o_s, o_s - norb)
-    slot_r = (ue * norb).to(I64).clamp(max=norb - 1)
-    ia = p_s * norb + slot_r
-    r_s = torch.where(ua2.to(F32) < tables.u_alias_q[ia], slot_r,
-                      tables.u_alias_J[ia])
-    r_s_occ = torch.where(e_up, dets.get_orb(up_w, r_s), dets.get_orb(dn_w, r_s))
-    bits_same = torch.where(e_up[:, None], bits_up_c, bits_dn_c)
-    bits_other = torch.where(e_up[:, None], bits_dn_c, bits_up_c)
-    words_same_s = torch.where(e_up[:, None], up_w, dn_w)
-    sgn_s = _sign(dets.count_below(words_same_s, p_s, r_s)
-                  - (p_s < r_s).to(I32))
-    if tables.sng_pack.numel():
-        # f32 state: (pr|qq), (pq|qr), h_pr and U[p,r] in one row gather
-        srow = tables.sng_pack[p_s * norb + r_s]
-        direct_row = srow[:, :norb]
-        exch_row = srow[:, norb:2 * norb]
-        qs = torch.arange(norb, device=dev)
-        mask_pr = (qs[None, :] != p_s[:, None]) & (qs[None, :] != r_s[:, None])
-        h_sng = sgn_s * (srow[:, 2 * norb]
-                         + ((direct_row - exch_row) * bits_same.to(F32)
-                            * mask_pr).sum(-1)
-                         + (direct_row * bits_other.to(F32)).sum(-1))
-        u_sel = srow[:, 2 * norb + 1]
-    else:
-        h_sng = sgn_s * slater.single_element_no_sign(
-            tables.table, bits_same, bits_other, p_s, r_s)
-        u_sel = tables.u_table[p_s, r_s]
-    p_sel_sng = psing_b * u_sel / utot_b.clamp(min=TINY)
-    w_s = -tau * h_sng / p_sel_sng.clamp(min=TINY)
-    # realized p(spin-orbital) = diff / Utot from the cumulative, the
-    # alias draw is normalized by the exact row sum: multiply by S/diff
-    S_sng = tables.u_rowsum[p_s].to(w_s.dtype)
-    diff_sng = diff_sng.to(w_s.dtype)
-    w_sng = w_s * torch.where(diff_sng > 0, S_sng / diff_sng,
-                              torch.ones((), dtype=w_s.dtype, device=dev))
-    sng_up = torch.where(e_up[:, None],
-                         dets.set_orb(dets.clear_orb(up_w, p_s), r_s), up_w)
-    sng_dn = torch.where(e_up[:, None], dn_w,
-                         dets.set_orb(dets.clear_orb(dn_w, p_s), r_s))
-    # a draw past the last occupied spin-orbital (a target rounded up to
-    # utot: the count is capped at 2n - 1) realizes no cell; without the
-    # last two terms its child would carry one electron too many
-    p_s_occ = torch.where(e_up, dets.get_orb(up_w, p_s),
-                          dets.get_orb(dn_w, p_s))
-    sng_ok = (~r_s_occ) & (u_sel > 0) & (diff_sng > 0) & p_s_occ
+    take_single = ub < psing_b
+    sng_up, sng_dn, w_sng, sng_ok = hbspawn.propose_single(
+        tables, norb, up_w, dn_w, o_s, utot_b, diff_sng, psing_b, ue, ua2, tau)
     return (torch.where(take_single[:, None], sng_up, dbl_up),
             torch.where(take_single[:, None], sng_dn, dbl_dn),
             torch.where(take_single, w_sng, w_dbl),
@@ -1954,7 +1823,8 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                 lambda s, mark: _walk_step_impl(s, tables, cfg, gen, mark),
                 state._replace(rng_state=None), gen, _TRACE_KEYS,
                 ("spawn_hist",),
-                counters=(segscan, spmv, hbselect, slotpar, seqinit),
+                counters=(segscan, spmv, hbselect, hbspawn, slotpar,
+                          seqinit),
                 rows=max(nstep, 128), marks=N_MARKS)
         _GRAPH[key] = g
     return g

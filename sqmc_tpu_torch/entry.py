@@ -32,7 +32,8 @@ def entry(device=None):
     dets, D up to 100; ``parallel.dryrun.small_c2``), mwalk 2,048,
     cap_spawn 8,192, tau 1e-3, population target 1,000 from 500, float64
     state (WalkConfig's default, as in ``__graft_entry__``), so the D-space
-    projection runs through the SpMV kernel: a generation launches K1-K4.
+    projection runs through the SpMV kernel: a generation launches K1, K2,
+    K3b (the heat-bath proposal, with K3's selection in it) and K4.
     ``fn(state, tables)`` returns ``(new_state.wt, e_num_gen,
     w_abs_gen)``."""
     from .algo.walk import (WalkConfig, build_walk_tables, init_walk_state,

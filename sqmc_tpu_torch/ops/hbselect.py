@@ -149,6 +149,7 @@ def hb_select_plain(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
 # ---------------------------------------------------------------------------
 
 def _bind(lib):
+    """Declares the library's entries: K3's and K3b's (ops/hbspawn.py)."""
     fn = lib.sqmc_hb_select
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -157,6 +158,15 @@ def _bind(lib):
     shape.restype = ctypes.c_int
     shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p]
+    fn = lib.sqmc_hb_spawn
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    shape = lib.sqmc_hb_spawn_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def build():

@@ -31,11 +31,18 @@ counters as they were), so they read what the eager loop would launch.
 On a CPU state nothing is captured: every replay runs the same body
 eagerly over the same static buffers.  A capture that
 fails raises; nothing falls back to the eager loop.
+
+Python's cyclic garbage collector is off while a graph is recorded: a
+collection there could free another, unreachable graph, and a graph's
+destructor and its pool's cudaFree are calls a capture forbids (the
+capture is invalidated).  A runner holds no reference cycle of its own,
+so it is freed when the last reference to it goes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
@@ -92,8 +99,9 @@ class StepGraph:
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
         self.marks = (Marks(marks, self.rows, dev, self.slot) if marks
                       else None)
-        self.step_fn = (step if self.marks is None
-                        else lambda s: step(s, self.marks))
+        marks_ = self.marks            # not self: no cycle through step_fn
+        self.step_fn = (step if marks_ is None
+                        else lambda s: step(s, marks_))
         self.enqueue_seconds = 0.0
         self.graph = None
         self.capture_seconds = 0.0
@@ -156,8 +164,14 @@ class StepGraph:
                 reserved = torch.cuda.memory_reserved(self.device)
                 self.graph = torch.cuda.CUDAGraph()
                 self.graph.register_generator_state(self.gen)
-                with torch.cuda.graph(self.graph, stream=side):
-                    new, self.out_stats = self._body()
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(self.graph, stream=side):
+                        new, self.out_stats = self._body()
+                finally:
+                    if collecting:
+                        gc.enable()
                 self.pool_bytes = (torch.cuda.memory_reserved(self.device)
                                    - reserved)
             else:

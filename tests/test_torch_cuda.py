@@ -1262,15 +1262,16 @@ def test_spawn_wrappers_raise_on_bad_input():
 @pytest.mark.cuda
 def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
     """Phase 3's HEG-14 walk on the card, warmed for 200 generations, then
-    50 generations through K3 and K4 and 50 from the same state and seed
-    with their plain versions patched in: the two mixed energies agree
-    within 3 combined error bars (the draws differ where a target lies
-    within an ulp of a cell edge, so the trajectories part after a few
-    generations), and the population stays within 25% of its target in
-    every generation of both."""
+    50 generations through K3b (the proposal, with K3's selection in it)
+    and K4 and 50 from the same state and seed with their plain versions
+    patched in (the proposal's torch ops over K3's plain version): the two
+    mixed energies agree within 3 combined error bars (the draws differ
+    where a target lies within an ulp of a cell edge, so the trajectories
+    part after a few generations), and the population stays within 25% of
+    its target in every generation of both."""
     from sqmc_tpu_torch.algo import walk as TW
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
-    from sqmc_tpu_torch.ops import hbselect, slotpar
+    from sqmc_tpu_torch.ops import hbselect, hbspawn, slotpar
     from sqmc_tpu_torch.systems.heg.system import make_heg_system
     from sqmc_tpu_torch.utils.blocking import ratio_stats
     dev = _device()
@@ -1294,15 +1295,116 @@ def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
         return ratio_stats(stats["e_num_gen"].double().cpu().numpy(),
                            stats["e_den_gen"].double().cpu().numpy())
 
-    hb0, sp0 = hbselect.launches, slotpar.launches
+    hb0, sp0, sel0 = hbspawn.launches, slotpar.launches, hbselect.launches
     kern = fifty()
-    assert hbselect.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    assert hbspawn.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    monkeypatch.setattr(hbspawn, "propose", hbspawn.propose_plain)
     monkeypatch.setattr(hbselect, "hb_select", hbselect.hb_select_plain)
     monkeypatch.setattr(slotpar, "slot_parents", slotpar.slot_parents_plain)
     plain = fifty()
-    assert hbselect.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    assert hbspawn.launches == hb0 + 50 and slotpar.launches == sp0 + 50
+    assert hbselect.launches == sel0
     assert abs(kern.e_mean - plain.e_mean) <= 3 * np.hypot(kern.e_err,
                                                             plain.e_err)
+
+
+# ---------------------------------------------------------------------------
+# K3b: the heat-bath proposal of each slot in one kernel (ops/hbspawn.py)
+# ---------------------------------------------------------------------------
+
+SPAWN_CAPS = {"c2_f32_pack": 262_144, "heg14_f32": 262_144,
+              "c2_f64_rows": 262_144, "two_words_f32_pack": 65_536}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPAWN_CAPS))
+def test_hb_spawn_kernel_matches_plain(case, tmp_path):
+    """K3b against its plain version on the same inputs (the plain
+    version's selection is K3, whose code K3b runs): one launch, and K3
+    none; the same bits twice; the child's words and the flags bit for bit
+    on every slot, a double's factor bit for bit, a single's factor within
+    the rounding bound of reordering its two sums over the orbitals,
+    2 (norb + 2) u times the magnitude of its terms (u the unit roundoff
+    of its rows), plus 8 float64 roundings after them
+    (torch_spawn_emulation.compare_with_plain).  Prints the largest
+    difference of a single's factor in units of that magnitude's u."""
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.ops import hbselect, hbspawn
+    dev = _device()
+    cap = SPAWN_CAPS[case]
+    args, _ = se.spawn_inputs(case, dev, tmp_path, cap, seed=21)
+    before, sel0 = hbspawn.launches, hbselect.launches
+    got = hbspawn.propose(*args)
+    torch.cuda.synchronize()
+    assert hbspawn.launches == before + 1 and hbselect.launches == sel0
+    again = hbspawn.propose(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    print(f"hb_spawn {case}: cap={cap} "
+          + se.compare_with_plain(args, got, hbspawn.propose_plain(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPAWN_CAPS))
+def test_hb_spawn_kernel_is_its_documented_arithmetic(case, tmp_path):
+    """K3b bit for bit against the numpy emulation of its arithmetic
+    (tests/torch_spawn_emulation.py: K3's selection, then each slot's ops
+    in the plain version's order and types, a single's two sums in
+    ascending q over the occupied orbitals) on the system's own tables,
+    words, flags and every factor."""
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.ops import hbspawn
+    dev = _device()
+    cap = SPAWN_CAPS[case] // 4
+    args, (up, dn, streams) = se.spawn_inputs(case, dev, tmp_path, cap,
+                                              seed=23)
+    tables, _, _, norb, singles, tau, wdt, _ = args
+    got = hbspawn.propose(*args)
+    want = se.emulate_hb_spawn(se.table_arrays(tables), up, dn, norb,
+                               hbspawn.singles_source(tables, singles, wdt),
+                               wdt == torch.float64, float(tau), streams)
+    for k, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu().numpy()
+        if g.dtype == np.float64:
+            g, w = g.view(np.int64), w.view(np.int64)
+        assert np.array_equal(g, w), f"{k}: {(g != w).sum()} of {cap} differ"
+    shape = hbspawn.launch_shape(cap, up.shape[1], norb, wdt == torch.float64,
+                                 hbspawn.singles_source(tables, singles, wdt),
+                                 dev)
+    print(f"hb_spawn {case} launch: " + " ".join(
+        f"{k}={v}" for k, v in shape.items()))
+    from sqmc_tpu_torch.ops import cudabuild
+    ptxas = [x for x in cudabuild.ptxas_summary("hbselect.cu")
+             if "k_hb_spawn" in x]
+    assert len(ptxas) == 12 and all("0 bytes spill stores" in x
+                                    for x in ptxas), ptxas
+
+
+@pytest.mark.cuda
+def test_hb_spawn_wrapper_raises_on_bad_input(tmp_path):
+    import dataclasses
+
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.ops import hbspawn
+    dev = _device()
+    args, _ = se.spawn_inputs("c2_f32_pack", dev, tmp_path, 64, seed=1)
+    tables, up, dn, norb, singles, tau, wdt, streams = args
+    bad = [
+        (tables, up.int(), dn.int(), norb, singles, tau, wdt, streams),
+        (tables, up, dn, norb, singles, tau, wdt,
+         [u.float() for u in streams]),
+        (tables, up, dn.cpu(), norb, singles, tau, wdt, streams),
+        (tables, up, dn, norb, singles, float(tau), wdt, streams),
+        (tables, up, dn, norb, singles, tau, torch.float64, streams),
+        (tables._replace(R2=tables.R2.double()), up, dn, norb, singles, tau,
+         wdt, streams),
+        (tables._replace(sng_pack=torch.zeros((0, 0), device=dev),
+                         table=dataclasses.replace(tables.table,
+                                                   sing_dir=None)),
+         up, dn, norb, singles, tau, wdt, streams)]
+    for a in bad:
+        with pytest.raises(ValueError):
+            hbspawn.propose(*a)
 
 
 # ---------------------------------------------------------------------------
@@ -1438,17 +1540,17 @@ def test_flat_cumsum_on_card_at_widths(width):
 @pytest.mark.cuda
 def test_entry_runs_a_generation_on_card():
     """entry()'s fn on the card: finite outputs of __graft_entry__'s
-    shapes and dtypes, launching K1, K2 (the float64 projector), K3 and
-    K4 once a call."""
+    shapes and dtypes, launching K1, K2 (the float64 projector), K3b and
+    K4 once a call, and K3 alone never."""
     from sqmc_tpu_torch.entry import entry
-    from sqmc_tpu_torch.ops import hbselect, segscan, slotpar, spmv
-    mods = (segscan, spmv, hbselect, slotpar)
+    from sqmc_tpu_torch.ops import hbselect, hbspawn, segscan, slotpar, spmv
+    mods = (segscan, spmv, hbspawn, slotpar, hbselect)
     dev = _device()
     fn, (state, tables) = entry()
     before = [m.launches for m in mods]
     for _ in range(3):
         wt, e_num, w_abs = fn(state, tables)
-    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3]
+    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3, 0]
     assert wt.device.type == "cuda" and wt.shape == (2048,)
     assert wt.dtype == e_num.dtype == w_abs.dtype == torch.float64
     assert e_num.shape == w_abs.shape == ()
@@ -1534,8 +1636,10 @@ def _assert_same_walk(a, b, sa, sb):
 
 
 def _kernel_counts():
-    from sqmc_tpu_torch.ops import hbselect, segscan, seqinit, slotpar, spmv
-    return [m.launches for m in (segscan, spmv, hbselect, slotpar, seqinit)]
+    from sqmc_tpu_torch.ops import (hbselect, hbspawn, segscan, seqinit,
+                                    slotpar, spmv)
+    return [m.launches for m in (segscan, spmv, hbselect, slotpar, seqinit,
+                                 hbspawn)]
 
 
 @pytest.mark.cuda
@@ -1547,9 +1651,10 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
     trace and the spawn histogram equal bit for bit, so do the
     generators' states after each block (replays continue the walk's own
     Philox stream), and the kernel launch counts of the graphed blocks
-    equal the eager blocks' (K1, K3, K4 in every cell but the CT chain and
-    the two proposals, which run no K3; K2 in entry()'s f64 walk; K5 under
-    the sequential rule)."""
+    equal the eager blocks' (K1, K3b, K4 in every cell but the CT chain and
+    the two proposals, which run no K3b; K2 in entry()'s f64 walk; K5 under
+    the sequential rule; K3 alone in none): K3b once a generation, n in a
+    block of n."""
     from sqmc_tpu_torch.algo import walk as TW
     dev = _device()
     s, trial, cfg, w0 = _graph_cell(name, dev)
@@ -1568,16 +1673,62 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
         assert torch.equal(g_e.get_state(), g_g.get_state())
         eager = [y - x for x, y in zip(c0, c1)]
         assert [y - x for x, y in zip(c1, c2)] == eager
+        assert eager[5] in (0, n)
     assert not bool(b.overflow) and int(b.nwalk) > 1000
-    want = {"bench": [1, 0, 1, 1, 0], "heg14_f32": [1, 0, 1, 1, 0],
-            "heg14_f32_sequential": [1, 0, 1, 1, 1],
-            "entry_f64": [1, 1, 1, 1, 0], "ct_hubbardk": [1, 0, 0, 1, 0],
-            "cauchy_schwarz": [1, 0, 0, 1, 0],
-            "uniform": [1, 0, 0, 1, 0]}[name]
+    want = {"bench": [1, 0, 0, 1, 0, 1], "heg14_f32": [1, 0, 0, 1, 0, 1],
+            "heg14_f32_sequential": [1, 0, 0, 1, 1, 1],
+            "entry_f64": [1, 1, 0, 1, 0, 1], "ct_hubbardk": [1, 0, 0, 1, 0, 0],
+            "cauchy_schwarz": [1, 0, 0, 1, 0, 0],
+            "uniform": [1, 0, 0, 1, 0, 0]}[name]
     assert [int(d > 0) for d in eager] == want, eager
     g = TW._GRAPH[next(iter(TW._GRAPH))]
     print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
           f"pool_MB={g.pool_bytes / 2**20:.1f} replays={g.replays}")
+    TW.release_graphs()
+
+
+@pytest.mark.cuda
+def test_wrapped_proposal_doubles_the_captured_spawns(monkeypatch):
+    """The seam that the benchmark's planted faults use: algo/walk.py's
+    _propose replaced by a wrapper that doubles its factor (and the
+    captured generation dropped) makes the captured generation spawn with
+    twice the weights.  The kernel runs inside the wrapped function (one
+    launch a generation); the graphed generation with the wrapper equals
+    the eager one with it bit for bit and differs from the unwrapped one;
+    what the wrapper handed on in the replay is twice what it got."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.ops import hbspawn
+    dev = _device()
+    s, trial, cfg, w0 = _graph_cell("bench", dev)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    st, _ = TW._walk_block_eager(st, tables, cfg, 20,
+                                 torch.Generator(device=dev).manual_seed(3))
+    orig = TW._propose
+    seen = {}
+
+    def doubled(*a):
+        su, sd, fac, ok = orig(*a)
+        seen["got"], seen["out"] = fac, 2 * fac
+        return su, sd, seen["out"], ok
+
+    def one(block, propose):
+        monkeypatch.setattr(TW, "_propose", propose)
+        TW.release_graphs()
+        out = block(st, tables, cfg, 1,
+                    torch.Generator(device=dev).manual_seed(4))
+        torch.cuda.synchronize()
+        return out
+
+    k0 = hbspawn.launches
+    plain, _ = one(TW.walk_block, orig)
+    eager, se_ = one(TW._walk_block_eager, doubled)
+    graph, sg = one(TW.walk_block, doubled)
+    assert hbspawn.launches == k0 + 3
+    _assert_same_walk(eager, graph, se_, sg)
+    assert torch.equal(seen["out"], 2 * seen["got"])
+    assert float(seen["got"].abs().sum()) > 0
+    assert not torch.equal(plain.wt, graph.wt)
     TW.release_graphs()
 
 

@@ -234,6 +234,32 @@ def test_runner_recaptures_for_a_grown_walk_and_longer_blocks():
     assert not TW._GRAPH
 
 
+def test_released_runners_are_freed_without_the_collector():
+    """A runner holds no reference cycle (with marks too): once released
+    it is freed at once, with Python's cyclic collector off.  On the card
+    a runner left for the collector could be collected while another graph
+    is recorded, and its destructor would invalidate that capture."""
+    import gc
+    import weakref
+    tables, cfg, st = _walk("heg")
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        runner = TW._step_graph(st, tables, cfg, _gen(), 2)
+        assert runner.marks is not None
+        runner.block(st, 2)
+        walk_ref = weakref.ref(runner)
+        marked = StepGraph(lambda s, mark: _CountingStep(1)(s), st, _gen(),
+                           ("x",), rows=2, marks=2)
+        marked_ref = weakref.ref(marked)
+        del runner, marked
+        TW.release_graphs()
+        assert walk_ref() is None and marked_ref() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def test_runner_rejects_a_state_of_other_shape():
     """A state whose arrays differ from the captured ones raises instead
     of being copied into the static buffers by broadcasting or casting,

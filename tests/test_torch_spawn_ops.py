@@ -376,10 +376,15 @@ def test_spawn_ops_raise_on_other_devices():
 
 
 def test_spawn_kernel_sources_have_no_atomics():
-    """Every output of K3 and K4 has one writer: their sources use no
-    atomic operation, so two runs give the same bits."""
+    """Every output of K3, K3b (the heat-bath proposal, hbselect.cu's
+    second entry) and K4 has one writer: their sources use no atomic
+    operation, so two runs give the same bits."""
     import pathlib
+
+    from sqmc_tpu_torch.ops import hbspawn
     csrc = pathlib.Path(slotpar.__file__).resolve().parent.parent / "csrc"
+    assert hbspawn.hbselect._SOURCE == "hbselect.cu"
+    assert "sqmc_hb_spawn(" in (csrc / "hbselect.cu").read_text()
     for name in ("hbselect.cu", "slotpar.cu"):
         assert "atomic" not in (csrc / name).read_text().lower(), name
 
