@@ -28,8 +28,9 @@ bounded (count -> cumsum -> fixed slots) and compactions are order-
 preserving scatters; ``overflow`` is read once per block by the driver.
 Each generation writes N_MARKS device timestamps (ops/mark.py) at the
 boundaries of its PIECES (projection, spawn, annihilation, fill,
-finalize); :func:`block_report` reads them, and the per-generation
-counters, for the last block run.
+finalize) and at the heat-bath proposal's end inside the spawn;
+:func:`block_report` reads them, and the per-generation counters, for
+the last block run.
 On the card the generation is captured once as a CUDA graph and a block
 replays it (``walk_block``; ``_graphed`` names the exceptions), the
 counterpart of the JAX package's one compiled program per block.
@@ -1172,8 +1173,9 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                     gen: torch.Generator, mark=_no_mark):
     """One MC generation.  Returns (new_state, stats) with stats a dict of
     0-d device tensors plus the [N_HIST_BINS] spawn histogram.  mark(k)
-    writes device timestamp k (0 .. 4, the first four PIECES' starts and
-    the fill's end; the caller writes the last after the finalize)."""
+    writes device timestamp k (MARK_STARTS: each of PIECES' starts;
+    MARK_PROPOSE: the heat-bath proposal's end inside the spawn piece; the
+    caller writes the last after the finalize)."""
     mark(0)
     M, CAP, norb = cfg.mwalk, cfg.cap_spawn, cfg.norb
     dev = state.wt.device
@@ -1257,6 +1259,8 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         streams = [u_all[M + k * CAP:M + (k + 1) * CAP] for k in range(5)]
         spawn_up, spawn_dn, fac, spawn_ok = _propose(
             cfg, tables, up_w, dn_w, tau, wdt, streams, gen)
+        if cfg.proposal == "fast_heatbath":
+            mark(MARK_PROPOSE)              # K3b's end (the plain version's)
         spawn_ok = spawn_ok & slot_valid
     spawn_wt = fac * wtc_b
     spawn_wt = torch.where(spawn_ok, spawn_wt, torch.zeros((), dtype=spawn_wt.dtype,
@@ -1358,7 +1362,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
         child_imp = torch.where(spawn_ok, routed["imp"], 10 ** 6).to(I32)
         child_init = torch.where(spawn_ok, routed["init"], 0).to(I32)
         overflow = overflow | route_ovf
-    mark(2)
+    mark(3)
 
     # ---------------- diagonal move + projection on parents ----------------
     if ct_mode:
@@ -1377,7 +1381,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     merge = _full_sort_merge if cfg.full_sort_merge else _two_level_merge
     out = merge(state, cfg, tables, gen, alive, wt_par, spawn_up, spawn_dn,
                 spawn_wt, spawn_ok, child_imp, child_init, overflow, mark)
-    mark(4)
+    mark(5)
     return _finalize_step(state, tables, cfg, gen, *out, total_spawn, spawn_wt,
                           spawn_ok, ct_dots)
 
@@ -1486,7 +1490,7 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     kill = tiny & (u_rnd >= aw / cfg.min_wt)
     rounded = tiny & ~kill
     keep = keep & ~kill
-    mark(3)
+    mark(4)
 
     # ---------------- compact to [M] (order-preserving) --------------------
     nwalk_new = keep.sum().to(I32)
@@ -1627,7 +1631,7 @@ def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     # group values stand at each group's FIRST row
     keep_n = neq & keep_g[gid]
     n_wt_pos, n_init_pos, n_imp_pos = gn_wt[gid], gn_init[gid], gn_imp[gid]
-    mark(3)
+    mark(4)
 
     # ---- level 3: rank merge of the two sorted survivor lists -------------
     kw_i = torch.cumsum(keep_w.to(I64), 0)
@@ -1852,11 +1856,15 @@ def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
 _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
                "reweight_factor_inv", "n_spawn_ok", "n_fresh")
 
-# The generation's pieces, delimited by its N_MARKS device timestamps
-# (mark k starts piece k; the last mark ends the finalize, after the step
-# graph's copy-back), and what the last block run left to read
+# The generation's pieces, delimited by its N_MARKS device timestamps in
+# time order: mark MARK_STARTS[i] starts piece i, MARK_PROPOSE ends the
+# heat-bath proposal inside the spawn piece (a walk without K3b leaves it
+# unwritten), and the last mark ends the finalize, after the step graph's
+# copy-back; and what the last block run left to read
 PIECES = ("project", "spawn", "annihilate", "fill", "finalize")
-N_MARKS = len(PIECES) + 1
+MARK_STARTS = (0, 1, 3, 4, 5)
+MARK_PROPOSE = 2
+N_MARKS = len(PIECES) + 2
 _LAST_BLOCK: dict = {}
 
 
@@ -1877,6 +1885,11 @@ def block_report() -> dict | None:
                         between replays), summed over the block's gaps
                         and divided by its generations, so the six sum to
                         wall_ns_per_gen
+      sub_ns            mean ns a generation from a piece's start to a
+                        mark inside it: "propose", the spawn piece's start
+                        to the heat-bath proposal's end (K3b's; absent in
+                        a walk without it, such as the CT chain or the
+                        uniform proposal)
       wall_ns_per_gen   first mark of the block to its last, a generation
       host_enqueue_ms_per_gen   host time spent enqueueing the block's
                         replays (the eager loop: running them), a
@@ -1887,11 +1900,15 @@ def block_report() -> dict | None:
         return None
     n = _LAST_BLOCK["gens"]
     m = _LAST_BLOCK["marks"].read(n).astype(np.int64)
-    ns = {p: float((m[:, i + 1] - m[:, i]).sum()) / n
-          for i, p in enumerate(PIECES)}
+    ends = MARK_STARTS[1:] + (N_MARKS - 1,)
+    ns = {p: float((m[:, b] - m[:, a]).sum()) / n
+          for p, a, b in zip(PIECES, MARK_STARTS, ends)}
     ns["replay_gap"] = float((m[1:, 0] - m[:-1, -1]).sum()) / n
+    sub = {}
+    if (m[:, MARK_PROPOSE] > 0).all():
+        sub["propose"] = float((m[:, MARK_PROPOSE] - m[:, 1]).sum()) / n
     stats = _LAST_BLOCK["stats"]
-    return {"gens": n, "piece_ns": ns,
+    return {"gens": n, "piece_ns": ns, "sub_ns": sub,
             "wall_ns_per_gen": float(m[-1, -1] - m[0, 0]) / n,
             "host_enqueue_ms_per_gen": _LAST_BLOCK["enqueue_s"] * 1e3 / n,
             **{k: float(stats[k].sum())
@@ -2173,7 +2190,8 @@ def run_walk(system, trial, cfg: WalkConfig, nstep: int, nblk: int,
         # the last block's device time a generation by piece, with no
         # profiler (the same numbers as block_report)
         rep = block_report()
-        ms = " ".join(f"{k}={v * 1e-6:.4f}" for k, v in rep["piece_ns"].items())
+        ms = " ".join(f"{k}={v * 1e-6:.4f}" for k, v in
+                      {**rep["piece_ns"], **rep["sub_ns"]}.items())
         print(f"Generation pieces (last block, {rep['gens']} gens, ms/gen): "
               f"{ms} wall={rep['wall_ns_per_gen'] * 1e-6:.4f} "
               f"host_enqueue={rep['host_enqueue_ms_per_gen']:.4f} "

@@ -202,6 +202,39 @@ def test_generation_marks_agree_with_cuda_events():
     assert (m > 0).all() and (np.diff(m.reshape(-1)) >= 0).all()
 
 
+@pytest.mark.cuda
+def test_propose_mark_inside_the_spawn_piece_of_a_graphed_block():
+    """A captured block of the 38-electron gas's walk (33 orbitals: two
+    key words; 38 electrons: K3b past its register path): every mark of
+    every generation written in time order, and the proposal's mark
+    inside the spawn piece, so 0 < sub_ns["propose"] <= the spawn
+    piece."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s = make_heg_system(3, 0.5, 38, 19, 2.0, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=2e-2, n_psi_t=50, n_imp=100)
+    cfg = TW.WalkConfig(mwalk=32768, cap_spawn=32768, norb=s.norb, nup=19,
+                        ndn=19, n_words=1, tau=2e-4, w_abs_target=4000.0,
+                        has_singles=False, f32_state=True, r_initiator=0.5)
+    assert not TW._fused_keys(cfg)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, 4000.0, trial.e_trial, tables)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 20
+    st, _ = TW.walk_block(st, tables, cfg, n, gen)      # capture and warm
+    st, _ = TW.walk_block(TW.end_of_block(st), tables, cfg, n, gen)
+    assert not bool(st.overflow)
+    rep = TW.block_report()
+    m = TW._LAST_BLOCK["marks"].read(n)
+    assert (m > 0).all() and (np.diff(m.reshape(-1)) >= 0).all()
+    assert 0 < rep["sub_ns"]["propose"] <= rep["piece_ns"]["spawn"]
+    print(f"wide gas: propose {rep['sub_ns']['propose'] * 1e-3:.1f} us of "
+          f"spawn {rep['piece_ns']['spawn'] * 1e-3:.1f} us a generation")
+    TW.release_graphs()
+
+
 def _sym_coo(n, seed):
     """Strictly-upper COO + diagonal with skewed row lengths."""
     rng = np.random.default_rng(seed)
@@ -1313,7 +1346,8 @@ def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
 # ---------------------------------------------------------------------------
 
 SPAWN_CAPS = {"c2_f32_pack": 262_144, "heg14_f32": 262_144,
-              "c2_f64_rows": 262_144, "two_words_f32_pack": 65_536}
+              "c2_f64_rows": 262_144, "two_words_f32_pack": 65_536,
+              "heg54_f32": 262_144}
 
 
 @pytest.mark.cuda

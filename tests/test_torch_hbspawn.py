@@ -3,9 +3,10 @@ whose kernel K3b is csrc/hbselect.cu's sqmc_hb_spawn) on the CPU.
 
 The numpy emulation of K3b's documented arithmetic
 (tests/torch_spawn_emulation.py) is held bit for bit to the plain version
-at the four shapes the kernel is built for (the C2 walk's: 26 orbitals,
+at the shapes the kernel is built for (the C2 walk's: 26 orbitals,
 4 + 4, singles from sng_pack, float32; HEG-14's without singles; C2 in
-float64 with the float64 singles rows; a two-word det), on tables whose
+float64 with the float64 singles rows; a two-word det; the 38- and
+54-electron gases, past its 16-electron register path), on tables whose
 sums are exact in any order, and through whole generations of the
 time-symmetrized C2 walk (z = +1 and -1: the proposal's outputs go
 through the time-symmetrized mapping, the merge and the finalize).
@@ -74,7 +75,9 @@ def test_hb_spawn_emulation_is_plain_bitwise(case, tmp_path):
     _same_bits(_emulated(*args), plain)
     _same_bits(hbspawn.propose(*args), plain)     # the CPU's path
     ok = plain[3]
-    assert 0.2 < float(ok.double().mean()) < 0.95
+    # 19 of 33 orbitals a spin filled: most heat-bath targets are occupied
+    low = 0.1 if case == "heg38_f32" else 0.2
+    assert low < float(ok.double().mean()) < 0.95
     assert bool(torch.isfinite(plain[2]).all())
     if cfg.has_singles:                            # both kinds are drawn
         moved = ((plain[0] != args[1]).sum(1) + (plain[1] != args[2]).sum(1))

@@ -252,7 +252,14 @@ SPAWN_CASES = {
     "heg14_f32": ("heg14", True, None),      # no singles
     "c2_f64_rows": ("c2", False, None),      # singles from the float64 rows
     "two_words_f32_pack": ("w2", True, None),  # norb = 70: two words a spin
+    "heg38_f32": ("heg38", True, None),      # 38 electrons, 33 orbitals
+    "heg54_f32": ("heg54", True, None),      # the heg54.walk cell's gas
 }
+
+# the electron gases: (electrons, up electrons, cutoff radius) at r_s 0.5;
+# past 16 electrons K3b sums mu again in each pass (past its register path)
+HEG_SHAPES = {"heg14": (14, 7, 1.49), "heg38": (38, 19, 2.0),
+              "heg54": (54, 27, 2.3)}
 
 
 def two_word_system(device, seed=7):
@@ -312,9 +319,9 @@ def spawn_case(name, device, workdir, z=None):
         s = make_chem_system(path, device=device, **opts)
         trial = build_trial_wavefunction(s, eps_var=2e-2, n_psi_t=50,
                                          n_imp=100)
-    elif kind == "heg14":
+    elif kind in HEG_SHAPES:
         from sqmc_tpu_torch.systems.heg.system import make_heg_system
-        s = make_heg_system(3, 0.5, 14, 7, 1.49, device=device)
+        s = make_heg_system(3, 0.5, *HEG_SHAPES[kind], device=device)
         trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
     else:
         s = two_word_system(device)
