@@ -907,13 +907,14 @@ def _hb_spawn_cases(dev):
         args, _ = se.spawn_inputs(name, dev, workdir, SPAWN_CAP, seed=21)
         tables, up, _, norb, singles, _, wdt, _ = args
         before, sel0 = hbspawn.launches, hbselect.launches
-        got = hbspawn.propose(*args)
+        ne = se.electrons(name)
+        got = hbspawn.propose(*args, ne)
         torch.cuda.synchronize()
         if hbspawn.launches != before + 1 or hbselect.launches != sel0:
             raise AssertionError(f"2d hb_spawn {name}: launches "
                                  f"{hbspawn.launches - before} K3b, "
                                  f"{hbselect.launches - sel0} K3")
-        again = hbspawn.propose(*args)
+        again = hbspawn.propose(*args, ne)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"2d hb_spawn {name}: a second call gave "
                                  "other bits")
@@ -922,12 +923,12 @@ def _hb_spawn_cases(dev):
         single = se.singles_taken(args)
         err = float((got[2] - ref[2]).abs().max())
         src = hbspawn.singles_source(tables, singles, wdt)
-        shape = hbspawn.launch_shape(SPAWN_CAP, up.shape[1], norb,
+        shape = hbspawn.launch_shape(SPAWN_CAP, up.shape[1], norb, ne,
                                      wdt == torch.float64, src, dev)
         log(f"phase 2d hb_spawn {name} launch: " + " ".join(
             f"{k}={v}" for k, v in shape.items()))
         log(f"phase 2d hb_spawn {name}: {match}")
-        fn = (lambda a=args: hbspawn.propose(*a))
+        fn = (lambda a=args, n=ne: hbspawn.propose(*a, n))
         out[f"spawn_{name}"] = _spawn_case_line(
             f"hb_spawn {name} cap={SPAWN_CAP} norb={norb} "
             f"words={up.shape[1]}", fn,

@@ -1090,7 +1090,7 @@ def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
     dev = up_w.device
     if cfg.proposal == "fast_heatbath":
         return hbspawn.propose(tables, up_w, dn_w, norb, cfg.has_singles, tau,
-                               wdt, streams)
+                               wdt, streams, nup + ndn)
 
     ub, up_, ue, ua2, ur = streams
     zero64 = torch.zeros((), dtype=F64, device=dev)

@@ -64,17 +64,38 @@
 // through L1/L2.  Sums are not stored: a total is one pass over the ne
 // values, a draw repeats the same adds in the same order (the same bits)
 // and stops at the first sum above the target, its cell (prev + v) - prev
-// from those sums.  At one word a spin and up to 16 electrons (every walk
-// the package runs), the occupied list and mu at its entries stay in
-// registers (the loops unroll over 16; 64 registers a thread, four blocks
-// an SM), so mu is summed once, one occupied R2 row at a time into the
-// accumulators.  A det with every spin-orbital occupied -- the walk's
-// empty-slot sentinel (all bits set), which fills every slot past the
-// spawn total, ~30% of them at HEG-14 -- takes mu from R2's column sums,
-// which each block adds once in the same order.  Any other det (more than
-// 16 electrons or more than one word a spin) recomputes mu in each pass
-// that needs it, ne^2 reads a pass: several times slower than the
-// register path, and slower than the first version's kernel (PERF.md).
+// from those sums.  At one word a spin and up to 16 electrons (the C2
+// and HEG-14 walks), the occupied list and mu at its entries stay in
+// registers (the loops unroll over 16; at most 85 registers a thread,
+// three blocks an SM), so mu is summed once, one occupied R2 row at a
+// time into the accumulators.  A det with every spin-orbital occupied --
+// the walk's empty-slot sentinel (all bits set), which fills every slot
+// past the spawn total, ~30% of them at HEG-14 -- takes mu from R2's
+// column sums, which each block adds once in the same order.  Any other
+// det of more than one word a spin recomputes mu in each pass that needs
+// it, ne^2 reads a pass (about three passes).
+//
+// Past the register path (K3b's wide kernel, launched for a walk of more
+// than REG_NE electrons at one word a spin, the 54-electron gas): a slot
+// sums its mu once, as the register path does, but not in its own
+// registers.  mu at ne occupied spin-orbitals is ne^2 shared-memory reads
+// of R2 a slot (2,916 at 54 electrons), carried by the load/store unit,
+// against ~3 ne^2 for the pass-by-pass sums, each behind a bit walk of the
+// det.  The warp takes its slots in turn: lane l sums the slot's mu at its
+// occupied spin-orbitals l, l + 32, ..., over the occupied rows q in
+// ascending order (the sequential order, so the same bits), all lanes
+// reading one R2 row at a time (the row's offset shuffled from the lane
+// that holds it, eight rows read ahead), into a per-warp scratch [k][slot]
+// in shared memory (row stride 33: the stores and each lane's reads of its
+// own column meet no bank conflict).  Then each lane runs its own slot's
+// passes over its column, ~6 ne reads of the scratch and the R2 rows.
+// The scratch is sized from the walk's electron count; a det of more
+// electrons recomputes mu in each pass, and the sentinel keeps the column
+// sums.  The other design, mu in registers at up to 64 electrons, needed
+// 168 registers and a 40-byte stack frame (one block an SM) and took 6.91
+// ms against the scratch's 4.39 at heg54.walk's launch (5,242,880 slots,
+// 1.95M drawn; the pass-by-pass kernel 19.49; NVIDIA H100 80GB HBM3,
+// 700 W).
 // All float32 on the CUDA cores: no tensor cores, no TF32.  Each output
 // has one writer.  The grid is one wave of resident blocks, each looping
 // over slots.
@@ -94,9 +115,15 @@
 namespace {
 
 constexpr int THREADS = 256;                  // slots (threads) a block
-constexpr int MINBLOCKS = 4;                  // resident blocks ptxas plans for
-constexpr int SPAWN_MINBLOCKS = 3;            // the same for K3b
+constexpr int MINBLOCKS = 3;                  // resident blocks ptxas plans for
+                                              // (K3 and K3b: 85 registers)
 constexpr int REG_NE = 16;                    // electrons the register path takes
+constexpr int WIDE_MINBLOCKS = 2;             // the same for K3b's wide kernel
+constexpr int LANE_COLS = 4;                  // a lane's mu entries of a wide
+                                              // slot: up to 128 electrons
+constexpr int PAD = 33;                       // the wide scratch's row stride
+constexpr int ROW_UNROLL = 8;                 // R2 rows a wide warp reads ahead
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float TINY = 1e-30f;                // the walk's TINY in float32
 
 // What the selection reads.
@@ -110,6 +137,7 @@ struct SelIn {
   long long cap;
   int n_words, norb, n2;
   int st;                                     // R2's row stride as read
+  int wide;                                   // electrons a wide slot holds
 };
 
 // K3's launch: the selection and where it is written.
@@ -387,19 +415,13 @@ __device__ __forceinline__ Sel select_regs(const Det<NW>& det, int ne, Rd rd,
                      singles, u_pick, u_entry);
 }
 
-// Every slot of the launch with its selection.  The block's preamble puts
-// R2 (at row stride st, SMEM_R2), the singles weights u(a mod n) in
-// float32 and R2's column sums (mu of a det with every spin-orbital
-// occupied) in shared memory; then each thread takes its slots and calls
-// each(slot, sel).  NW = 1: one word a spin, dets of up to REG_NE
-// electrons on the register path; NW = 0: any det, mu recomputed in each
-// pass.  K3 writes the selection; K3b goes on to the spawn.
-template <int NW, bool SMEM_R2, typename Each>
-__device__ __forceinline__ void for_each_selection(const SelIn& p, Each each) {
-  extern __shared__ float sm[];
+// The block's preamble, into the dynamic shared memory sm: R2 (at row
+// stride st, SMEM_R2), then u2, the singles weights u(a mod n) in
+// float32, then R2's column sums (mu of a det with every spin-orbital
+// occupied).  Returns u2 (the column sums follow it).
+template <bool SMEM_R2>
+__device__ __forceinline__ float* stage_tables(const SelIn& p, float* sm) {
   const int n2 = p.n2, norb = p.norb, st = p.st;
-  const bool singles = p.u_rowsum != nullptr;
-
   float* u2 = sm + (SMEM_R2 ? n2 * st : 0);
   float* colsum = u2 + n2;
   if (SMEM_R2)
@@ -407,17 +429,33 @@ __device__ __forceinline__ void for_each_selection(const SelIn& p, Each each) {
       const int row = i / n2;
       sm[row * st + i - row * n2] = __ldg(p.r2 + i);
     }
-  if (singles)
+  if (p.u_rowsum != nullptr)
     for (int a = threadIdx.x; a < n2; a += blockDim.x)
       u2[a] = __double2float_rn(__ldg(p.u_rowsum + (a < norb ? a : a - norb)));
   __syncthreads();
-  auto rd = [&](int i) { return SMEM_R2 ? sm[i] : __ldg(p.r2 + i); };
   for (int a = threadIdx.x; a < n2; a += blockDim.x) {
     float c = 0.f;
-    for (int q = 0; q < n2; ++q) c = __fadd_rn(c, rd(q * st + a));
+    for (int q = 0; q < n2; ++q)
+      c = __fadd_rn(c, SMEM_R2 ? sm[q * st + a] : __ldg(p.r2 + q * st + a));
     colsum[a] = c;
   }
   __syncthreads();
+  return u2;
+}
+
+// Every slot of the launch with its selection: after the preamble each
+// thread takes its slots and calls each(slot, sel).  NW = 1: one word a
+// spin, dets of up to REG_NE electrons on the register path; NW = 0: any
+// det, mu recomputed in each pass.  K3 writes the selection; K3b goes on
+// to the spawn.
+template <int NW, bool SMEM_R2, typename Each>
+__device__ __forceinline__ void for_each_selection(const SelIn& p, Each each) {
+  extern __shared__ float sm[];
+  const int n2 = p.n2, norb = p.norb, st = p.st;
+  const bool singles = p.u_rowsum != nullptr;
+  const float* u2 = stage_tables<SMEM_R2>(p, sm);
+  const float* colsum = u2 + n2;
+  auto rd = [&](int i) { return SMEM_R2 ? sm[i] : __ldg(p.r2 + i); };
 
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long slot = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -455,6 +493,146 @@ __device__ __forceinline__ void for_each_selection(const SelIn& p, Each each) {
       r = select_slot(seq, mu, rd, st, u2, n2, singles, u_pick, u_entry);
     }
     each(slot, r);
+  }
+}
+
+// The position of the n-th set bit (from 0) of w, which has more than n.
+__device__ __forceinline__ int nth_set(unsigned long long w, int n) {
+  unsigned x = (unsigned)w;
+  int pos = 0, c = __popc(x);
+  if (n >= c) {
+    n -= c;
+    x = (unsigned)(w >> 32);
+    pos = 32;
+  }
+#pragma unroll
+  for (int half = 16; half >= 1; half >>= 1) {
+    c = __popc(x & ((1u << half) - 1u));
+    if (n >= c) {
+      n -= c;
+      x >>= half;
+      pos += half;
+    }
+  }
+  return pos;
+}
+
+// mu of one wide slot, NC = ceil(nj / 32) entries a lane: acc[c] of lane l
+// sums R2[q, col[c]] over the slot's occupied q in ascending order (rows
+// gives q st; the k-th occupied spin-orbital sits in lane k % 32 as entry
+// k / 32), one row at a time for the whole warp.
+template <int NC>
+__device__ __forceinline__ void sum_rows(const float* sm, int nj,
+                                         const int (&rows)[LANE_COLS],
+                                         const int (&col)[LANE_COLS],
+                                         float (&acc)[LANE_COLS]) {
+#pragma unroll
+  for (int m = 0; m < NC; ++m) {
+    const int n = nj - 32 * m < 32 ? nj - 32 * m : 32;
+    int i = 0;
+    for (; i + ROW_UNROLL <= n; i += ROW_UNROLL) {
+      float v[ROW_UNROLL][NC];
+#pragma unroll
+      for (int u = 0; u < ROW_UNROLL; ++u) {
+        const int row = __shfl_sync(FULL, rows[m], i + u);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[u][c] = sm[row + col[c]];
+      }
+#pragma unroll
+      for (int u = 0; u < ROW_UNROLL; ++u)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], v[u][c]);
+    }
+    for (; i < n; ++i) {
+      const int row = __shfl_sync(FULL, rows[m], i);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], sm[row + col[c]]);
+    }
+  }
+}
+
+// K3b's slots past the register path (one word a spin, R2 in shared
+// memory, p.wide > REG_NE).  A slot with at most p.wide electrons, not
+// every spin-orbital, sums its mu once, with its warp: the warp takes its
+// wide slots in turn, lane l sums the slot's mu at its occupied
+// spin-orbitals l, l + 32, ... (sum_rows: the same sequential order, so
+// the same bits) and stores them to the warp's scratch [k][slot] (row
+// stride PAD: both the stores and each lane's reads of its own column
+// meet no bank conflict); then each lane runs its own slot's passes over
+// its column.  The sentinel (all bits set) keeps the column sums; a det
+// of more than p.wide electrons recomputes mu in each pass.
+template <typename Each>
+__device__ __forceinline__ void for_each_wide_selection(const SelIn& p,
+                                                        Each each) {
+  extern __shared__ float sm[];
+  const int n2 = p.n2, norb = p.norb, st = p.st;
+  const bool singles = p.u_rowsum != nullptr;
+  const float* u2 = stage_tables<true>(p, sm);
+  const float* colsum = u2 + n2;
+  const int lane = threadIdx.x & 31;
+  float* scratch = sm + n2 * st + 2 * n2 + (threadIdx.x >> 5) * p.wide * PAD;
+  auto rd = [&](int i) { return sm[i]; };
+
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = (long long)blockIdx.x * blockDim.x +
+                        (threadIdx.x & ~31);
+       base < p.cap; base += stride) {
+    const long long slot = base + lane;
+    const bool live = slot < p.cap;
+    const long long s = live ? slot : base;
+    const Det<1> det(p.up + s * p.n_words, p.dn + s * p.n_words, p.n_words,
+                     norb);
+    const int ne = __popcll(det.w[0]) + __popcll(det.w[1]);
+    const bool wide = live && ne <= p.wide;
+    for (unsigned todo = __ballot_sync(FULL, wide); todo; todo &= todo - 1) {
+      const int j = __ffs((int)todo) - 1;
+      const unsigned long long wu = __shfl_sync(FULL, det.w[0], j);
+      const unsigned long long wd = __shfl_sync(FULL, det.w[1], j);
+      const int nu = __popcll(wu), nj = nu + __popcll(wd);
+      int rows[LANE_COLS], col[LANE_COLS];
+      float acc[LANE_COLS];
+#pragma unroll
+      for (int c = 0; c < LANE_COLS; ++c) {
+        const int k = lane + 32 * c;
+        col[c] = k >= nj  ? 0
+                 : k < nu ? nth_set(wu, k)
+                          : norb + nth_set(wd, k - nu);
+        rows[c] = col[c] * st;
+        acc[c] = 0.f;
+      }
+      switch ((nj + 31) >> 5) {
+        case 1: sum_rows<1>(sm, nj, rows, col, acc); break;
+        case 2: sum_rows<2>(sm, nj, rows, col, acc); break;
+        case 3: sum_rows<3>(sm, nj, rows, col, acc); break;
+        case 4: sum_rows<4>(sm, nj, rows, col, acc); break;
+        default: break;
+      }
+#pragma unroll
+      for (int c = 0; c < LANE_COLS; ++c)
+        if (lane + 32 * c < nj) scratch[(lane + 32 * c) * PAD + j] = acc[c];
+    }
+    __syncwarp();
+    if (live) {
+      const double u_pick = __ldg(p.u_pick + slot);
+      const double u_entry = __ldg(p.u_entry + slot);
+      const BitSeq<1> seq{det};
+      Sel r;
+      if (wide) {
+        const float* mine = scratch + lane;
+        r = select_slot(seq, [&](int, int k) { return mine[k * PAD]; }, rd, st,
+                        u2, n2, singles, u_pick, u_entry);
+      } else if (ne == n2) {
+        r = select_slot(AllSeq{n2}, [&](int a, int) { return colsum[a]; }, rd,
+                        st, u2, n2, singles, u_pick, u_entry);
+      } else {
+        auto mu = [&](int a, int) {
+          return total(seq, [&](int q, int) { return rd(q * st + a); });
+        };
+        r = select_slot(seq, mu, rd, st, u2, n2, singles, u_pick, u_entry);
+      }
+      each(slot, r);
+    }
+    __syncwarp();
   }
 }
 
@@ -518,7 +696,12 @@ __global__ void __launch_bounds__(THREADS, MINBLOCKS) k_hb_select(Args p) {
 // scattered but small: the tables live in L2.  Measured (the benchmark's
 // traced runs, NVIDIA H100 80GB HBM3, 700 W): 64.5 us a generation at
 // c2.walk's 262,144 slots, 7.3x that bound, against K3's 39 us alone;
-// latency and instruction throughput, as for K3, not bytes.
+// latency and instruction throughput, as for K3, not bytes.  Past the
+// register path the wide kernel's mu bounds it: ne^2 = 2,916 shared-memory
+// reads of R2 a drawn slot, 5.7e9 at heg54.walk's 1.95M, ~0.8 ms at the
+// card's ~30 TB/s of shared memory (132 SMs x 128 B a clock); measured
+// 4.2-4.3 ms a generation there (5,242,880 slots), against 19.45 for the
+// pass-by-pass sums and a bytes bound of ~24 us.
 
 enum SinglesSource { NO_SINGLES = 0, PACK = 1, ROWS = 2 };
 
@@ -815,10 +998,20 @@ __device__ __forceinline__ void spawn_slot(const SpawnArgs& p, long long slot,
 }
 
 template <int NW, bool SMEM_R2, typename WT, int SRC>
-__global__ void __launch_bounds__(THREADS, SPAWN_MINBLOCKS)
+__global__ void __launch_bounds__(THREADS, MINBLOCKS)
     k_hb_spawn(SpawnArgs p) {
   for_each_selection<NW, SMEM_R2>(p.in, [&](long long slot, const Sel& r) {
     spawn_slot<WT, SRC, NW>(p, slot, r);
+  });
+}
+
+// K3b past the register path: one word a spin, R2 in shared memory, each
+// slot of REG_NE < ne <= p.in.wide electrons summing its mu once
+template <typename WT, int SRC>
+__global__ void __launch_bounds__(THREADS, WIDE_MINBLOCKS)
+    k_hb_spawn_wide(SpawnArgs p) {
+  for_each_wide_selection(p.in, [&](long long slot, const Sel& r) {
+    spawn_slot<WT, SRC, 1>(p, slot, r);
   });
 }
 
@@ -829,11 +1022,12 @@ int opt_in_bytes(int dev) {
 }
 
 // The kernels for these shapes: the register path holds one word a spin
-// (2n <= 128: R2 always fits in shared memory); any other shape
-// recomputes mu.  All compute the same function for any det.  K3b is
-// built for the state's precision with the singles rows it has: float32
-// with sng_pack or none, float64 with the float64 rows or none (nullptr:
-// no such kernel).
+// (2n <= 128: R2 always fits in shared memory), and so does K3b's wide
+// kernel, launched in its place for a walk of more than REG_NE electrons
+// (wide_kernel_of); any other shape recomputes mu.  All compute the same
+// function for any det.  K3b is built for the state's precision with the
+// singles rows it has: float32 with sng_pack or none, float64 with the
+// float64 rows or none (nullptr: no such kernel).
 const void* kernel_of(int n_words, bool smem_r2) {
   if (n_words == 1 && smem_r2) return (const void*)k_hb_select<1, true>;
   return smem_r2 ? (const void*)k_hb_select<0, true>
@@ -857,17 +1051,38 @@ const void* spawn_kernel_of(int n_words, bool smem_r2, bool f64, int src) {
                  : spawn_variant<0, false>(f64, src);
 }
 
-// kind 0: K3; 1 + 3 f64 + src: K3b
-constexpr int KINDS = 7;
+// K3b past the register path: one word a spin with R2 in shared memory
+// only (nullptr: no such kernel)
+const void* wide_kernel_of(int n_words, bool smem_r2, bool f64, int src) {
+  if (n_words != 1 || !smem_r2) return nullptr;
+  if (!f64)
+    return src == NO_SINGLES ? (const void*)k_hb_spawn_wide<float, NO_SINGLES>
+           : src == PACK     ? (const void*)k_hb_spawn_wide<float, PACK>
+                             : nullptr;
+  return src == NO_SINGLES ? (const void*)k_hb_spawn_wide<double, NO_SINGLES>
+         : src == ROWS     ? (const void*)k_hb_spawn_wide<double, ROWS>
+                           : nullptr;
+}
+
+// kind 0: K3; 1 + 3 f64 + src: K3b; 7 + 3 f64 + src: K3b's wide kernel
+constexpr int KINDS = 13;
 
 const void* function_of(int kind, int n_words, bool smem_r2) {
   if (kind == 0) return kernel_of(n_words, smem_r2);
+  if (kind >= 7)
+    return wide_kernel_of(n_words, smem_r2, (kind - 7) / 3 == 1,
+                          (kind - 7) % 3);
   return spawn_kernel_of(n_words, smem_r2, (kind - 1) / 3 == 1, (kind - 1) % 3);
+}
+
+// K3b's kind: wide > 0 takes the wide kernel
+int spawn_kind(int wide, int f64, int src) {
+  return (wide > 0 ? 7 : 1) + 3 * (f64 != 0) + src;
 }
 
 struct Plan {
   long long cap;                              // the shapes it is for
-  int n_words, norb;
+  int n_words, norb, wide;
   const void* fn;
   bool smem_r2;
   int st, per_sm;
@@ -882,9 +1097,15 @@ Plan g_plans[MAX_DEVICES][KINDS];
 bool g_planned[MAX_DEVICES][KINDS];
 std::mutex g_plan_lock;
 
-int plan_launch(int kind, long long cap, int n_words, int norb, Plan* pl) {
+// wide: the electrons the wide kernel's scratch holds a slot (kinds 7-12:
+// REG_NE < wide < 2 norb, one word a spin; else 0)
+int plan_launch(int kind, long long cap, int n_words, int norb, int wide,
+                Plan* pl) {
   if (cap <= 0 || norb <= 0 || n_words * 64 < norb || kind < 0 ||
       kind >= KINDS)
+    return (int)cudaErrorInvalidValue;
+  if ((kind >= 7) != (wide > 0) ||
+      (wide > 0 && (wide <= REG_NE || wide >= 2 * norb)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -893,7 +1114,7 @@ int plan_launch(int kind, long long cap, int n_words, int norb, Plan* pl) {
     std::lock_guard<std::mutex> hold(g_plan_lock);
     const Plan& c = g_plans[dev][kind];
     if (g_planned[dev][kind] && c.cap == cap && c.n_words == n_words &&
-        c.norb == norb) {
+        c.norb == norb && c.wide == wide) {
       *pl = c;
       return 0;
     }
@@ -901,12 +1122,14 @@ int plan_launch(int kind, long long cap, int n_words, int norb, Plan* pl) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const long long n2 = 2LL * norb, odd = n2 + 1;
+  const long long scratch = kind >= 7 ? 4LL * (THREADS / 32) * wide * PAD : 0;
   pl->cap = cap;
   pl->n_words = n_words;
   pl->norb = norb;
-  pl->smem_r2 = n2 * odd * 4 + 2 * n2 * 4 <= opt_in_bytes(dev);
+  pl->wide = wide;
+  pl->smem_r2 = n2 * odd * 4 + 2 * n2 * 4 + scratch <= opt_in_bytes(dev);
   pl->st = (int)(pl->smem_r2 ? odd : n2);
-  pl->bytes = (pl->smem_r2 ? n2 * odd * 4 : 0) + 2 * n2 * 4;
+  pl->bytes = (pl->smem_r2 ? n2 * odd * 4 : 0) + 2 * n2 * 4 + scratch;
   pl->fn = function_of(kind, n_words, pl->smem_r2);
   if (pl->fn == nullptr) return (int)cudaErrorInvalidValue;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&pl->per_sm, pl->fn,
@@ -929,11 +1152,13 @@ int plan_launch(int kind, long long cap, int n_words, int norb, Plan* pl) {
 // out[0] blocks, out[1] threads a block, out[2] dynamic shared bytes a
 // block, out[3] resident blocks per SM, out[4] 1 if R2 is in shared
 // memory, out[5] registers a thread, out[6] local (spilled) bytes a
-// thread, out[7] the electrons the register path takes (0: every det
-// recomputes mu in each pass).
-int shape_of(int kind, long long cap, int n_words, int norb, long long* out) {
+// thread, out[7] the electrons the register path takes (0: none), and for
+// K3b out[8] the electrons the wide kernel's scratch holds (0: none; with
+// out[7] 0 as well, every det recomputes mu in each pass).
+int shape_of(int kind, long long cap, int n_words, int norb, int wide,
+             long long* out) {
   Plan pl;
-  int e = plan_launch(kind, cap, n_words, norb, &pl);
+  int e = plan_launch(kind, cap, n_words, norb, wide, &pl);
   if (e != 0) return e;
   cudaFuncAttributes attr;
   cudaError_t ce = cudaFuncGetAttributes(&attr, pl.fn);
@@ -945,7 +1170,8 @@ int shape_of(int kind, long long cap, int n_words, int norb, long long* out) {
   out[4] = pl.smem_r2;
   out[5] = attr.numRegs;
   out[6] = (long long)attr.localSizeBytes;
-  out[7] = n_words == 1 && pl.smem_r2 ? REG_NE : 0;
+  out[7] = n_words == 1 && pl.smem_r2 && pl.wide == 0 ? REG_NE : 0;
+  if (kind != 0) out[8] = pl.wide;
   return 0;
 }
 
@@ -982,14 +1208,16 @@ extern "C" int sqmc_hb_select_init() {
 // K3's launch for these shapes (see shape_of).
 extern "C" int sqmc_hb_select_shape(long long cap, int n_words, int norb,
                                     long long* out) {
-  return shape_of(0, cap, n_words, norb, out);
+  return shape_of(0, cap, n_words, norb, 0, out);
 }
 
-// K3b's launch for these shapes, f64 state or not, singles source src.
+// K3b's launch for these shapes (out: 9 entries), f64 state or not,
+// singles source src, wide as sqmc_hb_spawn's.
 extern "C" int sqmc_hb_spawn_shape(long long cap, int n_words, int norb,
-                                   int f64, int src, long long* out) {
+                                   int wide, int f64, int src,
+                                   long long* out) {
   if (src < 0 || src > 2) return (int)cudaErrorInvalidValue;
-  return shape_of(1 + 3 * (f64 != 0) + src, cap, n_words, norb, out);
+  return shape_of(spawn_kind(wide, f64, src), cap, n_words, norb, wide, out);
 }
 
 // up, dn: [cap, n_words] int64 det words; r2: [2 norb, 2 norb] float32;
@@ -1004,7 +1232,7 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
                               void* p_pair, void* utot, void* c_s,
                               void* stream) {
   Plan pl;
-  int e = plan_launch(0, cap, n_words, norb, &pl);
+  int e = plan_launch(0, cap, n_words, norb, 0, &pl);
   if (e != 0) return e;
   Args a;
   a.in.up = static_cast<const unsigned long long*>(up);
@@ -1018,6 +1246,7 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
   a.in.norb = norb;
   a.in.n2 = 2 * norb;
   a.in.st = pl.st;
+  a.in.wide = 0;
   a.o1 = static_cast<long long*>(o1);
   a.o2 = static_cast<long long*>(o2);
   a.o_s = static_cast<long long*>(o_s);
@@ -1030,9 +1259,12 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
   return launch(pl, &a, stream);
 }
 
-// K3b.  f64: the state is float64; src: 0 no singles, 1 sng_pack (float32
-// state), 2 the float64 rows (float64 state).  t: the device pointers
-// in this order (23): up, dn [cap, n_words] int64; r2 [2 norb, 2 norb] f32;
+// K3b.  wide: 0, or the walk's electrons a det when they pass REG_NE at
+// one word a spin (fewer than 2 norb): the wide kernel, whose scratch
+// holds that many a slot.  f64: the state is float64; src: 0 no singles,
+// 1 sng_pack (float32 state), 2 the float64 rows (float64 state).  t:
+// the device pointers in this order (23): up, dn [cap, n_words] int64;
+// r2 [2 norb, 2 norb] f32;
 // u_rowsum [norb] f64 (null without singles); the five [cap] f64
 // streams ub, u_pick, ue, ua2, ur; tau [] f64; hb_alias_q, hb_rs_own,
 // hb_rs_partner [n_cat] f32; hb_start, hb_count [rows] int64; hb_rowsum
@@ -1041,13 +1273,14 @@ extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
 // then h [norb, norb], sing_dir, sing_exch [norb^2, norb] and u_table
 // [norb, norb] f64 (src 2, else null).  out: su, sd [cap, n_words] int64,
 // fac [cap] f64, ok [cap] bool.
-extern "C" int sqmc_hb_spawn(long long cap, int n_words, int norb, int f64,
-                             int src, long long n_cat,
+extern "C" int sqmc_hb_spawn(long long cap, int n_words, int norb, int wide,
+                             int f64, int src, long long n_cat,
                              const void* const* t, void* const* out,
                              void* stream) {
   if (src < 0 || src > 2 || n_cat <= 0) return (int)cudaErrorInvalidValue;
   Plan pl;
-  int e = plan_launch(1 + 3 * (f64 != 0) + src, cap, n_words, norb, &pl);
+  int e = plan_launch(spawn_kind(wide, f64, src), cap, n_words, norb, wide,
+                      &pl);
   if (e != 0) return e;
   SpawnArgs a;
   a.in.up = static_cast<const unsigned long long*>(t[0]);
@@ -1083,6 +1316,7 @@ extern "C" int sqmc_hb_spawn(long long cap, int n_words, int norb, int f64,
   a.in.norb = norb;
   a.in.n2 = 2 * norb;
   a.in.st = pl.st;
+  a.in.wide = pl.wide;
   if ((src != 0) != (a.in.u_rowsum != nullptr)) return (int)cudaErrorInvalidValue;
   return launch(pl, &a, stream);
 }

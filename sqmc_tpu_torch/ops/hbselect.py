@@ -161,12 +161,14 @@ def _bind(lib):
     fn = lib.sqmc_hb_spawn
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     shape = lib.sqmc_hb_spawn_shape
     shape.restype = ctypes.c_int
     shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
 
 
 def build():

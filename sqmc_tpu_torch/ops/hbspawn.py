@@ -29,15 +29,19 @@ factor (float64) and whether the slot spawns.
 
 :func:`propose` dispatches on the device of ``up_w``: a CPU tensor takes
 :func:`propose_plain`; a CUDA tensor launches the kernel (built from the
-source on first use, ops/cudabuild.py) or raises.  :func:`singles_source`
-picks the kernel's build for a walk's tables: none without singles, and
-with singles sng_pack under a float32 state or the float64 singles rows
-(``table.sing_dir``) under a float64 state, the two that
-algo/walk.py's build_walk_tables makes.  The kernel
-mirrors the plain version's op order and type promotion, so the words,
-the flags and a double's factor are the plain version's bits on the same
-inputs (with the same selection, K3 on the card); a single's element
-differs only by the order of its two row sums over the orbitals.
+source on first use, ops/cudabuild.py) or raises.  It takes the walk's
+electrons a det, ``ne``: past ``REG_NE`` at one word a spin it launches
+K3b's wide kernel (:func:`wide_ne`, counted in ``wide_launches``), which
+sums each slot's mu once in its warp's shared-memory scratch instead of
+in registers; the kernel picked never changes the result.
+:func:`singles_source` picks the kernel's build for a walk's tables:
+none without singles, and with singles sng_pack under a float32 state or
+the float64 singles rows (``table.sing_dir``) under a float64 state, the
+two that algo/walk.py's build_walk_tables makes.  The kernel mirrors the
+plain version's op order and type promotion, so the words, the flags and
+a double's factor are the plain version's bits on the same inputs (with
+the same selection, K3 on the card); a single's element differs only by
+the order of its two row sums over the orbitals.
 
 :func:`excite_double` and :func:`propose_single` are the plain version's
 double and single after their draws; the uniform and Cauchy-Schwarz
@@ -59,12 +63,23 @@ F32, F64, I32, I64 = torch.float32, torch.float64, torch.int32, torch.int64
 TINY = 1e-30
 NO_SINGLES, PACK, ROWS = 0, 1, 2     # the kernel's singles sources
 
+REG_NE = 16                          # electrons K3b's register path takes
 launches = 0                         # kernel launches since reset_launches()
+wide_launches = 0                    # of them, of the wide kernel (wide_ne)
+COUNTERS = ("launches", "wide_launches")     # read by utils/cudagraph.py
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, wide_launches
+    launches = wide_launches = 0
+
+
+def wide_ne(n_words: int, norb: int, ne: int) -> int:
+    """The electrons a slot of K3b's wide kernel holds, for a walk of ne
+    electrons a det: ne where it passes REG_NE at one word a spin (and
+    leaves a spin-orbital empty), else 0 (the kernel with the register
+    path, and the multi-word one)."""
+    return ne if n_words == 1 and REG_NE < ne < 2 * norb else 0
 
 
 # ---------------------------------------------------------------------------
@@ -277,21 +292,24 @@ def _load(dev):
                           dev.index)
 
 
-def launch_shape(cap: int, n_words: int, norb: int, f64: bool, src: int,
-                 device) -> dict:
-    """How the kernel launches for these shapes on ``device`` (a card); the
-    keys of hbselect.launch_shape."""
+def launch_shape(cap: int, n_words: int, norb: int, ne: int, f64: bool,
+                 src: int, device) -> dict:
+    """How the kernel launches for these shapes (ne: the walk's electrons
+    a det) on ``device`` (a card): the keys of hbselect.launch_shape, and
+    ``wide_ne``, the electrons a slot of the wide kernel holds (0: not
+    the wide kernel)."""
     dev = torch.device(device)
-    out = (ctypes.c_longlong * 8)()
+    out = (ctypes.c_longlong * 9)()
+    wide = wide_ne(n_words, norb, ne)
     with torch.cuda.device(dev):
         lib = _load(dev)
-        err = lib.sqmc_hb_spawn_shape(cap, n_words, norb, int(f64), src,
+        err = lib.sqmc_hb_spawn_shape(cap, n_words, norb, wide, int(f64), src,
                                       ctypes.addressof(out))
     if err != 0:
         raise RuntimeError("hb_spawn launch shape: "
                            + cudabuild.error_string(lib, hbselect._PREFIX, err))
     keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "r2_in_smem",
-            "registers", "spill_bytes", "reg_ne")
+            "registers", "spill_bytes", "reg_ne", "wide_ne")
     return dict(zip(keys, list(out)))
 
 
@@ -310,10 +328,10 @@ def _pointers(ts):
 
 
 def propose_cuda(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
-                 streams):
+                 streams, ne: int):
     """Launch the kernel on CUDA tensors (checks everything it is handed:
     the tensors go to csrc/hbselect.cu's sqmc_hb_spawn in its order)."""
-    global launches
+    global launches, wide_launches
     dev = up_w.device
     CAP, W = up_w.shape
     if up_w.dtype != I64 or W * 64 < norb:
@@ -354,28 +372,32 @@ def propose_cuda(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
             torch.empty(CAP, dtype=torch.bool, device=dev))
     if CAP == 0:
         return outs
+    wide = wide_ne(W, norb, ne)
     with torch.cuda.device(dev):
         lib = _load(dev)
-        err = lib.sqmc_hb_spawn(CAP, W, norb, int(wdt == F64), src, n_cat,
-                                _pointers(ins), _pointers(outs),
+        err = lib.sqmc_hb_spawn(CAP, W, norb, wide, int(wdt == F64), src,
+                                n_cat, _pointers(ins), _pointers(outs),
                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("hb_spawn kernel launch failed: "
                            + cudabuild.error_string(lib, hbselect._PREFIX, err))
     launches += 1
+    wide_launches += wide > 0
     return outs
 
 
 def propose(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
-            streams):
+            streams, ne: int):
     """The heat-bath proposal of every spawn slot: (spawn_up, spawn_dn,
     factor, ok).  tables: the walk's WalkTables; up_w, dn_w: [CAP, W]
     int64 parent words; singles: whether the walk proposes singles; tau:
     0-d float64 tensor; wdt: the state's precision; streams: five [CAP]
-    float64 uniforms (ub, up_, ue, ua2, ur)."""
+    float64 uniforms (ub, up_, ue, ua2, ur); ne: the walk's electrons a
+    det, which picks the kernel (wide_ne) and not its result."""
     if up_w.device.type == "cpu":
         return propose_plain(tables, up_w, dn_w, norb, singles, tau, wdt,
                              streams)
     if up_w.device.type != "cuda":
         raise ValueError(f"hb_spawn has no path for device {up_w.device}")
-    return propose_cuda(tables, up_w, dn_w, norb, singles, tau, wdt, streams)
+    return propose_cuda(tables, up_w, dn_w, norb, singles, tau, wdt, streams,
+                        ne)

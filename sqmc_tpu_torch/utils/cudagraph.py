@@ -52,13 +52,19 @@ from ..ops.mark import Marks
 F64 = torch.float64
 
 
+def _names(mod):
+    return getattr(mod, "COUNTERS", ("launches",))
+
+
 def _counts(counters):
-    return [mod.launches for mod in counters]
+    return [getattr(mod, k) for mod in counters for k in _names(mod)]
 
 
 def _set_counts(counters, values):
-    for mod, v in zip(counters, values):
-        mod.launches = v
+    values = iter(values)
+    for mod in counters:
+        for k in _names(mod):
+            setattr(mod, k, next(values))
 
 
 class StepGraph:
@@ -71,11 +77,11 @@ class StepGraph:
     on them and sets them on what the runner returns.  gen: the generator
     the step draws from.  trace_keys: 0-dim stats written each step as
     one float64 row (none: no trace); sum_keys: stats summed over a
-    block.  counters: modules with an integer
-    ``launches``.  rows: the most steps a block may take.  marks: the
-    number of device timestamps a step (0: none; see the module
-    docstring).  A CUDA state is captured; a CPU state runs the body
-    eagerly on every replay."""
+    block.  counters: modules with an integer ``launches`` (or the
+    integers their ``COUNTERS`` name).  rows: the most steps a block may
+    take.  marks: the number of device timestamps a step (0: none; see
+    the module docstring).  A CUDA state is captured; a CPU state runs
+    the body eagerly on every replay."""
 
     def __init__(self, step, state, gen, trace_keys, sum_keys=(),
                  counters=(), rows: int = 1, marks: int = 0):

@@ -1331,7 +1331,8 @@ def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
     hb0, sp0, sel0 = hbspawn.launches, slotpar.launches, hbselect.launches
     kern = fifty()
     assert hbspawn.launches == hb0 + 50 and slotpar.launches == sp0 + 50
-    monkeypatch.setattr(hbspawn, "propose", hbspawn.propose_plain)
+    monkeypatch.setattr(hbspawn, "propose",
+                        lambda *a: hbspawn.propose_plain(*a[:8]))
     monkeypatch.setattr(hbselect, "hb_select", hbselect.hb_select_plain)
     monkeypatch.setattr(slotpar, "slot_parents", slotpar.slot_parents_plain)
     plain = fifty()
@@ -1347,7 +1348,15 @@ def test_heg14_walk_spawn_kernels_vs_plain_ops(monkeypatch):
 
 SPAWN_CAPS = {"c2_f32_pack": 262_144, "heg14_f32": 262_144,
               "c2_f64_rows": 262_144, "two_words_f32_pack": 65_536,
-              "heg54_f32": 262_144}
+              "heg54_f32": 262_144, "heg17_f32": 262_144,
+              "heg54_f32_tail": 262_099}
+
+
+def _wide(case, up):
+    """Whether K3b takes its wide kernel in a SPAWN_CAPS case: past 16
+    electrons at one word a spin."""
+    import torch_spawn_emulation as se
+    return se.electrons(case) > 16 and up.shape[1] == 1
 
 
 @pytest.mark.cuda
@@ -1367,11 +1376,14 @@ def test_hb_spawn_kernel_matches_plain(case, tmp_path):
     dev = _device()
     cap = SPAWN_CAPS[case]
     args, _ = se.spawn_inputs(case, dev, tmp_path, cap, seed=21)
+    ne = se.electrons(case)
     before, sel0 = hbspawn.launches, hbselect.launches
-    got = hbspawn.propose(*args)
+    wide0 = hbspawn.wide_launches
+    got = hbspawn.propose(*args, ne)
     torch.cuda.synchronize()
     assert hbspawn.launches == before + 1 and hbselect.launches == sel0
-    again = hbspawn.propose(*args)
+    assert hbspawn.wide_launches == wide0 + _wide(case, args[1])
+    again = hbspawn.propose(*args, ne)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
     print(f"hb_spawn {case}: cap={cap} "
@@ -1393,7 +1405,8 @@ def test_hb_spawn_kernel_is_its_documented_arithmetic(case, tmp_path):
     args, (up, dn, streams) = se.spawn_inputs(case, dev, tmp_path, cap,
                                               seed=23)
     tables, _, _, norb, singles, tau, wdt, _ = args
-    got = hbspawn.propose(*args)
+    ne = se.electrons(case)
+    got = hbspawn.propose(*args, ne)
     want = se.emulate_hb_spawn(se.table_arrays(tables), up, dn, norb,
                                hbspawn.singles_source(tables, singles, wdt),
                                wdt == torch.float64, float(tau), streams)
@@ -1402,15 +1415,20 @@ def test_hb_spawn_kernel_is_its_documented_arithmetic(case, tmp_path):
         if g.dtype == np.float64:
             g, w = g.view(np.int64), w.view(np.int64)
         assert np.array_equal(g, w), f"{k}: {(g != w).sum()} of {cap} differ"
-    shape = hbspawn.launch_shape(cap, up.shape[1], norb, wdt == torch.float64,
+    shape = hbspawn.launch_shape(cap, up.shape[1], norb, ne,
+                                 wdt == torch.float64,
                                  hbspawn.singles_source(tables, singles, wdt),
                                  dev)
     print(f"hb_spawn {case} launch: " + " ".join(
         f"{k}={v}" for k, v in shape.items()))
+    wide = _wide(case, up)
+    assert shape["wide_ne"] == (ne if wide else 0)
+    assert shape["reg_ne"] == (16 if up.shape[1] == 1 and not wide else 0)
+    assert shape["spill_bytes"] == 0
     from sqmc_tpu_torch.ops import cudabuild
     ptxas = [x for x in cudabuild.ptxas_summary("hbselect.cu")
              if "k_hb_spawn" in x]
-    assert len(ptxas) == 12 and all("0 bytes spill stores" in x
+    assert len(ptxas) == 16 and all("0 bytes spill stores" in x
                                     for x in ptxas), ptxas
 
 
@@ -1438,7 +1456,28 @@ def test_hb_spawn_wrapper_raises_on_bad_input(tmp_path):
          up, dn, norb, singles, tau, wdt, streams)]
     for a in bad:
         with pytest.raises(ValueError):
-            hbspawn.propose(*a)
+            hbspawn.propose(*a, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c2_f32_pack", "c2_f64_rows", "heg14_f32"])
+def test_hb_spawn_wide_kernel_takes_any_det(case, tmp_path):
+    """K3b's wide kernel (launched for a walk of 17 electrons) on dets of
+    8 or 14: every slot's outputs equal the register kernel's bit for bit,
+    with singles from sng_pack and from the float64 rows; the electron
+    count picks the kernel, not the result."""
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.ops import hbspawn
+    dev = _device()
+    args, _ = se.spawn_inputs(case, dev, tmp_path, 65_536, seed=29)
+    wide0 = hbspawn.wide_launches
+    regs = hbspawn.propose(*args, se.electrons(case))
+    wide = hbspawn.propose(*args, 17)
+    assert hbspawn.wide_launches == wide0 + 1
+    for r, w in zip(regs, wide):
+        if r.dtype == torch.float64:
+            r, w = r.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(r, w)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ The numpy emulation of K3b's documented arithmetic
 (tests/torch_spawn_emulation.py) is held bit for bit to the plain version
 at the shapes the kernel is built for (the C2 walk's: 26 orbitals,
 4 + 4, singles from sng_pack, float32; HEG-14's without singles; C2 in
-float64 with the float64 singles rows; a two-word det; the 38- and
-54-electron gases, past its 16-electron register path), on tables whose
+float64 with the float64 singles rows; a two-word det; the 17-, 38- and
+54-electron gases, past its 16-electron register path, the last also
+laid out as a generation hands over its slots), on tables whose
 sums are exact in any order, and through whole generations of the
 time-symmetrized C2 walk (z = +1 and -1: the proposal's outputs go
 through the time-symmetrized mapping, the merge and the finalize).
@@ -68,15 +69,17 @@ def test_hb_spawn_emulation_is_plain_bitwise(case, tmp_path):
     rng = np.random.default_rng(11)
     up, dn, streams = se.slot_inputs(rng, CAP, s.norb, s.nup, s.ndn,
                                      _walkers(state))
+    se.lay_out(case, up, dn, s.norb)
     args = (tables, torch.as_tensor(up), torch.as_tensor(dn), s.norb,
             cfg.has_singles, state.tau, wdt,
             [torch.as_tensor(u) for u in streams])
     plain = hbspawn.propose_plain(*args)
     _same_bits(_emulated(*args), plain)
-    _same_bits(hbspawn.propose(*args), plain)     # the CPU's path
+    _same_bits(hbspawn.propose(*args, se.electrons(case)), plain)  # CPU
     ok = plain[3]
-    # 19 of 33 orbitals a spin filled: most heat-bath targets are occupied
-    low = 0.1 if case == "heg38_f32" else 0.2
+    # 19 of 33 orbitals a spin filled: most heat-bath targets are occupied;
+    # a quarter of a tail case's slots are sentinels, which spawn nothing
+    low = 0.1 if case in ("heg38_f32", *se.TAIL_CASES) else 0.2
     assert low < float(ok.double().mean()) < 0.95
     assert bool(torch.isfinite(plain[2]).all())
     if cfg.has_singles:                            # both kinds are drawn
@@ -175,8 +178,8 @@ def test_hb_spawn_dispatch(tmp_path, monkeypatch):
             hbspawn.singles_source(tables, True, wdt)
         assert hbspawn.singles_source(tables, False, wdt) == hbspawn.NO_SINGLES
         out = propose(c, tables)
-        assert out is not None
-        _same_bits(out, hbspawn.propose_plain(*calls[-1]))
+        assert out is not None and calls[-1][8] == s.nup + s.ndn
+        _same_bits(out, hbspawn.propose_plain(*calls[-1][:8]))
         with pytest.raises(ValueError):
             hbspawn.propose_cuda(*calls[-1])
     # a pack with a float64 state, float64 rows with a float32 one: none
@@ -220,4 +223,4 @@ def test_hb_spawn_wrapper_has_no_path_for_other_devices():
     w = torch.zeros((4, 1), dtype=torch.int64, device=meta)
     u = [torch.zeros(4, dtype=torch.float64, device=meta)] * 5
     with pytest.raises(ValueError):
-        hbspawn.propose(None, w, w, 3, False, None, torch.float32, u)
+        hbspawn.propose(None, w, w, 3, False, None, torch.float32, u, 2)

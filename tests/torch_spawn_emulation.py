@@ -254,12 +254,38 @@ SPAWN_CASES = {
     "two_words_f32_pack": ("w2", True, None),  # norb = 70: two words a spin
     "heg38_f32": ("heg38", True, None),      # 38 electrons, 33 orbitals
     "heg54_f32": ("heg54", True, None),      # the heg54.walk cell's gas
+    "heg17_f32": ("heg17", True, None),      # the first det past REG_NE
+    "heg54_f32_tail": ("heg54", True, None),  # TAIL_CASES' layout
 }
 
 # the electron gases: (electrons, up electrons, cutoff radius) at r_s 0.5;
-# past 16 electrons K3b sums mu again in each pass (past its register path)
-HEG_SHAPES = {"heg14": (14, 7, 1.49), "heg38": (38, 19, 2.0),
-              "heg54": (54, 27, 2.3)}
+# past 16 electrons (one word a spin) K3b runs its wide kernel
+HEG_SHAPES = {"heg14": (14, 7, 1.49), "heg17": (17, 9, 1.49),
+              "heg38": (38, 19, 2.0), "heg54": (54, 27, 2.3)}
+
+# cases laid out as a generation hands its slots over: the slots past a
+# spawn total that ends inside a warp are the all-bits sentinel, and the
+# 40 slots before it hold dets with every spin-orbital but one occupied
+# (more electrons than the walk's, past what the wide kernel's scratch
+# holds a slot)
+TAIL_CASES = ("heg54_f32_tail",)
+
+
+def lay_out(case, up, dn, norb):
+    """Give slot_inputs' dets ``up``, ``dn`` (in place) the layout of
+    TAIL_CASES for such a case."""
+    if case in TAIL_CASES:
+        cap = len(up)
+        total = cap - cap // 4 - 13          # not a multiple of 32
+        full = (1 << norb) - 1
+        up[total - 40:total], dn[total - 40:total] = full, full & ~1
+        up[total:], dn[total:] = -1, -1
+
+
+def electrons(case):
+    """The walk's electrons a det in a SPAWN_CASES shape."""
+    kind = SPAWN_CASES[case][0]
+    return HEG_SHAPES[kind][0] if kind in HEG_SHAPES else 8
 
 
 def two_word_system(device, seed=7):
@@ -379,6 +405,7 @@ def spawn_inputs(case, dev, workdir, cap, seed):
     up, dn, streams = slot_inputs(rng, cap, s.norb, s.nup, s.ndn,
                                   (st.up[:n].cpu().numpy(),
                                    st.dn[:n].cpu().numpy()))
+    lay_out(case, up, dn, s.norb)
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     args = (tables, t(up), t(dn), s.norb, cfg.has_singles, st.tau, wdt,
             [t(u) for u in streams])
