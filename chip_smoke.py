@@ -42,23 +42,17 @@ Phases, each reported on its own line; any failure exits nonzero:
      (torch.sparse_csr_tensor(...) @ x for SpMV; torch.cumsum / cummax /
      cummin per field for the one-segment scan), timed only here;
   2d. the walk's spawn kernels vs their plain versions: the heat-bath
-     selection (K3) at the walk's shape (262,144 slots of HEG-14 dets,
-     2n = 38, HEG-14's R2; once more with the last 30% of the slots the
-     walk's empty-slot sentinel, as the walk hands them), at 6b's chem
-     shape with singles (26 orbitals, 4 + 4) and with integer R2 (same
-     bits), the heat-bath proposal (K3b, the kernel every heat-bath walk
-     launches) against its plain version at 262,144 slots of the four
-     shapes of tests/torch_spawn_emulation.py (the C2-shaped walk's f32
-     sng_pack, HEG-14 without singles, C2 with the float64 rows, a
-     70-orbital two-word system) with the card tests' criteria, the
-     slot -> parent expand
-     (K4) at the walk's shape (458,752 walkers, 262,144 slots) below and
-     above the capacity; printed as 2 and 2b print, the library calls
-     being torch.cumsum of one [262,144, 2n] row set and its
-     triangular-matmul form (K3; K3b has none) and torch.searchsorted
-     (K4), with what
-     ptxas reported of each kernel (registers, shared memory, spills)
-     and each launch's blocks, threads and resident blocks per SM;
+     proposal (K3b, the kernel every heat-bath walk launches) at 262,144
+     slots of each shape of tests/torch_spawn_emulation.py (the
+     C2-shaped walk's f32 sng_pack, HEG-14 without singles, C2 with the
+     float64 rows, a 70-orbital two-word system, the 17-, 38- and
+     54-electron gases) on its exact-sum tables, with the card tests'
+     criteria, and the slot -> parent expand (K4) at the walk's shape
+     (458,752 walkers, 262,144 slots) below and above the capacity;
+     printed as 2 and 2b print, the library call being
+     torch.searchsorted (K4; K3b has none), with what ptxas reported of
+     each kernel (registers, shared memory, spills) and each launch's
+     blocks, threads and resident blocks per SM;
   2e. the sequential initiator combine (K5) vs its plain version, bit
      for bit: 720,896 merge rows in groups of 1 to ~30 rows, float32 and
      float64 (plain on the card), with one group of 30,000 rows (plain on
@@ -258,12 +252,12 @@ Phases, each reported on its own line; any failure exits nonzero:
 
 Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
-of seg_scan, hb_select, hb_spawn and slot_parents from phases 3, 7, 8,
+of seg_scan, hb_spawn and slot_parents from phases 3, 7, 8,
 10, 11 and 12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's
 counts in phase 10), seq_init's from phases 7c and 12e,
 each path counted from 0; errors and times measured here: seg_scan at the
 walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
-hb_select and slot_parents at the walk's spawn shape, hb_spawn at 2d's
+slot_parents at the walk's spawn shape, hb_spawn at 2d's
 C2-shaped f32 case, seq_init at the
 walk's merge length, 2e's float32 case) and ``{"ok": true, "device":
 {...}}``.
@@ -303,17 +297,14 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("seg_scan", "spmv", "hb_select", "hb_spawn", "slot_parents",
-           "seq_init")
+KERNELS = ("seg_scan", "spmv", "hb_spawn", "slot_parents", "seq_init")
 # an f64 heat-bath walk's kernels
 F64_WALK = ("seg_scan", "spmv", "hb_spawn", "slot_parents")
 
 
 def _kernel_modules():
-    from sqmc_tpu_torch.ops import (hbselect, hbspawn, segscan, seqinit,
-                                    slotpar, spmv)
-    return dict(zip(KERNELS, (segscan, spmv, hbselect, hbspawn, slotpar,
-                              seqinit)))
+    from sqmc_tpu_torch.ops import hbspawn, segscan, seqinit, slotpar, spmv
+    return dict(zip(KERNELS, (segscan, spmv, hbspawn, slotpar, seqinit)))
 
 
 def _reset_counts():
@@ -482,8 +473,8 @@ def phase_kernel_rows(calls=20):
 
 
 def _own_kernel(name):
-    return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_select",
-                                   "k_hb_spawn", "k_slot_parents",
+    return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_spawn",
+                                   "k_slot_parents",
                                    "k_seq_init"))
 
 
@@ -757,93 +748,11 @@ def _library_spmv(x, cols, vals, row_ptr, row_nnz, ref):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2d: the spawn kernels K3 (heat-bath selection) and K4 (slot ->
+# Phase 2d: the spawn kernels K3b (heat-bath proposal) and K4 (slot ->
 # parent) vs their plain versions
 # ---------------------------------------------------------------------------
 
 SPAWN_M, SPAWN_CAP = 458_752, 262_144  # the walk's mwalk and cap_spawn
-# (norb, nup, ndn, R2 kind, singles): the walk's selection (HEG-14's walk
-# tables), the same with the last 30% of the slots the walk's empty-slot
-# sentinel (every bit set), as the walk hands them past a spawn total of
-# 0.7 CAP, 6b's chem shape with singles (26 orbitals, 4 + 4 electrons) and
-# integer R2 at the walk's width (every running sum exact: same bits)
-HB_CASES = {"walk_heg14": (19, 7, 7, "heg14", False),
-            "walk_heg14_sentinel30": (19, 7, 7, "heg14_sentinel", False),
-            "chem26_singles": (26, 4, 4, "float", True),
-            "integer_norb19_singles": (19, 7, 7, "int", True)}
-
-
-def _random_dets(rng, cap, norb, nel):
-    """[cap, W] int64 words, nel random orbitals occupied per row; the
-    first 7 rows empty (slots past the spawn total)."""
-    import numpy as np
-    W = (norb + 63) // 64
-    occ = np.argsort(rng.random((cap, norb)), axis=1)[:, :nel]
-    words = np.zeros((cap, W), np.uint64)
-    for w in range(W):
-        sh = np.clip(occ - 64 * w, 0, 63).astype(np.uint64)
-        hit = (occ >= 64 * w) & (occ < 64 * (w + 1))
-        words[:, w] = np.bitwise_or.reduce(
-            np.where(hit, np.left_shift(np.uint64(1), sh), np.uint64(0)),
-            axis=1)
-    words[:7] = 0
-    return words.view(np.int64)
-
-
-def _heg14_r2(dev):
-    """R2 of HEG-14's walk tables (it does not depend on the trial)."""
-    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
-    from sqmc_tpu_torch.algo.walk import WalkConfig, build_walk_tables
-    from sqmc_tpu_torch.systems.heg.system import make_heg_system
-    s = make_heg_system(*HEG, device=dev)
-    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
-    cfg = WalkConfig(mwalk=1024, cap_spawn=1024, norb=s.norb, nup=s.nup,
-                     ndn=s.ndn, n_words=1, tau=2e-3, w_abs_target=1e3,
-                     has_singles=False)
-    return build_walk_tables(s, trial, cfg).R2
-
-
-def _hb_compare(name, got, ref, exact):
-    """Raise unless the kernel meets the criteria against the plain
-    version; returns the largest |difference| of a float output on the
-    slots whose draws agree.  Integer R2: the same bits everywhere.  Float
-    R2 (the running sums associate differently): the draws agree on >=
-    99.99% of slots, and there the totals agree to 1e-5 relative, the
-    singles cell to 1e-6 of its row's total and p_pair_q to 4e-6 + 3e-5 p
-    (the bound that follows from each of its four cells agreeing to 1e-6 of
-    its row's total)."""
-    import torch
-    fields = [k for k, v in got._asdict().items() if v is not None]
-    if exact:
-        for k in fields:
-            g, r = getattr(got, k), getattr(ref, k)
-            if g.dtype == torch.float32:
-                g, r = g.view(torch.int32), r.view(torch.int32)
-            if not torch.equal(g, r):
-                raise AssertionError(f"2d {name}: {k} differs")
-        return 0.0
-    same = (got.o1 == ref.o1) & (got.o2 == ref.o2)
-    if got.o_s is not None:
-        same &= got.o_s == ref.o_s
-    agree = float(same.double().mean())
-    err = 0.0
-    for k in fields:
-        if getattr(got, k).dtype != torch.float32:
-            continue
-        g, r = getattr(got, k)[same].double(), getattr(ref, k)[same].double()
-        d = (g - r).abs()
-        err = max(err, float(d.max()))
-        if k == "p_pair_q":
-            bad = d > 4e-6 + 3e-5 * r.abs()
-        elif k == "c_s":
-            bad = d > 1e-6 * ref.utot[same].double()
-        else:
-            bad = d > 1e-5 * r.abs()
-        if bool(bad.any()):
-            raise AssertionError(f"2d {name}: {k} off by {float(d.max())}")
-    if agree < 0.9999:
-        raise AssertionError(f"2d {name}: draws agree on {agree:.6f} only")
-    return err
 
 
 def _spawn_case_line(name, fn, plain, nbytes, ops, err, lib):
@@ -882,8 +791,9 @@ def _spawn_bytes(args, single):
     if singles:
         n_up = dets.to_bits(up, norb).sum(1)
         n_dn = dets.to_bits(dn, norb).sum(1)
-        o_s = hbselect.hb_select(up, dn, norb, tables.R2, tables.u_rowsum,
-                                 streams[1], streams[2]).o_s
+        o_s = hbselect.hb_select_plain(up, dn, norb, tables.R2,
+                                       tables.u_rowsum, streams[1],
+                                       streams[2]).o_s
         same = torch.where(o_s < norb, n_up, n_dn)
         e = 4 if tables.sng_pack.numel() else 8
         nbytes += int((((n_up + n_dn + same + 2) * e + 20)[single]).sum())
@@ -893,27 +803,29 @@ def _spawn_bytes(args, single):
 def _hb_spawn_cases(dev):
     """2d's K3b cases: hbspawn.propose against propose_plain at 262,144
     slots of each shape of tests/torch_spawn_emulation.py (a third random
-    dets, the rest the walk's own), by that module's compare_with_plain
-    (the card tests' criteria); the same bits on a second call; one launch
-    a call and no K3.  Returns {"spawn_<shape>": summary}."""
+    dets, the rest the walk's own) on its exact-sum tables (every
+    association of the selection's sums gives the same bits), by that
+    module's compare_with_plain (the card tests' criteria); the same bits
+    on a second call; one launch a call.  Returns {"spawn_<shape>":
+    summary}."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import torch_spawn_emulation as se
-    from sqmc_tpu_torch.ops import hbselect, hbspawn
+    from sqmc_tpu_torch.ops import hbspawn
     workdir = os.path.join(HERE, "build", "smoke_phase2d")
     os.makedirs(workdir, exist_ok=True)
     out = {}
     for name in se.SPAWN_CASES:
-        args, _ = se.spawn_inputs(name, dev, workdir, SPAWN_CAP, seed=21)
+        args, _ = se.spawn_inputs(name, dev, workdir, SPAWN_CAP, seed=21,
+                                  exact=True)
         tables, up, _, norb, singles, _, wdt, _ = args
-        before, sel0 = hbspawn.launches, hbselect.launches
+        before = hbspawn.launches
         ne = se.electrons(name)
         got = hbspawn.propose(*args, ne)
         torch.cuda.synchronize()
-        if hbspawn.launches != before + 1 or hbselect.launches != sel0:
+        if hbspawn.launches != before + 1:
             raise AssertionError(f"2d hb_spawn {name}: launches "
-                                 f"{hbspawn.launches - before} K3b, "
-                                 f"{hbselect.launches - sel0} K3")
+                                 f"{hbspawn.launches - before} K3b")
         again = hbspawn.propose(*args, ne)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"2d hb_spawn {name}: a second call gave "
@@ -940,90 +852,25 @@ def _hb_spawn_cases(dev):
 
 
 def phase_spawn_vs_plain(dev):
-    """Phase 2d: K3 at the walk's spawn shape (CAP 262,144 slots of HEG-14
-    dets, 2n = 38, HEG-14's R2), at 6b's chem shape with singles and with
-    integer R2; K4 at the walk's shape (M 458,752 walkers, CAP 262,144
-    slots) with a spawn total below CAP and one above it.  Each case
-    prints what phase 2 prints; the library calls are, for K3, the
-    torch.cumsum of one [CAP, 2n] float32 row set (three of them ran per
-    generation before K3) and the JAX package's form of it, x @ triu(ones)
-    in full float32 (TF32 off); for K4, torch.searchsorted(cum, slots,
-    right=True).  Before them it prints what ptxas reported of each
-    kernel (registers, shared memory, spills) and each launch's shape
-    (blocks, threads, shared bytes, resident blocks per SM).  Returns the
-    summaries of the walk-shape cases."""
+    """Phase 2d: K3b against its plain version (_hb_spawn_cases); K4 at the
+    walk's shape (M 458,752 walkers, CAP 262,144 slots) with a spawn total
+    below CAP and one above it.  Each case prints what phase 2 prints; the
+    library call is, for K4, torch.searchsorted(cum, slots, right=True).
+    Before them it prints what ptxas reported of each kernel (registers,
+    shared memory, spills); each case its launch's shape (blocks, threads,
+    shared bytes, resident blocks per SM).  Returns the summaries of the
+    C2-shaped K3b case and of K4's walk case."""
     import numpy as np
     import torch
-    from sqmc_tpu_torch import dets
-    from sqmc_tpu_torch.ops import hbselect, slotpar
+    from sqmc_tpu_torch.ops import cudabuild, hbspawn, slotpar
 
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
-    from sqmc_tpu_torch.ops import cudabuild
-    for mod in (hbselect, slotpar):       # registers, shared memory, spills
+    for mod in (hbspawn, slotpar):        # registers, shared memory, spills
         for line in cudabuild.ptxas_summary(mod._SOURCE):
             log(f"phase 2d ptxas {mod._SOURCE}: {line}")
     rng = np.random.default_rng(9)
-    out = {}
-    for name, (norb, nup, ndn, kind, singles) in HB_CASES.items():
-        n2, cap = 2 * norb, SPAWN_CAP
-        if kind.startswith("heg14"):
-            R2 = _heg14_r2(dev)
-        else:
-            R2 = (rng.integers(0, 16, (n2, n2)) if kind == "int"
-                  else rng.exponential(1.0, (n2, n2))).astype(np.float32)
-            np.fill_diagonal(R2, 0.0)
-            R2 = torch.as_tensor(R2, device=dev)
-        u_rowsum = None
-        if singles:
-            u_rowsum = torch.as_tensor(
-                rng.integers(1, 9, norb).astype(np.float64) if kind == "int"
-                else rng.exponential(1.0, norb), device=dev)
-        up = torch.as_tensor(_random_dets(rng, cap, norb, nup), device=dev)
-        dn = torch.as_tensor(_random_dets(rng, cap, norb, ndn), device=dev)
-        if kind == "heg14_sentinel":
-            up[int(0.7 * cap):] = -1
-            dn[int(0.7 * cap):] = -1
-        u1 = torch.as_tensor(rng.random(cap), device=dev)
-        u2 = torch.as_tensor(rng.random(cap), device=dev)
-        args = (up, dn, norb, R2, u_rowsum, u1, u2)
-        got = hbselect.hb_select(*args)
-        torch.cuda.synchronize()
-        ref = hbselect.hb_select_plain(*args)
-        err = _hb_compare(name, got, ref, exact=kind == "int")
-        again = hbselect.hb_select(*args)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)
-                   if a is not None):
-            raise AssertionError(f"2d {name}: a second call gave other bits")
-        # bytes: det words, two uniforms, R2 and u_rowsum read once; two
-        # int64 and four float32 written (singles: one int64, two float32)
-        W = up.shape[1]
-        nbytes = (cap * (2 * W * 8 + 16) + R2.numel() * 4
-                  + (norb * 8 if singles else 0)
-                  + cap * (32 + (16 if singles else 0)))
-        # float ops this input needs: mu at the occupied spin-orbitals (ne
-        # adds each), an add per occupied entry of each running sum, an
-        # add and a compare per occupied entry of each draw, the adds of
-        # the two cells found apart (3 ne at most)
-        ne = (dets.to_bits(up, norb).sum(1)
-              + dets.to_bits(dn, norb).sum(1)).double()
-        nrow, ndraw = (4, 3) if singles else (3, 2)
-        ops = float((ne * ne + ne * (nrow + 2 * ndraw + 3)).sum())
-        shape = hbselect.launch_shape(cap, up.shape[1], norb, dev)
-        log(f"phase 2d hb_select {name} launch: " + " ".join(
-            f"{k}={v}" for k, v in shape.items()))
-        x = torch.rand((cap, n2), device=dev)
-        tri = torch.triu(torch.ones((n2, n2), device=dev))
-        fn = (lambda a=args: hbselect.hb_select(*a))
-        out[name] = _spawn_case_line(
-            f"hb_select {name} cap={cap} 2n={n2}", fn,
-            lambda a=args: hbselect.hb_select_plain(*a), nbytes, ops, err,
-            {"cumsum_rows": lambda x=x: torch.cumsum(x, dim=1),
-             "triu_matmul": lambda x=x, tri=tri: x @ tri})
-        PROFILED.append((f"hb_select {name}", fn))
-        del x, tri, got, ref, again
-
-    out.update(_hb_spawn_cases(dev))
+    out = _hb_spawn_cases(dev)
 
     log("phase 2d slot_parents launch: " + " ".join(
         f"{k}={v}" for k, v in
@@ -1053,7 +900,7 @@ def phase_spawn_vs_plain(dev):
              torch.searchsorted(c, s, right=True)})
         PROFILED.append((f"slot_parents {name}", fn))
     log(f"phase 2d seconds={time.time() - t_start:.2f}")
-    return out["walk_heg14"], out["spawn_c2_f32_pack"], out["slot_walk"]
+    return out["spawn_c2_f32_pack"], out["slot_walk"]
 
 
 # ---------------------------------------------------------------------------
@@ -3614,7 +3461,7 @@ def phase_bench(dev, smi):
     synthetic C2-shaped file, plain dets, heat-bath with singles,
     population 2e5, 12 + 30 blocks of 100 generations);
     gates: no capacity growth, the population within 10% of 2e5,
-    |e_mixed - ORACLE_E0| < max(5 sigma, 2 mHa), K1, K3 and K4 launched."""
+    |e_mixed - ORACLE_E0| < max(5 sigma, 2 mHa), K1, K3b and K4 launched."""
     from sqmc_tpu_torch import bench
     t0 = time.time()
     rec, c = _counted(lambda: bench.run(dev), COUNTS11)
@@ -3780,6 +3627,11 @@ def _timed_block(fn, n):
     return out, n / (time.perf_counter() - t0), ev0.elapsed_time(ev1) / n
 
 
+# host calls that put work on the card's queue
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
 def _profiled(fn, n):
     """fn() (a block of n steps) under torch.profiler: (kernel ms a step,
     host launches a step), "not measured" where the profiler returned no
@@ -3787,7 +3639,6 @@ def _profiled(fn, n):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from sqmc_tpu_torch.bench_walk import HOST_LAUNCHES
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4114,10 +3965,9 @@ def phase_graph(dev, smi, system=None, trial=None):
 
 
 def phase_build():
-    """Every kernel source, one nvcc each, started together (K3b, hb_spawn,
-    is built with K3: one source)."""
+    """Every kernel source, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
-    mods = [m for k, m in _kernel_modules().items() if k != "hb_spawn"]
+    mods = list(_kernel_modules().values())
     t0 = time.time()
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = [ex.submit(mod.build) for mod in mods]
@@ -4168,12 +4018,11 @@ def main():
                          "no result")
     seg = phase_kernel_vs_plain(dev)
     sp = phase_spmv_vs_plain(dev)
-    hb, spawn, slot = phase_spawn_vs_plain(dev)
+    spawn, slot = phase_spawn_vs_plain(dev)
     seq = phase_seq_init_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
-    hb["kernel_us"] = kernel_us["hb_select walk_heg14"]
     spawn["kernel_us"] = kernel_us["hb_spawn c2_f32_pack"]
     slot["kernel_us"] = kernel_us["slot_parents walk"]
     seq["kernel_us"] = kernel_us["seq_init merge_f32"]
@@ -4210,8 +4059,6 @@ def main():
               "sqmc_tpu/ops/pscan.py:163", launches["seg_scan"], seg),
         entry("spmv", "sqmc_tpu_torch/csrc/spmv.cu",
               "sqmc_tpu/ops/spmv_pallas.py:83", launches["spmv"], sp),
-        entry("hb_select", "sqmc_tpu_torch/csrc/hbselect.cu",
-              "sqmc_tpu/ops/prefix.py:53", launches["hb_select"], hb),
         entry("hb_spawn", "sqmc_tpu_torch/csrc/hbselect.cu",
               "sqmc_tpu/algo/walk.py:1539", launches["hb_spawn"], spawn),
         entry("slot_parents", "sqmc_tpu_torch/csrc/slotpar.cu",

@@ -1827,8 +1827,7 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                 lambda s, mark: _walk_step_impl(s, tables, cfg, gen, mark),
                 state._replace(rng_state=None), gen, _TRACE_KEYS,
                 ("spawn_hist",),
-                counters=(segscan, spmv, hbselect, hbspawn, slotpar,
-                          seqinit),
+                counters=(segscan, spmv, hbspawn, slotpar, seqinit),
                 rows=max(nstep, 128), marks=N_MARKS)
         _GRAPH[key] = g
     return g

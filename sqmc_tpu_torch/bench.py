@@ -136,10 +136,9 @@ def system_and_trial(dev, workdir: str, eps_var: float, n_psi_t: int,
 
 
 def _launches():
-    from .ops import hbselect, hbspawn, segscan, slotpar, spmv
+    from .ops import hbspawn, segscan, slotpar, spmv
     return {"seg_scan": segscan.launches, "spmv": spmv.launches,
-            "hb_select": hbselect.launches, "hb_spawn": hbspawn.launches,
-            "slot_parents": slotpar.launches}
+            "hb_spawn": hbspawn.launches, "slot_parents": slotpar.launches}
 
 
 def spawn_weight_below(hist) -> float:

@@ -26,8 +26,8 @@ with every run type of algo/densewalk.py.  The legacy CI run types
 correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
-launch counts (``Kernel launches: seg_scan=... spmv=... hb_select=...
-hb_spawn=... slot_parents=... seq_init=...``); a walk prints, before it, its last
+launch counts (``Kernel launches: seg_scan=... spmv=... hb_spawn=...
+slot_parents=... seq_init=...``); a walk prints, before it, its last
 block's device time a generation by piece (``Generation pieces ...``,
 algo/walk.py block_report).  ``--profile DIR`` writes a torch.profiler
 Chrome trace in which the program's spans (utils/timers: walk.block,
@@ -472,9 +472,9 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
 
 def main(argv=None):
     import torch
-    from .ops import hbselect, hbspawn, segscan, seqinit, slotpar, spmv
-    kernels = dict(seg_scan=segscan, spmv=spmv, hb_select=hbselect,
-                   hb_spawn=hbspawn, slot_parents=slotpar, seq_init=seqinit)
+    from .ops import hbspawn, segscan, seqinit, slotpar, spmv
+    kernels = dict(seg_scan=segscan, spmv=spmv, hb_spawn=hbspawn,
+                   slot_parents=slotpar, seq_init=seqinit)
 
     p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
     p.add_argument("-i", "--input", required=True)

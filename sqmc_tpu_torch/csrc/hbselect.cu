@@ -1,7 +1,9 @@
-// Heat-bath pair (and single) selection of the walk's spawn slots, for
-// Hopper (sm_90a), in one launch.
+// The heat-bath proposal of the walk's spawn slots (K3b), for Hopper
+// (sm_90a), in one launch: the pair (and single) selection described
+// here, then each slot's spawn (the K3b section below).  The selection
+// runs on the card only inside K3b.
 //
-// Replaces the selection rows of the JAX generation
+// The selection replaces the selection rows of the JAX generation
 // (sqmc_tpu/algo/walk.py:1539-1631): row cumsums built on
 // sqmc_tpu/ops/prefix.py:53 `cumsum_rows`, a [*, K] x [K, K] triangular
 // matmul on the TPU's MXU, then count-<=-target row compares and the
@@ -42,12 +44,9 @@
 // in 1e7 draws with a spawn weight ~1e7 times the normal one.)  Integer
 // inputs make every sum exact, so they give the plain version's bits.
 //
-// What bounds it: bytes.  Per slot the kernel reads the parent's det
-// words (16 B at one word a spin) and two float64 uniforms (16 B) and
-// writes two int64 and four float32 (32 B; singles add 16 B): at the walk's
-// CAP = 262,144 slots 16.8 MB, 5.0 us at the H100's 3.35 TB/s.  Its float32
-// work at HEG-14's 14 electrons (2n = 38) is ne^2 = 196 adds for mu and
-// ~6 ne for the sums a slot, ~7e7 in all: 1.1 us at the card's 67 TFLOP/s.
+// The selection's float32 work at HEG-14's 14 electrons (2n = 38) is
+// ne^2 = 196 adds for mu and ~6 ne for the sums a slot, ~7e7 in all at
+// 262,144 slots: 1.1 us at the card's 67 TFLOP/s.
 //
 // Design: one thread per slot, no shared-memory scratch, no warp
 // collectives.  The first version gave a slot 8 lanes and kept its rows
@@ -99,12 +98,6 @@
 // All float32 on the CUDA cores: no tensor cores, no TF32.  Each output
 // has one writer.  The grid is one wave of resident blocks, each looping
 // over slots.
-//
-// Measured (chip_smoke.py phase 2d, bench_walk.py, NVIDIA H100 80GB HBM3,
-// 700 W): 33 us at the walk shape, 26 us at 2n = 52 with singles, against
-// 115 and 129 us for the 8-lane kernel; ~39 us a generation inside the
-// HEG-14 walk, against 163.  Still 6-7x the bytes bound: the limit is
-// instruction issue and shared-memory reads of R2 at one slot a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,7 +109,7 @@ namespace {
 
 constexpr int THREADS = 256;                  // slots (threads) a block
 constexpr int MINBLOCKS = 3;                  // resident blocks ptxas plans for
-                                              // (K3 and K3b: 85 registers)
+                                              // (K3b: 85 registers)
 constexpr int REG_NE = 16;                    // electrons the register path takes
 constexpr int WIDE_MINBLOCKS = 2;             // the same for K3b's wide kernel
 constexpr int LANE_COLS = 4;                  // a lane's mu entries of a wide
@@ -138,20 +131,6 @@ struct SelIn {
   int n_words, norb, n2;
   int st;                                     // R2's row stride as read
   int wide;                                   // electrons a wide slot holds
-};
-
-// K3's launch: the selection and where it is written.
-struct Args {
-  SelIn in;
-  long long* o1;
-  long long* o2;
-  long long* o_s;
-  float* m_tot;
-  float* s1q;
-  float* s2q;
-  float* p_pair;
-  float* utot;
-  float* c_s;
 };
 
 // A slot's det: NW > 0 holds up to NW words a spin in registers (words
@@ -446,8 +425,7 @@ __device__ __forceinline__ float* stage_tables(const SelIn& p, float* sm) {
 // Every slot of the launch with its selection: after the preamble each
 // thread takes its slots and calls each(slot, sel).  NW = 1: one word a
 // spin, dets of up to REG_NE electrons on the register path; NW = 0: any
-// det, mu recomputed in each pass.  K3 writes the selection; K3b goes on
-// to the spawn.
+// det, mu recomputed in each pass.  K3b goes on to the spawn.
 template <int NW, bool SMEM_R2, typename Each>
 __device__ __forceinline__ void for_each_selection(const SelIn& p, Each each) {
   extern __shared__ float sm[];
@@ -636,23 +614,6 @@ __device__ __forceinline__ void for_each_wide_selection(const SelIn& p,
   }
 }
 
-template <int NW, bool SMEM_R2>
-__global__ void __launch_bounds__(THREADS, MINBLOCKS) k_hb_select(Args p) {
-  for_each_selection<NW, SMEM_R2>(p.in, [&](long long slot, const Sel& r) {
-    p.o1[slot] = r.o1;
-    p.o2[slot] = r.o2;
-    p.m_tot[slot] = r.m_tot;
-    p.s1q[slot] = r.s1q;
-    p.s2q[slot] = r.s2q;
-    p.p_pair[slot] = r.p_pair;
-    if (p.in.u_rowsum != nullptr) {
-      p.o_s[slot] = r.o_s;
-      p.utot[slot] = r.utot;
-      p.c_s[slot] = r.c_s;
-    }
-  });
-}
-
 // ---------------------------------------------------------------------------
 // K3b, the heat-bath proposal of each slot (sqmc_hb_spawn)
 // ---------------------------------------------------------------------------
@@ -695,13 +656,13 @@ __global__ void __launch_bounds__(THREADS, MINBLOCKS) k_hb_select(Args p) {
 // and up to ne + 2 cells of its singles row besides.  The table reads are
 // scattered but small: the tables live in L2.  Measured (the benchmark's
 // traced runs, NVIDIA H100 80GB HBM3, 700 W): 64.5 us a generation at
-// c2.walk's 262,144 slots, 7.3x that bound, against K3's 39 us alone;
-// latency and instruction throughput, as for K3, not bytes.  Past the
-// register path the wide kernel's mu bounds it: ne^2 = 2,916 shared-memory
-// reads of R2 a drawn slot, 5.7e9 at heg54.walk's 1.95M, ~0.8 ms at the
-// card's ~30 TB/s of shared memory (132 SMs x 128 B a clock); measured
-// 4.2-4.3 ms a generation there (5,242,880 slots), against 19.45 for the
-// pass-by-pass sums and a bytes bound of ~24 us.
+// c2.walk's 262,144 slots, 7.3x that bound: latency and instruction
+// throughput, not bytes.  Past the register path the wide kernel's mu
+// bounds it: ne^2 = 2,916 shared-memory reads of R2 a drawn slot, 5.7e9
+// at heg54.walk's 1.95M, ~0.8 ms at the card's ~30 TB/s of shared memory
+// (132 SMs x 128 B a clock); measured 4.2-4.3 ms a generation there
+// (5,242,880 slots), against 19.45 for the pass-by-pass sums and a bytes
+// bound of ~24 us.
 
 enum SinglesSource { NO_SINGLES = 0, PACK = 1, ROWS = 2 };
 
@@ -1028,12 +989,6 @@ int opt_in_bytes(int dev) {
 // function for any det.  K3b is built for the state's precision with the
 // singles rows it has: float32 with sng_pack or none, float64 with the
 // float64 rows or none (nullptr: no such kernel).
-const void* kernel_of(int n_words, bool smem_r2) {
-  if (n_words == 1 && smem_r2) return (const void*)k_hb_select<1, true>;
-  return smem_r2 ? (const void*)k_hb_select<0, true>
-                 : (const void*)k_hb_select<0, false>;
-}
-
 template <int NW, bool SM>
 const void* spawn_variant(bool f64, int src) {
   if (!f64)
@@ -1064,20 +1019,19 @@ const void* wide_kernel_of(int n_words, bool smem_r2, bool f64, int src) {
                            : nullptr;
 }
 
-// kind 0: K3; 1 + 3 f64 + src: K3b; 7 + 3 f64 + src: K3b's wide kernel
-constexpr int KINDS = 13;
+// kind 3 f64 + src: K3b; 6 + 3 f64 + src: K3b's wide kernel
+constexpr int KINDS = 12;
 
 const void* function_of(int kind, int n_words, bool smem_r2) {
-  if (kind == 0) return kernel_of(n_words, smem_r2);
-  if (kind >= 7)
-    return wide_kernel_of(n_words, smem_r2, (kind - 7) / 3 == 1,
-                          (kind - 7) % 3);
-  return spawn_kernel_of(n_words, smem_r2, (kind - 1) / 3 == 1, (kind - 1) % 3);
+  if (kind >= 6)
+    return wide_kernel_of(n_words, smem_r2, (kind - 6) / 3 == 1,
+                          (kind - 6) % 3);
+  return spawn_kernel_of(n_words, smem_r2, kind / 3 == 1, kind % 3);
 }
 
 // K3b's kind: wide > 0 takes the wide kernel
 int spawn_kind(int wide, int f64, int src) {
-  return (wide > 0 ? 7 : 1) + 3 * (f64 != 0) + src;
+  return (wide > 0 ? 6 : 0) + 3 * (f64 != 0) + src;
 }
 
 struct Plan {
@@ -1097,14 +1051,14 @@ Plan g_plans[MAX_DEVICES][KINDS];
 bool g_planned[MAX_DEVICES][KINDS];
 std::mutex g_plan_lock;
 
-// wide: the electrons the wide kernel's scratch holds a slot (kinds 7-12:
+// wide: the electrons the wide kernel's scratch holds a slot (kinds 6-11:
 // REG_NE < wide < 2 norb, one word a spin; else 0)
 int plan_launch(int kind, long long cap, int n_words, int norb, int wide,
                 Plan* pl) {
   if (cap <= 0 || norb <= 0 || n_words * 64 < norb || kind < 0 ||
       kind >= KINDS)
     return (int)cudaErrorInvalidValue;
-  if ((kind >= 7) != (wide > 0) ||
+  if ((kind >= 6) != (wide > 0) ||
       (wide > 0 && (wide <= REG_NE || wide >= 2 * norb)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -1122,7 +1076,7 @@ int plan_launch(int kind, long long cap, int n_words, int norb, int wide,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const long long n2 = 2LL * norb, odd = n2 + 1;
-  const long long scratch = kind >= 7 ? 4LL * (THREADS / 32) * wide * PAD : 0;
+  const long long scratch = kind >= 6 ? 4LL * (THREADS / 32) * wide * PAD : 0;
   pl->cap = cap;
   pl->n_words = n_words;
   pl->norb = norb;
@@ -1152,8 +1106,8 @@ int plan_launch(int kind, long long cap, int n_words, int norb, int wide,
 // out[0] blocks, out[1] threads a block, out[2] dynamic shared bytes a
 // block, out[3] resident blocks per SM, out[4] 1 if R2 is in shared
 // memory, out[5] registers a thread, out[6] local (spilled) bytes a
-// thread, out[7] the electrons the register path takes (0: none), and for
-// K3b out[8] the electrons the wide kernel's scratch holds (0: none; with
+// thread, out[7] the electrons the register path takes (0: none), out[8]
+// the electrons the wide kernel's scratch holds (0: none; with
 // out[7] 0 as well, every det recomputes mu in each pass).
 int shape_of(int kind, long long cap, int n_words, int norb, int wide,
              long long* out) {
@@ -1171,7 +1125,7 @@ int shape_of(int kind, long long cap, int n_words, int norb, int wide,
   out[5] = attr.numRegs;
   out[6] = (long long)attr.localSizeBytes;
   out[7] = n_words == 1 && pl.smem_r2 && pl.wide == 0 ? REG_NE : 0;
-  if (kind != 0) out[8] = pl.wide;
+  out[8] = pl.wide;
   return 0;
 }
 
@@ -1205,12 +1159,6 @@ extern "C" int sqmc_hb_select_init() {
   return 0;
 }
 
-// K3's launch for these shapes (see shape_of).
-extern "C" int sqmc_hb_select_shape(long long cap, int n_words, int norb,
-                                    long long* out) {
-  return shape_of(0, cap, n_words, norb, 0, out);
-}
-
 // K3b's launch for these shapes (out: 9 entries), f64 state or not,
 // singles source src, wide as sqmc_hb_spawn's.
 extern "C" int sqmc_hb_spawn_shape(long long cap, int n_words, int norb,
@@ -1218,45 +1166,6 @@ extern "C" int sqmc_hb_spawn_shape(long long cap, int n_words, int norb,
                                    long long* out) {
   if (src < 0 || src > 2) return (int)cudaErrorInvalidValue;
   return shape_of(spawn_kind(wide, f64, src), cap, n_words, norb, wide, out);
-}
-
-// up, dn: [cap, n_words] int64 det words; r2: [2 norb, 2 norb] float32;
-// u_rowsum: [norb] float64 or null (no singles: o_s, utot and c_s are not
-// written); u_pick, u_entry: [cap] float64; o1, o2, o_s: [cap] int64;
-// m_tot, s1q, s2q, p_pair, utot, c_s: [cap] float32.
-extern "C" int sqmc_hb_select(long long cap, int n_words, int norb,
-                              const void* up, const void* dn, const void* r2,
-                              const void* u_rowsum, const void* u_pick,
-                              const void* u_entry, void* o1, void* o2,
-                              void* o_s, void* m_tot, void* s1q, void* s2q,
-                              void* p_pair, void* utot, void* c_s,
-                              void* stream) {
-  Plan pl;
-  int e = plan_launch(0, cap, n_words, norb, 0, &pl);
-  if (e != 0) return e;
-  Args a;
-  a.in.up = static_cast<const unsigned long long*>(up);
-  a.in.dn = static_cast<const unsigned long long*>(dn);
-  a.in.r2 = static_cast<const float*>(r2);
-  a.in.u_rowsum = static_cast<const double*>(u_rowsum);
-  a.in.u_pick = static_cast<const double*>(u_pick);
-  a.in.u_entry = static_cast<const double*>(u_entry);
-  a.in.cap = cap;
-  a.in.n_words = n_words;
-  a.in.norb = norb;
-  a.in.n2 = 2 * norb;
-  a.in.st = pl.st;
-  a.in.wide = 0;
-  a.o1 = static_cast<long long*>(o1);
-  a.o2 = static_cast<long long*>(o2);
-  a.o_s = static_cast<long long*>(o_s);
-  a.m_tot = static_cast<float*>(m_tot);
-  a.s1q = static_cast<float*>(s1q);
-  a.s2q = static_cast<float*>(s2q);
-  a.p_pair = static_cast<float*>(p_pair);
-  a.utot = static_cast<float*>(utot);
-  a.c_s = static_cast<float*>(c_s);
-  return launch(pl, &a, stream);
 }
 
 // K3b.  wide: 0, or the walk's electrons a det when they pass REG_NE at

@@ -42,7 +42,7 @@
 // 7.2 us for torch.searchsorted; still 3.5x the bytes bound, a chain of
 // dependent memory round trips (the block's search, its window, its
 // writes).  Inside the HEG-14 walk, whose walkers are mostly childless,
-// it is slower than the binary search (bench_walk.py; PERF.md).
+// it is slower than the binary search (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

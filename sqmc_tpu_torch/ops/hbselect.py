@@ -1,6 +1,7 @@
-"""Heat-bath pair (and single) selection of the walk's spawn slots: plain
-PyTorch version and the wrapper around the hand CUDA kernel
-(csrc/hbselect.cu).
+"""Heat-bath pair (and single) selection of the walk's spawn slots, in
+plain PyTorch.  The card runs this selection only inside the heat-bath
+proposal kernel K3b (ops/hbspawn.py, csrc/hbselect.cu); here it serves
+hbspawn's plain version.
 
 Port of the selection rows of sqmc_tpu/algo/walk.py:1539-1631 (its row
 cumsums are sqmc_tpu/ops/prefix.py `cumsum_rows`, triangular matmuls on
@@ -25,33 +26,18 @@ against (the exact S/diff correction of the spawn weight).
 The uniform and Cauchy-Schwarz proposals draw from rows built here too
 (:func:`singles_rows`, and the walk's pair rows), by :func:`flat_cumsum`:
 plain torch, flat over zero weights by construction on any device.
-
-:func:`hb_select` dispatches on the device of ``up_w``: a CPU tensor takes
-:func:`hb_select_plain`; a CUDA tensor launches the kernel (built from the
-source on first use, ops/cudabuild.py) or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import dets
-from . import cudabuild
 
-F32, F64, I64 = torch.float32, torch.float64, torch.int64
+F32 = torch.float32
 TINY = 1e-30
-_SOURCE = "hbselect.cu"
-_PREFIX = "sqmc_hb_select"
-
-launches = 0                         # kernel launches since reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
 
 
 class Selection(NamedTuple):
@@ -65,10 +51,6 @@ class Selection(NamedTuple):
     utot: Optional[torch.Tensor]     # [CAP] f32 total of the singles row
     c_s: Optional[torch.Tensor]      # [CAP] f32 realized singles cell
 
-
-# ---------------------------------------------------------------------------
-# Plain version
-# ---------------------------------------------------------------------------
 
 def count_le(rows: torch.Tensor, targ: torch.Tensor, top: int) -> torch.Tensor:
     """Index drawn from a cumulative row: #entries <= target, capped."""
@@ -119,10 +101,18 @@ def singles_rows(bits2: torch.Tensor, u_rowsum: torch.Tensor,
 
 def hb_select_plain(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
                     u_entry) -> Selection:
-    """The selection with torch row cumsums (hierarchical pair selection:
-    spin-orbital a ~ m_a = sum_occ R2[a, q], then b | a ~ R2[a, b] over
-    occupied b; the realized unordered-pair probability is the two-path
-    sum of realized cumulative cells)."""
+    """Heat-bath selection for every spawn slot, with torch row cumsums
+    (hierarchical pair selection: spin-orbital a ~ m_a = sum_occ R2[a, q],
+    then b | a ~ R2[a, b] over occupied b; the realized unordered-pair
+    probability is the two-path sum of realized cumulative cells).
+
+    up_w, dn_w: [CAP, W] int64 parent det words; R2: [2 norb, 2 norb]
+    float32 pair rowsums (>= 0); u_rowsum: [norb] float64 singles rowsums,
+    or None without singles (then o_s, utot and c_s are None); u_pick,
+    u_entry: [CAP] float64 uniforms.  K3b adds each running sum in
+    spin-orbital order and each mu in ascending q (csrc/hbselect.cu), this
+    version with torch.cumsum and a matmul: integer-valued inputs give the
+    same bits on both, others agree to float32 rounding."""
     bits2 = torch.cat([dets.to_bits(up_w, norb), dets.to_bits(dn_w, norb)],
                       dim=1).to(F32)                         # [CAP, 2n]
     n2 = 2 * norb
@@ -142,127 +132,3 @@ def hb_select_plain(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
                 + sel_cell(mu_rows, o2) * sel_cell(r2_rows, o1) / s2q.clamp(min=TINY)
                 ) / m_tot.clamp(min=TINY)
     return Selection(o1, o2, m_tot, s1q, s2q, p_pair_q, o_s, utot, c_s)
-
-
-# ---------------------------------------------------------------------------
-# The CUDA kernel: build, load, launch
-# ---------------------------------------------------------------------------
-
-def _bind(lib):
-    """Declares the library's entries: K3's and K3b's (ops/hbspawn.py)."""
-    fn = lib.sqmc_hb_select
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 16)
-    shape = lib.sqmc_hb_select_shape
-    shape.restype = ctypes.c_int
-    shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p]
-    fn = lib.sqmc_hb_spawn
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    shape = lib.sqmc_hb_spawn_shape
-    shape.restype = ctypes.c_int
-    shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p]
-
-
-def build():
-    """Compile csrc/hbselect.cu (see ops/cudabuild.py); returns the path."""
-    return cudabuild.build(_SOURCE)
-
-
-def launch_shape(cap: int, n_words: int, norb: int, device) -> dict:
-    """How the kernel launches for these shapes on ``device`` (a card):
-    blocks, threads a block, dynamic shared bytes a block, resident blocks
-    per SM, whether R2 sits in shared memory, registers and spilled bytes
-    a thread, and the electrons up to which a det takes the register path
-    (``reg_ne``; 0: every det recomputes mu in each pass)."""
-    dev = torch.device(device)
-    out = (ctypes.c_longlong * 8)()
-    with torch.cuda.device(dev):
-        lib = cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
-        err = lib.sqmc_hb_select_shape(cap, n_words, norb,
-                                       ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError("hb_select launch shape: "
-                           + cudabuild.error_string(lib, _PREFIX, err))
-    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "r2_in_smem",
-            "registers", "spill_bytes", "reg_ne")
-    return dict(zip(keys, list(out)))
-
-
-def hb_select_cuda(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
-                   u_entry) -> Selection:
-    """Launch the kernel on CUDA tensors (checks everything it is handed)."""
-    global launches
-    dev = up_w.device
-    CAP, W = up_w.shape
-    n2 = 2 * norb
-    if up_w.dtype != I64 or dn_w.dtype != I64 or dn_w.shape != up_w.shape \
-            or dn_w.device != dev:
-        raise ValueError("up_w, dn_w must be [CAP, W] int64 on one device")
-    if W * 64 < norb:
-        raise ValueError(f"{W} words cannot hold {norb} orbitals")
-    if R2.dtype != F32 or R2.shape != (n2, n2) or R2.device != dev:
-        raise ValueError("R2 must be [2 norb, 2 norb] float32 on the device")
-    for u in (u_pick, u_entry):
-        if u.dtype != F64 or u.shape != (CAP,) or u.device != dev:
-            raise ValueError("u_pick, u_entry must be [CAP] float64")
-    singles = u_rowsum is not None
-    if singles and (u_rowsum.dtype != F64 or u_rowsum.shape != (norb,)
-                    or u_rowsum.device != dev):
-        raise ValueError("u_rowsum must be [norb] float64 on the device")
-    up_w, dn_w = up_w.contiguous(), dn_w.contiguous()
-    u_pick, u_entry = u_pick.contiguous(), u_entry.contiguous()
-    R2 = R2.contiguous()
-    o1, o2 = (torch.empty(CAP, dtype=I64, device=dev) for _ in range(2))
-    m_tot, s1q, s2q, p_pair_q = (torch.empty(CAP, dtype=F32, device=dev)
-                                 for _ in range(4))
-    o_s = utot = c_s = None
-    if singles:
-        u_rowsum = u_rowsum.contiguous()
-        o_s = torch.empty(CAP, dtype=I64, device=dev)
-        utot, c_s = (torch.empty(CAP, dtype=F32, device=dev) for _ in range(2))
-    out = Selection(o1, o2, m_tot, s1q, s2q, p_pair_q, o_s, utot, c_s)
-    if CAP == 0:
-        return out
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        lib = cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
-        err = lib.sqmc_hb_select(
-            CAP, W, norb, up_w.data_ptr(), dn_w.data_ptr(), R2.data_ptr(),
-            ptr(u_rowsum), u_pick.data_ptr(), u_entry.data_ptr(),
-            o1.data_ptr(), o2.data_ptr(), ptr(o_s), m_tot.data_ptr(),
-            s1q.data_ptr(), s2q.data_ptr(), p_pair_q.data_ptr(), ptr(utot),
-            ptr(c_s), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("hb_select kernel launch failed: "
-                           + cudabuild.error_string(lib, _PREFIX, err))
-    launches += 1
-    return out
-
-
-def hb_select(up_w, dn_w, norb: int, R2, u_rowsum, u_pick,
-              u_entry) -> Selection:
-    """Heat-bath selection for every spawn slot.
-
-    up_w, dn_w: [CAP, W] int64 parent det words; R2: [2 norb, 2 norb]
-    float32 pair rowsums (>= 0); u_rowsum: [norb] float64 singles rowsums,
-    or None without singles (then o_s, utot and c_s are None); u_pick,
-    u_entry: [CAP] float64 uniforms.  The kernel adds each running sum in
-    spin-orbital order and each mu in ascending q (csrc/hbselect.cu), the
-    plain version with torch.cumsum and a matmul: integer-valued inputs
-    give the same bits on both paths, others agree to float32 rounding."""
-    if up_w.device.type == "cpu":
-        return hb_select_plain(up_w, dn_w, norb, R2, u_rowsum, u_pick, u_entry)
-    if up_w.device.type != "cuda":
-        raise ValueError(f"hb_select has no path for device {up_w.device}")
-    return hb_select_cuda(up_w, dn_w, norb, R2, u_rowsum, u_pick, u_entry)

@@ -1,6 +1,6 @@
 """The heat-bath proposal of the walk's spawn slots (K3b): plain PyTorch
 version and the wrapper around the hand CUDA kernel (csrc/hbselect.cu,
-entry ``sqmc_hb_spawn``, which runs K3's selection code and goes on).
+entry ``sqmc_hb_spawn``: the selection, then the rest of each slot).
 
 Port of the fast_heatbath branch of the JAX generation's proposal
 (sqmc_tpu/algo/walk.py:1539-1700, :1812-1871).  For each spawn slot's
@@ -8,7 +8,8 @@ parent det (``up_w``, ``dn_w``, [CAP, W] int64) and its five uniforms
 ``streams`` = (ub, up_, ue, ua2, ur), with ``tau`` the walk's 0-d float64
 tau:
 
-  * the heat-bath selection (ops/hbselect.py): the pair of occupied
+  * the heat-bath selection (ops/hbselect.py's plain version; the
+    kernel's own loop on the card): the pair of occupied
     spin-orbitals (o1, o2) from up_ and ue, and with singles the occupied
     spin-orbital o_s from up_;
   * p_single = utot / (utot + m_tot / 2); the slot takes a single when
@@ -39,9 +40,10 @@ none without singles, and with singles sng_pack under a float32 state or
 the float64 singles rows (``table.sing_dir``) under a float64 state, the
 two that algo/walk.py's build_walk_tables makes.  The kernel mirrors the
 plain version's op order and type promotion, so the words, the flags and
-a double's factor are the plain version's bits on the same inputs (with
-the same selection, K3 on the card); a single's element differs only by
-the order of its two row sums over the orbitals.
+a double's factor are the plain version's bits on the same inputs where
+both selections give the same bits (tables whose sums are exact in any
+order); a single's element differs only by the order of its two row sums
+over the orbitals.
 
 :func:`excite_double` and :func:`propose_single` are the plain version's
 double and single after their draws; the uniform and Cauchy-Schwarz
@@ -62,6 +64,8 @@ from . import cudabuild, hbselect
 F32, F64, I32, I64 = torch.float32, torch.float64, torch.int32, torch.int64
 TINY = 1e-30
 NO_SINGLES, PACK, ROWS = 0, 1, 2     # the kernel's singles sources
+_SOURCE = "hbselect.cu"
+_PREFIX = "sqmc_hb_select"           # the library's init / error entries
 
 REG_NE = 16                          # electrons K3b's register path takes
 launches = 0                         # kernel launches since reset_launches()
@@ -192,8 +196,8 @@ def propose_single(tables, norb: int, up_w, dn_w, o_s, utot_b, diff_sng,
 
 def propose_plain(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
                   streams):
-    """The heat-bath proposal with torch ops (the selection through
-    hbselect.hb_select: K3 on the card, its plain version on the CPU)."""
+    """The heat-bath proposal with torch ops (the selection is
+    hbselect.hb_select_plain)."""
     CAP = up_w.shape[0]
     dev = up_w.device
     ub, up_, ue, ua2, ur = streams
@@ -203,8 +207,9 @@ def propose_plain(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
     # spin-orbital a ~ m_a = sum_occ R2[a, q], then b | a ~ R2[a, b] over
     # occupied b; the realized unordered-pair probability is the two-path
     # sum of realized cumulative cells
-    sel = hbselect.hb_select(up_w, dn_w, norb, tables.R2,
-                             tables.u_rowsum if singles else None, up_, ue)
+    sel = hbselect.hb_select_plain(up_w, dn_w, norb, tables.R2,
+                                   tables.u_rowsum if singles else None, up_,
+                                   ue)
     m_tot = sel.m_tot
     w2_b = (0.5 * m_tot).to(wdt)
     utot_b = sel.utot.to(wdt) if singles else \
@@ -287,17 +292,40 @@ def singles_source(tables, singles: bool, wdt):
                      "table.sing_dir under a float64 one")
 
 
+def _bind(lib):
+    """Declares the library's two entries."""
+    fn = lib.sqmc_hb_spawn
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    shape = lib.sqmc_hb_spawn_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+
+
+def build():
+    """Compile csrc/hbselect.cu (see ops/cudabuild.py); returns the path."""
+    return cudabuild.build(_SOURCE)
+
+
 def _load(dev):
-    return cudabuild.load(hbselect._SOURCE, hbselect._PREFIX, hbselect._bind,
-                          dev.index)
+    return cudabuild.load(_SOURCE, _PREFIX, _bind, dev.index)
 
 
 def launch_shape(cap: int, n_words: int, norb: int, ne: int, f64: bool,
                  src: int, device) -> dict:
     """How the kernel launches for these shapes (ne: the walk's electrons
-    a det) on ``device`` (a card): the keys of hbselect.launch_shape, and
-    ``wide_ne``, the electrons a slot of the wide kernel holds (0: not
-    the wide kernel)."""
+    a det) on ``device`` (a card): blocks, threads a block, dynamic shared
+    bytes a block, resident blocks per SM, whether R2 sits in shared
+    memory, registers and spilled bytes a thread, the electrons up to
+    which a det takes the register path (``reg_ne``; 0: none) and
+    ``wide_ne``, the electrons a slot of the wide kernel holds (0: not the
+    wide kernel; with ``reg_ne`` 0 as well, every det recomputes mu in each
+    pass)."""
     dev = torch.device(device)
     out = (ctypes.c_longlong * 9)()
     wide = wide_ne(n_words, norb, ne)
@@ -307,7 +335,7 @@ def launch_shape(cap: int, n_words: int, norb: int, ne: int, f64: bool,
                                       ctypes.addressof(out))
     if err != 0:
         raise RuntimeError("hb_spawn launch shape: "
-                           + cudabuild.error_string(lib, hbselect._PREFIX, err))
+                           + cudabuild.error_string(lib, _PREFIX, err))
     keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "r2_in_smem",
             "registers", "spill_bytes", "reg_ne", "wide_ne")
     return dict(zip(keys, list(out)))
@@ -380,7 +408,7 @@ def propose_cuda(tables, up_w, dn_w, norb: int, singles: bool, tau, wdt,
                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("hb_spawn kernel launch failed: "
-                           + cudabuild.error_string(lib, hbselect._PREFIX, err))
+                           + cudabuild.error_string(lib, _PREFIX, err))
     launches += 1
     wide_launches += wide > 0
     return outs

@@ -7,8 +7,9 @@ at the shapes the kernel is built for (the C2 walk's: 26 orbitals,
 4 + 4, singles from sng_pack, float32; HEG-14's without singles; C2 in
 float64 with the float64 singles rows; a two-word det; the 17-, 38- and
 54-electron gases, past its 16-electron register path, the last also
-laid out as a generation hands over its slots), on tables whose
-sums are exact in any order, and through whole generations of the
+laid out as a generation hands over its slots; tables made from a seed
+two words a spin wide with 248 spin-orbitals), on tables whose sums are
+exact in any order, and through whole generations of the
 time-symmetrized C2 walk (z = +1 and -1: the proposal's outputs go
 through the time-symmetrized mapping, the merge and the finalize).
 tests/test_torch_cuda.py holds the kernel to the same emulation on the
@@ -85,6 +86,22 @@ def test_hb_spawn_emulation_is_plain_bitwise(case, tmp_path):
     if cfg.has_singles:                            # both kinds are drawn
         moved = ((plain[0] != args[1]).sum(1) + (plain[1] != args[2]).sum(1))
         assert int((ok & (moved > 0)).sum()) > CAP // 10
+
+
+@pytest.mark.parametrize("case", list(se.SYNTHETIC_CASES))
+def test_hb_spawn_emulation_is_plain_bitwise_on_synthetic_tables(case):
+    """The same on tables made from a seed (synthetic_tables, exact-sum)
+    at a shape no system here builds: two words a spin and 248
+    spin-orbitals, whose R2 the card reads through L1 / L2.  The card
+    tests run the kernel on these inputs; here the emulation and the plain
+    version agree bit for bit, and more than one slot in 50 takes a
+    single (compare_with_plain's floor)."""
+    args, _ = se.spawn_inputs(case, "cpu", None, CAP, seed=11, exact=True)
+    assert args[1].shape[1] == 2 and 2 * args[3] >= 240
+    plain = hbspawn.propose_plain(*args)
+    _same_bits(_emulated(*args), plain)
+    se.compare_with_plain(args, plain, plain)
+    assert 0.2 < float(plain[3].double().mean()) < 0.99
 
 
 @pytest.mark.parametrize("z", [1, -1])

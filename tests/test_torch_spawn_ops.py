@@ -1,10 +1,11 @@
 """The walk's two spawn ops of the port against the JAX package's own
 arithmetic, on the CPU: the heat-bath selection (sqmc_tpu_torch/ops/
-hbselect.py, whose kernel is csrc/hbselect.cu) and the slot -> parent
-expand (ops/slotpar.py, csrc/slotpar.cu).  On the CPU each op runs its
-plain version; tests/test_torch_cuda.py holds the kernels to these, and
-K3 bit for bit to the numpy emulation of its association
-(tests/torch_hb_emulation.py), which the tests here check against the
+hbselect.py, plain PyTorch; on the card it runs inside the kernel K3b,
+csrc/hbselect.cu) and the slot -> parent expand (ops/slotpar.py,
+csrc/slotpar.cu).  On the CPU each op runs its plain version;
+tests/test_torch_cuda.py holds the kernels to these, and K3b bit for bit
+to the numpy emulation of its association (tests/torch_hb_emulation.py,
+tests/torch_spawn_emulation.py), which the tests here check against the
 plain version and the JAX package.
 
 The JAX side is written out here from sqmc_tpu/algo/walk.py (the row
@@ -108,12 +109,12 @@ def _both(words_up, words_dn, norb, R2, u_rowsum, seed):
     up_, ue = rng.random(CAP), rng.random(CAP)
     bits2 = np.concatenate([_bits(words_up, norb), _bits(words_dn, norb)],
                            axis=1)
-    sel = hbselect.hb_select(torch.as_tensor(words_up),
-                             torch.as_tensor(words_dn), norb,
-                             torch.as_tensor(R2),
-                             None if u_rowsum is None
-                             else torch.as_tensor(u_rowsum),
-                             torch.as_tensor(up_), torch.as_tensor(ue))
+    sel = hbselect.hb_select_plain(torch.as_tensor(words_up),
+                                   torch.as_tensor(words_dn), norb,
+                                   torch.as_tensor(R2),
+                                   None if u_rowsum is None
+                                   else torch.as_tensor(u_rowsum),
+                                   torch.as_tensor(up_), torch.as_tensor(ue))
     port = {k: v.numpy() for k, v in sel._asdict().items() if v is not None}
     ref = {k: np.asarray(v) for k, v in _jax_rows(
         jnp.asarray(bits2), jnp.asarray(R2), jnp.asarray(up_),
@@ -201,8 +202,9 @@ def test_hb_select_heg14_r2_matches_jax(singles):
 
 
 # ---------------------------------------------------------------------------
-# The numpy emulation of K3's arithmetic (tests/torch_hb_emulation.py),
-# which tests/test_torch_cuda.py holds the kernel to bit for bit
+# The numpy emulation of the selection's arithmetic
+# (tests/torch_hb_emulation.py), which tests/test_torch_cuda.py holds K3b
+# to bit for bit (through tests/torch_spawn_emulation.py)
 # ---------------------------------------------------------------------------
 
 EMU_SHAPES = [(19, 7, 7, False), (26, 4, 4, True), (70, 6, 5, True)]
@@ -267,8 +269,8 @@ def test_emulated_target_on_a_sum_draws_an_occupied_spin_orbital(
 def test_emulation_integer_r2_matches_plain_and_jax_bitwise(norb, nup, ndn,
                                                             singles):
     """With integer R2 and u_rowsum every sum is exact, so the emulation
-    of K3's order, hb_select_plain and the JAX package's selection give
-    the same bits in every output."""
+    of the kernel's order, hb_select_plain and the JAX package's selection
+    give the same bits in every output."""
     rng, up, dn = _input(norb, nup, ndn, norb)
     n2 = 2 * norb
     R2 = rng.integers(0, 16, (n2, n2)).astype(np.float32)
@@ -294,7 +296,7 @@ def test_emulation_heg14_r2_agrees_with_plain_and_jax(singles):
     mu over the occupied q) against hb_select_plain (torch.cumsum, mu by
     a matmul) and the JAX package (triangular matmuls): the draws agree on
     >= 99.99% of slots and, there, the totals, cells and p_pair_q within
-    the tolerances of chip_smoke.py's _hb_compare."""
+    the tolerances of torch_hb_emulation.compare."""
     R2 = _heg14_r2()
     rng, up, dn = _input(19, 7, 7, 3)
     u_rowsum = rng.random(19) * 2.0 if singles else None
@@ -363,27 +365,23 @@ def test_slot_parents_matches_jax_bitwise(case):
 
 
 def test_spawn_ops_raise_on_other_devices():
-    """Only CPU tensors take the plain versions: a tensor on any device
-    other than the CPU or a card is refused."""
+    """Only CPU tensors take the plain version: a tensor on any device
+    other than the CPU or a card is refused (the heat-bath proposal's
+    refusal is test_torch_hbspawn.py's)."""
     meta = torch.device("meta")
     with pytest.raises(ValueError):
         slotpar.slot_parents(torch.zeros(4, dtype=torch.int64, device=meta), 8)
-    w = torch.zeros((4, 1), dtype=torch.int64, device=meta)
-    u = torch.zeros(4, dtype=torch.float64, device=meta)
-    with pytest.raises(ValueError):
-        hbselect.hb_select(w, w, 3, torch.zeros((6, 6), device=meta), None,
-                           u, u)
 
 
 def test_spawn_kernel_sources_have_no_atomics():
-    """Every output of K3, K3b (the heat-bath proposal, hbselect.cu's
-    second entry) and K4 has one writer: their sources use no atomic
-    operation, so two runs give the same bits."""
+    """Every output of K3b (the heat-bath proposal, hbselect.cu) and K4
+    has one writer: their sources use no atomic operation, so two runs
+    give the same bits."""
     import pathlib
 
     from sqmc_tpu_torch.ops import hbspawn
     csrc = pathlib.Path(slotpar.__file__).resolve().parent.parent / "csrc"
-    assert hbspawn.hbselect._SOURCE == "hbselect.cu"
+    assert hbspawn._SOURCE == "hbselect.cu"
     assert "sqmc_hb_spawn(" in (csrc / "hbselect.cu").read_text()
     for name in ("hbselect.cu", "slotpar.cu"):
         assert "atomic" not in (csrc / name).read_text().lower(), name

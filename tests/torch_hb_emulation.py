@@ -1,5 +1,6 @@
-"""numpy emulation of the arithmetic of the heat-bath selection kernel K3
-(sqmc_tpu_torch/csrc/hbselect.cu), and the inputs that test it.
+"""numpy emulation of the arithmetic of the heat-bath selection that the
+proposal kernel K3b runs (sqmc_tpu_torch/csrc/hbselect.cu), and the inputs
+that test it.
 
 The kernel adds every running sum in float32 as the sum before it plus
 the next spin-orbital's value, in ascending spin-orbital order (empty
@@ -9,10 +10,11 @@ sequential float32 sum over the occupied q in ascending order.  That is
 order) and the loop of :func:`emulate_hb_select`.  Draws, cells, targets
 and the p_pair quotients follow the plain version (ops/hbselect.py).
 
-tests/test_torch_cuda.py holds the kernel bit for bit to this emulation on
-the card; tests/test_torch_spawn_ops.py checks the emulation itself on the
-CPU (flat over empty spin-orbitals, a target on a sum draws an occupied
-spin-orbital, integer R2 equal to the plain version and the JAX package).
+tests/test_torch_cuda.py holds K3b bit for bit to this emulation (through
+tests/torch_spawn_emulation.py) on the card; tests/test_torch_spawn_ops.py
+checks the emulation itself on the CPU (flat over empty spin-orbitals, a
+target on a sum draws an occupied spin-orbital, integer R2 equal to the
+plain version and the JAX package).
 This module imports numpy only, so the card (no jax) can use it too.
 """
 
@@ -141,9 +143,9 @@ def below(u, tot):
 
 
 def compare(got, ref):
-    """Raise unless `got` meets the criteria of chip_smoke.py's
-    _hb_compare against `ref` (dicts of numpy outputs, float R2): the
-    draws agree on >= 99.99% of slots, and there the totals agree to 1e-5
+    """Raise unless `got` meets the criteria of two selections that
+    associate their float32 sums differently against `ref` (dicts of numpy
+    outputs, float R2): the draws agree on >= 99.99% of slots, and there the totals agree to 1e-5
     relative, the singles cell to 1e-6 of its row's total and p_pair_q to
     4e-6 + 3e-5 p.  Returns the share of slots whose draws agree."""
     same = (got["o1"] == ref["o1"]) & (got["o2"] == ref["o2"])

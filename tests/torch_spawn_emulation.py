@@ -2,8 +2,8 @@
 (sqmc_tpu_torch/csrc/hbselect.cu, entry sqmc_hb_spawn), and the inputs
 that test it.
 
-K3b runs K3's selection (tests/torch_hb_emulation.py emulates it) and then
-finishes each slot in the op order of the plain version
+K3b runs the heat-bath selection (tests/torch_hb_emulation.py emulates
+its sums) and then finishes each slot in the op order of the plain version
 (sqmc_tpu_torch/ops/hbspawn.py `propose_plain`), one IEEE rounding an op
 in the type torch promotes the operands to.  The one place where it adds
 in an order of its own is a single's element: the two sums over the
@@ -263,6 +263,13 @@ SPAWN_CASES = {
 HEG_SHAPES = {"heg14": (14, 7, 1.49), "heg17": (17, 9, 1.49),
               "heg38": (38, 19, 2.0), "heg54": (54, 27, 2.3)}
 
+# shapes whose tables are made from a seed (synthetic_tables), not built
+# from a system: name: (norb, up electrons, dn electrons).  norb124: two
+# words a spin and 2 norb = 248 spin-orbitals, whose R2 (at its odd row
+# stride, 247 KB) does not fit in the card's shared memory, so the kernel
+# reads it through L1 / L2
+SYNTHETIC_CASES = {"norb124_r2_in_l2": (124, 5, 5)}
+
 # cases laid out as a generation hands its slots over: the slots past a
 # spawn total that ends inside a warp are the all-bits sentinel, and the
 # 40 slots before it hold dets with every spin-orbital but one occupied
@@ -283,9 +290,50 @@ def lay_out(case, up, dn, norb):
 
 
 def electrons(case):
-    """The walk's electrons a det in a SPAWN_CASES shape."""
+    """The walk's electrons a det in a SPAWN_CASES or SYNTHETIC_CASES
+    shape."""
+    if case in SYNTHETIC_CASES:
+        return sum(SYNTHETIC_CASES[case][1:])
     kind = SPAWN_CASES[case][0]
     return HEG_SHAPES[kind][0] if kind in HEG_SHAPES else 8
+
+
+def synthetic_tables(rng, norb, device):
+    """Heat-bath tables of norb orbitals drawn from ``rng``, with singles
+    from sng_pack (a float32 state): a WalkTables whose fields the
+    heat-bath proposal does not read are None.  R2 exponential with a
+    zero diagonal; each of the norb^2 pair rows (same-spin pairs
+    first, then opposite-spin ones) 1-4 targets r * norb + s + 1 with a
+    random sign and alias cell (r < s in a same-spin row); the singles'
+    alias rows, row sums and U[p, r] positive, their integrals normal."""
+    import torch
+
+    from sqmc_tpu_torch.algo.walk import WalkTables
+    n2, nn = 2 * norb, norb * norb
+    R2 = rng.exponential(1.0, (n2, n2)).astype(F32)
+    np.fill_diagonal(R2, 0.0)
+    count = rng.integers(1, 5, nn)
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    n_cat = int(count.sum())
+    a = rng.integers(0, norb, n_cat)
+    b = (a + rng.integers(1, norb, n_cat)) % norb        # b != a
+    same = np.repeat(np.arange(nn) < norb * (norb - 1) // 2, count)
+    r = np.where(same, np.minimum(a, b), a)
+    s = np.where(same, np.maximum(a, b), rng.integers(0, norb, n_cat))
+    code = lambda: (rng.choice([-1.0, 1.0], n_cat)  # noqa: E731
+                    * (r * norb + s + 1)).astype(F32)
+    pack = rng.normal(0.0, 0.1, (nn, n2 + 2)).astype(F32)
+    pack[:, n2 + 1] = rng.uniform(0.1, 1.0, nn)
+    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    return WalkTables(*[None] * len(WalkTables._fields))._replace(
+        R2=t(R2), u_rowsum=t(rng.uniform(0.5, 2.0, norb)),
+        hb_alias_q=t(rng.random(n_cat).astype(F32)), hb_rs_own=t(code()),
+        hb_rs_partner=t(code()), hb_start=t(start.astype(I64)),
+        hb_count=t(count.astype(I64)),
+        hb_rowsum=t(rng.uniform(0.1, 1.0, nn).astype(F32)),
+        u_alias_q=t(rng.random(nn).astype(F32)),
+        u_alias_J=t(rng.integers(0, norb, nn)), sng_pack=t(pack),
+        u_table=t(np.zeros((0, 0))))
 
 
 def two_word_system(device, seed=7):
@@ -388,41 +436,51 @@ def exact_sum_tables(tables):
 # The kernel against its plain version (the card tests and chip_smoke.py)
 # ---------------------------------------------------------------------------
 
-def spawn_inputs(case, dev, workdir, cap, seed):
-    """The walk tables of a SPAWN_CASES shape on ``dev`` and (args of
-    hbspawn.propose, numpy slot inputs): cap slots, a third random dets
-    (empty ones and the all-bits sentinel among them), the rest the walk's
-    own dets."""
+def spawn_inputs(case, dev, workdir, cap, seed, exact=False):
+    """The walk tables of a SPAWN_CASES shape on ``dev`` (through
+    exact_sum_tables where ``exact``) and (args of hbspawn.propose, numpy
+    slot inputs): cap slots, a third random dets (empty ones and the
+    all-bits sentinel among them), the rest the walk's own dets.  A
+    SYNTHETIC_CASES shape: synthetic_tables and random dets alone, a
+    float32 state with singles, tau 1e-3."""
     import torch
-
-    from sqmc_tpu_torch.algo import walk as TW
-    s, trial, cfg = spawn_case(case, dev, workdir)
-    wdt = torch.float32 if cfg.f32_state else torch.float64
-    tables = TW.build_walk_tables(s, trial, cfg)
-    st = TW.init_walk_state(cfg, trial, 1e3, trial.e_trial, tables)
-    n = int(st.nwalk)
-    rng = np.random.default_rng(seed)
-    up, dn, streams = slot_inputs(rng, cap, s.norb, s.nup, s.ndn,
-                                  (st.up[:n].cpu().numpy(),
-                                   st.dn[:n].cpu().numpy()))
-    lay_out(case, up, dn, s.norb)
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    args = (tables, t(up), t(dn), s.norb, cfg.has_singles, st.tau, wdt,
+    rng = np.random.default_rng(seed)
+    if case in SYNTHETIC_CASES:
+        norb, nup, ndn = SYNTHETIC_CASES[case]
+        tables = synthetic_tables(rng, norb, dev)
+        up, dn, streams = slot_inputs(rng, cap, norb, nup, ndn)
+        singles, tau, wdt = True, t(np.float64(1e-3)), torch.float32
+    else:
+        from sqmc_tpu_torch.algo import walk as TW
+        s, trial, cfg = spawn_case(case, dev, workdir)
+        wdt = torch.float32 if cfg.f32_state else torch.float64
+        tables = TW.build_walk_tables(s, trial, cfg)
+        st = TW.init_walk_state(cfg, trial, 1e3, trial.e_trial, tables)
+        n = int(st.nwalk)
+        norb, singles, tau = s.norb, cfg.has_singles, st.tau
+        up, dn, streams = slot_inputs(rng, cap, norb, s.nup, s.ndn,
+                                      (st.up[:n].cpu().numpy(),
+                                       st.dn[:n].cpu().numpy()))
+        lay_out(case, up, dn, norb)
+    if exact:
+        tables = exact_sum_tables(tables)
+    args = (tables, t(up), t(dn), norb, singles, tau, wdt,
             [t(u) for u in streams])
     return args, (up, dn, streams)
 
 
 def singles_taken(args):
     """Which slots the proposal sends to a single: u_b < p_single, from
-    K3's selection, as the plain version computes it."""
+    the plain selection, as the plain version computes it."""
     import torch
 
     from sqmc_tpu_torch.ops import hbselect
     tables, up, dn, norb, singles, tau, wdt, streams = args
     if not singles:
         return torch.zeros(up.shape[0], dtype=torch.bool, device=up.device)
-    sel = hbselect.hb_select(up, dn, norb, tables.R2, tables.u_rowsum,
-                             streams[1], streams[2])
+    sel = hbselect.hb_select_plain(up, dn, norb, tables.R2,
+                                   tables.u_rowsum, streams[1], streams[2])
     ut, w2 = sel.utot.to(wdt), (0.5 * sel.m_tot).to(wdt)
     zero = torch.zeros((), dtype=torch.float64, device=up.device)
     return streams[0] < torch.where(ut + w2 > 0, ut / (ut + w2), zero)
