@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sqmc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
-    python3 chip_smoke.py --kernels   # phases 0-2 (2-2e, 2c), then exit 1
+    python3 chip_smoke.py --kernels   # phases 0-2 (2-2f, 2c), then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
@@ -23,9 +23,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      back to the CPU); prints the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them, and the torch / CUDA versions;
-  1. build the five kernels from sqmc_tpu_torch/csrc (segscan.cu,
-     spmv.cu, hbselect.cu, slotpar.cu, seqinit.cu), one nvcc each,
-     started together;
+  1. build the six kernels from sqmc_tpu_torch/csrc (segscan.cu,
+     spmv.cu, hbselect.cu, slotpar.cu, seqinit.cu, spawnhist.cu), one
+     nvcc each, started together;
   2. the seg-scan kernel vs its plain PyTorch version on the card, at the
      walk's merge shape (720,896 rows x 6 fields), an f64 variant, one
      segment spanning everything, all segment starts, n = 1 and n = 127;
@@ -62,8 +62,13 @@ Phases, each reported on its own line; any failure exits nonzero:
      the longest group of active rows (a start or a nonzero weight: the
      serial chain runs over those alone) and the active rows (no library
      call computes the rule);
+  2f. the spawn histogram of the walk's finalize (K6) vs its plain
+     version (the torch chain it replaced), bit for bit, at heg54.walk's
+     CAP (5,242,880 slots, ~94% counting nowhere) and c2.walk-pop2e6's
+     (2,621,440), float32: its time beside its bound (5 B a slot over
+     3.35 TB/s) and the plain chain's time;
   2c. the kernels' own time per call (kernel_us) at the walk and C2
-     shapes, from one torch.profiler session (after 2d and 2e, whose
+     shapes, from one torch.profiler session (after 2d-2f, whose
      cases it profiles too);
   3. the walk's main path on the 14-electron electron gas (3D HEG,
      r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
@@ -254,13 +259,13 @@ Each path's kernel counts are set to 0 just before it and read just after.
 The last two lines are a JSON object describing the kernels (the launches
 of seg_scan, hb_spawn and slot_parents from phases 3, 7, 8,
 10, 11 and 12, spmv's from phases 4, 7, 8, 9, 10 and 11 (every rank's
-counts in phase 10), seq_init's from phases 7c and 12e,
-each path counted from 0; errors and times measured here: seg_scan at the
-walk's merge shape, spmv at the C2 block-ELL float32 m = 1 shape,
-slot_parents at the walk's spawn shape, hb_spawn at 2d's
-C2-shaped f32 case, seq_init at the
-walk's merge length, 2e's float32 case) and ``{"ok": true, "device":
-{...}}``.
+counts in phase 10), seq_init's from phases 7c and 12e, spawn_hist's
+from every walk's, each path counted from 0; errors and times measured
+here: seg_scan at the walk's merge shape, spmv at the C2 block-ELL
+float32 m = 1 shape, slot_parents at the walk's spawn shape, hb_spawn at
+2d's C2-shaped f32 case, seq_init at the walk's merge length, 2e's
+float32 case, spawn_hist at 2f's heg54.walk case) and ``{"ok": true,
+"device": {...}}``.
 """
 
 import functools
@@ -297,14 +302,17 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-KERNELS = ("seg_scan", "spmv", "hb_spawn", "slot_parents", "seq_init")
+KERNELS = ("seg_scan", "spmv", "hb_spawn", "slot_parents", "seq_init",
+           "spawn_hist")
 # an f64 heat-bath walk's kernels
 F64_WALK = ("seg_scan", "spmv", "hb_spawn", "slot_parents")
 
 
 def _kernel_modules():
-    from sqmc_tpu_torch.ops import hbspawn, segscan, seqinit, slotpar, spmv
-    return dict(zip(KERNELS, (segscan, spmv, hbspawn, slotpar, seqinit)))
+    from sqmc_tpu_torch.ops import (hbspawn, segscan, seqinit, slotpar,
+                                    spawnhist, spmv)
+    return dict(zip(KERNELS, (segscan, spmv, hbspawn, slotpar, seqinit,
+                              spawnhist)))
 
 
 def _reset_counts():
@@ -474,8 +482,8 @@ def phase_kernel_rows(calls=20):
 
 def _own_kernel(name):
     return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_spawn",
-                                   "k_slot_parents",
-                                   "k_seq_init"))
+                                   "k_slot_parents", "k_seq_init",
+                                   "k_spawn_hist"))
 
 
 HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
@@ -1031,6 +1039,73 @@ def phase_seq_init_vs_plain(dev):
                          bound_by=bound_by, library_ms=None)
     log(f"phase 2e seconds={time.time() - t_start:.2f}")
     return out["merge_f32"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2f: the spawn histogram K6 vs its plain version
+# ---------------------------------------------------------------------------
+
+# the finalize's slots at heg54.walk's and c2.walk-pop2e6's CAP: the share
+# drawn and the share of those accepted (heg54.walk: 1.95M of 5,242,880
+# drawn, spawn_accept 17.05%; pop2e6: spawn_accept 84.6%, its drawn share
+# taken as heg54.walk's); the kernel reads every slot whatever they are
+SPAWN_HIST_CELLS = {"heg54_walk": (5_242_880, 0.372, 0.1705),
+                    "pop2e6": (2_621_440, 0.372, 0.846)}
+
+
+def phase_spawn_hist_vs_plain(dev):
+    """Phase 2f: K6 (ops/spawnhist.py) against its plain version (the torch
+    chain the finalize ran before it), bit for bit, at heg54.walk's and
+    c2.walk-pop2e6's CAP in float32 weights (the cells' state): after
+    ptxas's report and each launch's shape, each case prints wrapper_ms,
+    device_us (a graph of 50 calls), bound_us (each slot's weight and flag
+    read once, 5 B a slot, and the 40 counts written, over 3.35 TB/s), its
+    share, plain_ms and plain_device_us (the plain chain in a graph).
+    Returns the heg54.walk case's summary."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_spawnhist_cases as cases
+    from sqmc_tpu_torch.ops import cudabuild, spawnhist
+    t_start = time.time()
+    for line in cudabuild.ptxas_summary(spawnhist._SOURCE):
+        log(f"phase 2f ptxas {spawnhist._SOURCE}: {line}")
+    rng = np.random.default_rng(22)
+    out = {}
+    for name, (cap, drawn, accept) in SPAWN_HIST_CELLS.items():
+        wt, ok = cases.discard_heavy(rng, cap, np.float32, drawn, accept)
+        w = torch.as_tensor(wt, device=dev)
+        f = torch.as_tensor(ok, device=dev)
+        before = spawnhist.launches
+        got = spawnhist.spawn_histogram(w, f)
+        torch.cuda.synchronize()
+        if spawnhist.launches != before + 1:
+            raise AssertionError(f"2f spawn_hist {name}: launches "
+                                 f"{spawnhist.launches - before}")
+        if not torch.equal(got, spawnhist.spawn_histogram_plain(w, f)):
+            raise AssertionError(f"2f spawn_hist {name}: differs from the "
+                                 "plain version")
+        log(f"phase 2f spawn_hist {name} launch: " + " ".join(
+            f"{k}={v}" for k, v in
+            spawnhist.launch_shape(cap, False, dev).items()))
+        fn = (lambda a=w, b=f: spawnhist.spawn_histogram(a, b))
+        plain = (lambda a=w, b=f: spawnhist.spawn_histogram_plain(a, b))
+        ms, dev_us = _median_ms(fn), _device_us(fn)
+        plain_ms, plain_us = _median_ms(plain), _device_us(plain)
+        nbytes = cap * (w.element_size() + 1) + spawnhist.N_HIST_BINS * 8
+        bound_us, bound_by = _bound_us(nbytes)
+        log(f"phase 2f spawn_hist {name}: cap={cap} counted={int(got.sum())} "
+            f"discarded={1 - int(got.sum()) / cap:.4f} match bitwise "
+            f"wrapper_ms={ms:.4f} device_us={dev_us:.2f} "
+            f"bound_us={bound_us:.2f} bound_by={bound_by} "
+            f"bound_MB={nbytes / 1e6:.2f} share={bound_us / dev_us:.3f} "
+            f"plain_ms={plain_ms:.4f} plain_device_us={plain_us:.1f}")
+        PROFILED.append((f"spawn_hist {name}", fn))
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         device_us=dev_us, bound_us=bound_us,
+                         bound_by=bound_by, library_ms=None)
+    log(f"phase 2f seconds={time.time() - t_start:.2f}")
+    return out["heg54_walk"]
 
 
 # ---------------------------------------------------------------------------
@@ -3931,7 +4006,7 @@ def phase_graph(dev, smi, system=None, trial=None):
     from sqmc_tpu_torch import bench
     from sqmc_tpu_torch.algo.walk import WalkConfig
     t0 = time.time()
-    walk_kernels = ("seg_scan", "hb_spawn", "slot_parents")
+    walk_kernels = ("seg_scan", "hb_spawn", "slot_parents", "spawn_hist")
     bsys, btrial, _, _ = bench.system_and_trial(dev, bench.WORKDIR,
                                                 **bench.TRIAL)
     _graph_vs_eager("bench", bsys, btrial,
@@ -4020,12 +4095,14 @@ def main():
     sp = phase_spmv_vs_plain(dev)
     spawn, slot = phase_spawn_vs_plain(dev)
     seq = phase_seq_init_vs_plain(dev)
+    hist = phase_spawn_hist_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
     spawn["kernel_us"] = kernel_us["hb_spawn c2_f32_pack"]
     slot["kernel_us"] = kernel_us["slot_parents walk"]
     seq["kernel_us"] = kernel_us["seq_init merge_f32"]
+    hist["kernel_us"] = kernel_us["spawn_hist heg54_walk"]
     PROFILED.clear()
     if "--kernels" in sys.argv[1:]:
         raise SystemExit("chip_smoke: --kernels ran phases 0-2 only; no "
@@ -4065,7 +4142,9 @@ def main():
               "sqmc_tpu/algo/walk.py:1459", launches["slot_parents"],
               slot),
         entry("seq_init", "sqmc_tpu_torch/csrc/seqinit.cu",
-              "sqmc_tpu/algo/walk.py:2090", launches["seq_init"], seq)]}))
+              "sqmc_tpu/algo/walk.py:2090", launches["seq_init"], seq),
+        entry("spawn_hist", "sqmc_tpu_torch/csrc/spawnhist.cu",
+              "sqmc_tpu/algo/walk.py:2642", launches["spawn_hist"], hist)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

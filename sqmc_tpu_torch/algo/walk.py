@@ -76,7 +76,8 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import hbselect, hbspawn, segscan, seqinit, setalg, slotpar, spmv
+from ..ops import (hbselect, hbspawn, segscan, seqinit, setalg, slotpar,
+                   spawnhist, spmv)
 from ..ops.hbspawn import in_window as _in_window
 from ..ops.hbspawn import parity_sign as _sign
 from ..ops.alias import setup_alias_np
@@ -261,7 +262,7 @@ class WalkConfig:
         return self.run_type not in ("none", "no_fixed_node")
 
 
-N_HIST_BINS = 40
+N_HIST_BINS = spawnhist.N_HIST_BINS
 DIAG_UNKNOWN = 1e30             # unevaluated diagonal (exact in f32)
 DIAG_UNKNOWN_THRESHOLD = 1e29
 TINY = 1e-30
@@ -1709,13 +1710,7 @@ def _finalize_step(state, tables, cfg, gen, out_up, out_dn, out_wt, out_init,
     nwalk_stat = nwalk_new
     # log2-binned |spawned weight| histogram (ref gen_hist,
     # more_tools.f90:5449); bin i covers [2^(i-20), 2^(i-19))
-    aw = spawn_wt.abs()
-    hbin = (torch.floor(torch.log2(aw.clamp(min=TINY))) + 20.0).clamp(
-        0, N_HIST_BINS - 1).to(I64)
-    hbin = torch.where(spawn_ok & (aw > 0), hbin, N_HIST_BINS)
-    hist = torch.zeros(N_HIST_BINS + 1, dtype=I64, device=dev)
-    hist.scatter_add_(0, hbin, torch.ones_like(hbin))
-    hist = hist[:N_HIST_BINS]
+    hist = spawnhist.spawn_histogram(spawn_wt, spawn_ok)
     if tables.mesh is not None:
         # the control scalars are global: one all-reduce of one float64
         # vector (the counts stay exact below 2^53) gives every rank the
@@ -1827,7 +1822,8 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                 lambda s, mark: _walk_step_impl(s, tables, cfg, gen, mark),
                 state._replace(rng_state=None), gen, _TRACE_KEYS,
                 ("spawn_hist",),
-                counters=(segscan, spmv, hbspawn, slotpar, seqinit),
+                counters=(segscan, spmv, hbspawn, slotpar, seqinit,
+                          spawnhist),
                 rows=max(nstep, 128), marks=N_MARKS)
         _GRAPH[key] = g
     return g

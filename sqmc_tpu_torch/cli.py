@@ -27,12 +27,12 @@ correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
 launch counts (``Kernel launches: seg_scan=... spmv=... hb_spawn=...
-slot_parents=... seq_init=...``); a walk prints, before it, its last
-block's device time a generation by piece (``Generation pieces ...``,
-algo/walk.py block_report).  ``--profile DIR`` writes a torch.profiler
-Chrome trace in which the program's spans (utils/timers: walk.block,
-hci.iteration, pt.run, ...) and the walk's device marks (``sqmc_mark<k>``
-kernels) name the rows.
+slot_parents=... seq_init=... spawn_hist=...``); a walk prints, before
+it, its last block's device time a generation by piece (``Generation
+pieces ...``, algo/walk.py block_report).  ``--profile DIR`` writes a
+torch.profiler Chrome trace in which the program's spans (utils/timers:
+walk.block, hci.iteration, pt.run, ...) and the walk's device marks
+(``sqmc_mark<k>`` kernels) name the rows.
 """
 
 from __future__ import annotations
@@ -472,9 +472,10 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
 
 def main(argv=None):
     import torch
-    from .ops import hbspawn, segscan, seqinit, slotpar, spmv
+    from .ops import hbspawn, segscan, seqinit, slotpar, spawnhist, spmv
     kernels = dict(seg_scan=segscan, spmv=spmv, hb_spawn=hbspawn,
-                   slot_parents=slotpar, seq_init=seqinit)
+                   slot_parents=slotpar, seq_init=seqinit,
+                   spawn_hist=spawnhist)
 
     p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
     p.add_argument("-i", "--input", required=True)

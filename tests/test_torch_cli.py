@@ -312,6 +312,7 @@ def test_cli_ts_walk_deck_on_cpu(fcidump, tmp_path):
                  "heat_bath2 -> fast_heatbath", "END OF walk"):
         assert line in text, line
     assert "WARNING: no trial_wf cards" not in text
+    assert "seq_init=0 spawn_hist=0" in text
     m = re.search(r"e_mixed=\s*([-+0-9.]+)\s*\+-\s*([0-9.eE-]+)", text)
     e, err = float(m.group(1)), float(m.group(2))
     s = make_chem_system(fcidump, time_sym=True, z=1, point_group="d2h",

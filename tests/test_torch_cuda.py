@@ -1466,17 +1466,17 @@ def test_flat_cumsum_on_card_at_widths(width):
 @pytest.mark.cuda
 def test_entry_runs_a_generation_on_card():
     """entry()'s fn on the card: finite outputs of __graft_entry__'s
-    shapes and dtypes, launching K1, K2 (the float64 projector), K3b and
-    K4 once a call."""
+    shapes and dtypes, launching K1, K2 (the float64 projector), K3b, K4
+    and K6 once a call."""
     from sqmc_tpu_torch.entry import entry
-    from sqmc_tpu_torch.ops import hbspawn, segscan, slotpar, spmv
-    mods = (segscan, spmv, hbspawn, slotpar)
+    from sqmc_tpu_torch.ops import hbspawn, segscan, slotpar, spawnhist, spmv
+    mods = (segscan, spmv, hbspawn, slotpar, spawnhist)
     dev = _device()
     fn, (state, tables) = entry()
     before = [m.launches for m in mods]
     for _ in range(3):
         wt, e_num, w_abs = fn(state, tables)
-    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3]
+    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3, 3]
     assert wt.device.type == "cuda" and wt.shape == (2048,)
     assert wt.dtype == e_num.dtype == w_abs.dtype == torch.float64
     assert e_num.shape == w_abs.shape == ()
@@ -1562,8 +1562,10 @@ def _assert_same_walk(a, b, sa, sb):
 
 
 def _kernel_counts():
-    from sqmc_tpu_torch.ops import hbspawn, segscan, seqinit, slotpar, spmv
-    return [m.launches for m in (segscan, spmv, slotpar, seqinit, hbspawn)]
+    from sqmc_tpu_torch.ops import (hbspawn, segscan, seqinit, slotpar,
+                                    spawnhist, spmv)
+    return [m.launches for m in (segscan, spmv, slotpar, seqinit, hbspawn,
+                                 spawnhist)]
 
 
 @pytest.mark.cuda
@@ -1577,8 +1579,8 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
     Philox stream), and the kernel launch counts of the graphed blocks
     equal the eager blocks' (K1, K3b, K4 in every cell but the CT chain and
     the two proposals, which run no K3b; K2 in entry()'s f64 walk; K5 under
-    the sequential rule): K3b once a generation, n in a
-    block of n."""
+    the sequential rule; K6 in every cell): K3b and K6 once a generation,
+    n in a block of n."""
     from sqmc_tpu_torch.algo import walk as TW
     dev = _device()
     s, trial, cfg, w0 = _graph_cell(name, dev)
@@ -1597,13 +1599,14 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
         assert torch.equal(g_e.get_state(), g_g.get_state())
         eager = [y - x for x, y in zip(c0, c1)]
         assert [y - x for x, y in zip(c1, c2)] == eager
-        assert eager[4] in (0, n)
+        assert eager[4] in (0, n) and eager[5] == n
     assert not bool(b.overflow) and int(b.nwalk) > 1000
-    want = {"bench": [1, 0, 1, 0, 1], "heg14_f32": [1, 0, 1, 0, 1],
-            "heg14_f32_sequential": [1, 0, 1, 1, 1],
-            "entry_f64": [1, 1, 1, 0, 1], "ct_hubbardk": [1, 0, 1, 0, 0],
-            "cauchy_schwarz": [1, 0, 1, 0, 0],
-            "uniform": [1, 0, 1, 0, 0]}[name]
+    want = {"bench": [1, 0, 1, 0, 1, 1], "heg14_f32": [1, 0, 1, 0, 1, 1],
+            "heg14_f32_sequential": [1, 0, 1, 1, 1, 1],
+            "entry_f64": [1, 1, 1, 0, 1, 1],
+            "ct_hubbardk": [1, 0, 1, 0, 0, 1],
+            "cauchy_schwarz": [1, 0, 1, 0, 0, 1],
+            "uniform": [1, 0, 1, 0, 0, 1]}[name]
     assert [int(d > 0) for d in eager] == want, eager
     g = TW._GRAPH[next(iter(TW._GRAPH))]
     print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
@@ -2114,3 +2117,121 @@ def test_captured_paths_replay_without_a_sync():
     assert bool(torch.isfinite(e_loc).all()) and bool(torch.isfinite(e_mix))
     for mod in (dw, vmc, cpmc):
         mod.release_graphs()
+
+
+# ---------------------------------------------------------------------------
+# K6: the spawn histogram of the walk's finalize (ops/spawnhist.py)
+# ---------------------------------------------------------------------------
+
+SPAWN_HIST_CASES = ("boundary_f32", "boundary_f64", "spread_f32",
+                    "spread_f64", "one_slot", "misaligned",
+                    "heg54_f32", "heg54_f64")
+
+
+def _spawn_hist_inputs(case):
+    """(weights, flags) in numpy of each case: the boundary set alone; the
+    boundary set scattered among 1,000,003 random slots (not a multiple of
+    the vectors a block takes); one slot; heg54.walk's shape (5,242,880
+    slots, ~94% of them undrawn or rejected)."""
+    import torch_spawnhist_cases as cases
+    rng = np.random.default_rng(22)
+    dt = np.float64 if case.endswith("f64") else np.float32
+    if case.startswith("boundary"):
+        return cases.boundary_weights(dt)
+    if case == "one_slot":
+        return np.array([3.0], np.float32), np.array([True])
+    if case.startswith("heg54"):
+        return cases.discard_heavy(rng, 5_242_880, dt)
+    n = 1_000_003
+    wt = (2.0 ** rng.uniform(-26.0, 24.0, n)
+          * rng.choice([-1.0, 1.0], n)).astype(dt)
+    wt[rng.random(n) < 0.2] = 0
+    ok = rng.random(n) < 0.6
+    bw, bo = cases.boundary_weights(dt)
+    at = rng.choice(n, len(bw), replace=False)
+    wt[at], ok[at] = bw, bo
+    return wt, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPAWN_HIST_CASES)
+def test_spawn_hist_kernel_matches_plain(case):
+    """K6 bit for bit against its plain version on the card, one launch a
+    call and the same counts on a second call: the boundary weights
+    (tests/torch_spawnhist_cases.py), the same scattered among 1,000,003
+    random slots, one slot, a view that starts 4 bytes past an aligned
+    address (the wrapper copies it), and heg54.walk's shape with ~94% of
+    its slots counting nowhere."""
+    from sqmc_tpu_torch.ops import spawnhist
+    dev = _device()
+    wt, ok = _spawn_hist_inputs(case.replace("misaligned", "spread_f32"))
+    w = torch.as_tensor(wt, device=dev)
+    f = torch.as_tensor(ok, device=dev)
+    if case == "misaligned":
+        w, f = w[1:], f[1:]
+        assert w.data_ptr() % 16 != 0
+    if case.startswith("heg54"):
+        assert float((~f | (w == 0)).double().mean()) > 0.93
+    before = spawnhist.launches
+    got = spawnhist.spawn_histogram(w, f)
+    torch.cuda.synchronize()
+    assert spawnhist.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (spawnhist.N_HIST_BINS,)
+    want = spawnhist.spawn_histogram_plain(w, f)
+    assert torch.equal(got, want), (got - want).nonzero().flatten().tolist()
+    assert torch.equal(spawnhist.spawn_histogram(w, f), got)
+    print(f"spawn_hist {case}: n={w.shape[0]} counted={int(got.sum())} "
+          + " ".join(f"{k}={v}" for k, v in spawnhist.launch_shape(
+              w.shape[0], w.dtype == torch.float64, dev).items()))
+
+
+@pytest.mark.cuda
+def test_spawn_hist_in_captured_graph_equals_eager():
+    """K6 captured in a CUDA graph (the output's zeroing and the launch
+    inside the capture), replayed on new weights in the same buffers:
+    each replay's counts equal the eager call's on those weights."""
+    import torch_spawnhist_cases as cases
+    from sqmc_tpu_torch.ops import spawnhist
+    dev = _device()
+    rng = np.random.default_rng(6)
+    n = 262_144
+    inputs = [cases.discard_heavy(rng, n, np.float32, drawn=d, accept=a)
+              for d, a in ((0.4, 0.85), (0.37, 0.17))]
+    w = torch.as_tensor(inputs[0][0], device=dev)
+    f = torch.as_tensor(inputs[0][1], device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spawnhist.spawn_histogram(w, f)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = spawnhist.spawn_histogram(w, f)
+    for wt, ok in inputs:
+        w.copy_(torch.as_tensor(wt, device=dev))
+        f.copy_(torch.as_tensor(ok, device=dev))
+        g.replay()
+        eager = spawnhist.spawn_histogram(w, f)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(out, spawnhist.spawn_histogram_plain(w, f))
+
+
+@pytest.mark.cuda
+def test_spawn_hist_wrapper_raises_on_bad_input():
+    from sqmc_tpu_torch.ops import spawnhist
+    dev = _device()
+    w = torch.ones(8, device=dev)
+    f = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):               # float16 weights
+        spawnhist.spawn_histogram(w.half(), f)
+    with pytest.raises(ValueError):               # uint8 flags
+        spawnhist.spawn_histogram(w, f.to(torch.uint8))
+    with pytest.raises(ValueError):               # 2-D weights
+        spawnhist.spawn_histogram(w.view(2, 4), f.view(2, 4))
+    with pytest.raises(ValueError):               # lengths differ
+        spawnhist.spawn_histogram(w, f[:7])
+    with pytest.raises(ValueError):               # no slot
+        spawnhist.spawn_histogram(w[:0], f[:0])
+    with pytest.raises(ValueError):               # flags on the CPU
+        spawnhist.spawn_histogram(w, f.cpu())
