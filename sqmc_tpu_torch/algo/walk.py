@@ -28,7 +28,8 @@ bounded (count -> cumsum -> fixed slots) and compactions are order-
 preserving scatters; ``overflow`` is read once per block by the driver.
 Each generation writes N_MARKS device timestamps (ops/mark.py) at the
 boundaries of its PIECES (projection, spawn, annihilation, fill,
-finalize) and at the heat-bath proposal's end inside the spawn;
+finalize) and at the heat-bath proposal's (or the CT chain's) end
+inside the spawn;
 :func:`block_report` reads them, and the per-generation counters, for
 the last block run.
 On the card the generation is captured once as a CUDA graph and a block
@@ -902,7 +903,10 @@ def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
     vectorized moves run over all slots; a chain still running after them
     is zeroed.
 
-    Returns (up [S, W], dn [S, W], f [S] f64 chain factor, ok [S] bool)."""
+    Returns (up [S, W], dn [S, W], f [S] f64 chain factor, ok [S] bool,
+    n_jumps, n_cut): the jumps taken over all chains and the chains
+    zeroed for still running after cfg.ct_max_jumps moves, 0-d float64
+    device tensors (two reductions, no host sync)."""
     S = up_w.shape[0]
     dev = up_w.device
     norb, nup, ndn = cfg.norb, cfg.nup, cfg.ndn
@@ -913,6 +917,7 @@ def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
     f = torch.where(slot_valid, one, zero)
     t = torch.zeros(S, dtype=F64, device=dev)
     done = ~slot_valid
+    n_jumps = torch.zeros(S, dtype=I32, device=dev)
     sl = torch.arange(S, device=dev)
     for i in range(cfg.ct_max_jumps):
         u6 = torch.rand((6, S), dtype=F64, device=dev, generator=gen)
@@ -948,12 +953,14 @@ def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
         dead = jump_f == 0.0
         f = torch.where(act, f * seg_f * torch.where(cross, one, jump_f), f)
         jumped = act & ~cross & ~dead
+        n_jumps += jumped
         cu = torch.where(jumped[:, None], nxt_up, cu)
         cd = torch.where(jumped[:, None], nxt_dn, cd)
         t = torch.where(act, t_new, t)
         done = done | (act & (cross | dead))
     f = torch.where(done, f, zero)
-    return cu, cd, f, slot_valid & (f != 0.0)
+    return (cu, cd, f, slot_valid & (f != 0.0), n_jumps.sum(dtype=F64),
+            (~done).sum(dtype=F64))
 
 
 def _ct_jump_move(cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl):
@@ -1078,17 +1085,27 @@ def pair_weights(cfg, tables, bits_up, bits_dn, wdt):
     return p_pair, q_pair, weight
 
 
-def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen):
-    """One proposed excitation per spawn slot for the linear projector:
-    a double from cfg.proposal or (chem) a single, with the spawn-weight
-    factor -tau H / p(proposal).  `streams` = (ub, up_, ue, ua2, ur), five
-    [CAP] uniform streams.  Returns (spawn_up, spawn_dn, factor, ok).
+def _propose(cfg, tables, up_w, dn_w, tau, wdt, streams, gen, chain=None):
+    """One proposed child per spawn slot, the step's one proposal entry
+    point.  For the linear projector a double from cfg.proposal or (chem)
+    a single, with the spawn-weight factor -tau H / p(proposal);
+    `streams` = (ub, up_, ue, ua2, ur), five [CAP] uniform streams.  For
+    the exponential projector (cfg.use_exponential_projector) the CT
+    chain of each slot (_ct_chain), which draws its own uniforms: `chain`
+    holds its inputs "slot_valid" and "e_trial" and gets its counters
+    "n_ct_jumps" and "n_ct_cut".  Returns (spawn_up, spawn_dn, factor,
+    ok).
 
     The heat-bath proposal is ops/hbspawn.py's: one kernel launch (K3b)
     on the card, its plain version on the CPU."""
     CAP, norb = up_w.shape[0], cfg.norb
     nup, ndn = cfg.nup, cfg.ndn
     dev = up_w.device
+    if cfg.use_exponential_projector:
+        *out, chain["n_ct_jumps"], chain["n_ct_cut"] = _ct_chain(
+            cfg, tables, up_w, dn_w, chain["slot_valid"], gen, tau,
+            chain["e_trial"])
+        return tuple(out)
     if cfg.proposal == "fast_heatbath":
         return hbspawn.propose(tables, up_w, dn_w, norb, cfg.has_singles, tau,
                                wdt, streams, nup + ndn)
@@ -1175,8 +1192,8 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     """One MC generation.  Returns (new_state, stats) with stats a dict of
     0-d device tensors plus the [N_HIST_BINS] spawn histogram.  mark(k)
     writes device timestamp k (MARK_STARTS: each of PIECES' starts;
-    MARK_PROPOSE: the heat-bath proposal's end inside the spawn piece; the
-    caller writes the last after the finalize)."""
+    MARK_PROPOSE: the heat-bath proposal's or the CT chain's end inside
+    the spawn piece; the caller writes the last after the finalize)."""
     mark(0)
     M, CAP, norb = cfg.mwalk, cfg.cap_spawn, cfg.norb
     dev = state.wt.device
@@ -1254,15 +1271,17 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     up_w, dn_w = state.up[b], state.dn[b]
     wtc_b = wt_child[b]
     if ct_mode:
-        spawn_up, spawn_dn, fac, spawn_ok = _ct_chain(
-            cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial)
+        # the chain's inputs; it hands back its counters in the same dict
+        chain = {"slot_valid": slot_valid, "e_trial": e_trial}
+        spawn_up, spawn_dn, fac, spawn_ok = _propose(
+            cfg, tables, up_w, dn_w, tau, wdt, (), gen, chain)
     else:
         streams = [u_all[M + k * CAP:M + (k + 1) * CAP] for k in range(5)]
         spawn_up, spawn_dn, fac, spawn_ok = _propose(
             cfg, tables, up_w, dn_w, tau, wdt, streams, gen)
-        if cfg.proposal == "fast_heatbath":
-            mark(MARK_PROPOSE)              # K3b's end (the plain version's)
-        spawn_ok = spawn_ok & slot_valid
+    if ct_mode or cfg.proposal == "fast_heatbath":
+        mark(MARK_PROPOSE)      # the CT chain's or K3b's (plain version's) end
+    spawn_ok = spawn_ok & slot_valid
     spawn_wt = fac * wtc_b
     spawn_wt = torch.where(spawn_ok, spawn_wt, torch.zeros((), dtype=spawn_wt.dtype,
                                                            device=dev))
@@ -1383,8 +1402,12 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     out = merge(state, cfg, tables, gen, alive, wt_par, spawn_up, spawn_dn,
                 spawn_wt, spawn_ok, child_imp, child_init, overflow, mark)
     mark(5)
-    return _finalize_step(state, tables, cfg, gen, *out, total_spawn, spawn_wt,
-                          spawn_ok, ct_dots)
+    new_state, stats = _finalize_step(state, tables, cfg, gen, *out,
+                                      total_spawn, spawn_wt, spawn_ok, ct_dots)
+    zero = torch.zeros((), dtype=F64, device=dev)
+    for k in ("n_ct_jumps", "n_ct_cut"):     # 0 outside CT walks
+        stats[k] = chain[k] if ct_mode else zero
+    return new_state, stats
 
 
 def _initiator_update(cfg, wt, init, imp):
@@ -1849,13 +1872,15 @@ def walk_step(state: WalkState, tables: WalkTables, cfg: WalkConfig,
 
 
 _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
-               "reweight_factor_inv", "n_spawn_ok", "n_fresh")
+               "reweight_factor_inv", "n_spawn_ok", "n_fresh", "n_ct_jumps",
+               "n_ct_cut")
 
 # The generation's pieces, delimited by its N_MARKS device timestamps in
 # time order: mark MARK_STARTS[i] starts piece i, MARK_PROPOSE ends the
-# heat-bath proposal inside the spawn piece (a walk without K3b leaves it
-# unwritten), and the last mark ends the finalize, after the step graph's
-# copy-back; and what the last block run left to read
+# heat-bath proposal or the CT chain inside the spawn piece (a walk with
+# neither, such as the uniform proposal's, leaves it unwritten), and the
+# last mark ends the finalize, after the step graph's copy-back; and what
+# the last block run left to read
 PIECES = ("project", "spawn", "annihilate", "fill", "finalize")
 MARK_STARTS = (0, 1, 3, 4, 5)
 MARK_PROPOSE = 2
@@ -1882,15 +1907,19 @@ def block_report() -> dict | None:
                         wall_ns_per_gen
       sub_ns            mean ns a generation from a piece's start to a
                         mark inside it: "propose", the spawn piece's start
-                        to the heat-bath proposal's end (K3b's; absent in
-                        a walk without it, such as the CT chain or the
-                        uniform proposal)
+                        (the slot allocation, K4, the parent gathers) to
+                        the end of the heat-bath proposal (K3b) or of the
+                        CT chain (absent in a walk with neither, such as
+                        the uniform proposal's)
       wall_ns_per_gen   first mark of the block to its last, a generation
       host_enqueue_ms_per_gen   host time spent enqueueing the block's
                         replays (the eager loop: running them), a
                         generation
-      n_spawn, n_spawn_ok, n_fresh   the counters summed over the block
-                        (spawn slots drawn, accepted, new dets filled)"""
+      n_spawn, n_spawn_ok, n_fresh, n_ct_jumps, n_ct_cut   the counters
+                        summed over the block (spawn slots drawn,
+                        accepted, new dets filled; the CT chain's jumps
+                        and chains cut at ct_max_jumps, 0 outside CT
+                        walks)"""
     if not _LAST_BLOCK:
         return None
     n = _LAST_BLOCK["gens"]
@@ -1906,8 +1935,8 @@ def block_report() -> dict | None:
     return {"gens": n, "piece_ns": ns, "sub_ns": sub,
             "wall_ns_per_gen": float(m[-1, -1] - m[0, 0]) / n,
             "host_enqueue_ms_per_gen": _LAST_BLOCK["enqueue_s"] * 1e3 / n,
-            **{k: float(stats[k].sum())
-               for k in ("n_spawn", "n_spawn_ok", "n_fresh")}}
+            **{k: float(stats[k].sum()) for k in (
+                "n_spawn", "n_spawn_ok", "n_fresh", "n_ct_jumps", "n_ct_cut")}}
 
 
 def walk_block(state: WalkState, tables: WalkTables, cfg: WalkConfig,

@@ -1660,6 +1660,43 @@ def test_wrapped_proposal_doubles_the_captured_spawns(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_ct_walk_graphed_block_counts_its_chains_and_marks_their_end():
+    """Phase 7a's continuous-time walk (4x4 Hubbard-k, tau 5e-3): a
+    graphed block equals the eager block from one seed bit for bit, the
+    CT chain's two counters included; the chain jumps in every
+    generation, about tau rate / (1 - exp(-tau rate)) = 1.18 jumps a
+    child; and mark 2, the chain's end, is written in every generation of
+    both blocks, in time order inside the spawn piece."""
+    from sqmc_tpu_torch.algo import walk as TW
+    dev = _device()
+    s, trial, cfg, w0 = _graph_cell("ct_hubbardk", dev)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    n = 20
+    a, sa = TW._walk_block_eager(st, tables, cfg, n,
+                                 torch.Generator(device=dev).manual_seed(23))
+    m_eager = TW._LAST_BLOCK["marks"].read(n)
+    b, sb = TW.walk_block(st, tables, cfg, n,
+                          torch.Generator(device=dev).manual_seed(23))
+    torch.cuda.synchronize()
+    _assert_same_walk(a, b, sa, sb)
+    rep = TW.block_report()
+    m_graph = TW._LAST_BLOCK["marks"].read(n)
+    for m in (m_eager, m_graph):
+        assert (m > 0).all() and (np.diff(m.reshape(-1)) >= 0).all()
+    assert 0 < rep["sub_ns"]["propose"] <= rep["piece_ns"]["spawn"]
+    assert bool((sb["n_ct_jumps"] > 0).all())
+    assert rep["n_ct_cut"] == float(sb["n_ct_cut"].sum())
+    per_child = rep["n_ct_jumps"] / rep["n_spawn_ok"]
+    assert 1.0 < per_child < 1.4, per_child
+    print(f"ct chain: {per_child:.4f} jumps a child, "
+          f"{rep['n_ct_cut']:.0f} chains cut in {n} generations, propose "
+          f"{rep['sub_ns']['propose'] * 1e-6:.3f} ms of spawn "
+          f"{rep['piece_ns']['spawn'] * 1e-6:.3f} ms a generation")
+    TW.release_graphs()
+
+
+@pytest.mark.cuda
 def test_replayed_generations_never_sync():
     """Replayed blocks and steps run under torch's sync debug mode set to
     raise: the only host reads of a graphed block are repair_caches'

@@ -210,8 +210,9 @@ def test_hb_spawn_dispatch(tmp_path, monkeypatch):
 
 
 def test_hb_spawn_ct_chain_calls_no_proposal(monkeypatch):
-    """A generation of the exponential projector's CT chain (4x4
-    Hubbard-k) runs its own chain: no call of the walk's proposal."""
+    """A generation of the exponential projector's CT chain (2x2
+    Hubbard-k) reaches its chain through the walk's one proposal entry
+    point, _propose, once, and calls no heat-bath proposal there."""
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.systems.hubbard.system import make_hubbard_k_system
     s = make_hubbard_k_system(2, 2, 1.0, 4.0, 2, 2, device="cpu")
@@ -224,13 +225,21 @@ def test_hb_spawn_ct_chain_calls_no_proposal(monkeypatch):
     st = W.init_walk_state(cfg, trial, 1e3, trial.e_trial, tables)
 
     def refuse(*a):
-        raise AssertionError("the CT chain called the proposal")
+        raise AssertionError("the CT chain called the heat-bath proposal")
 
-    monkeypatch.setattr(W, "_propose", refuse)
+    entered = []
+    orig = W._propose
+
+    def entry(*a):
+        entered.append(len(a))
+        return orig(*a)
+
+    monkeypatch.setattr(W, "_propose", entry)
     monkeypatch.setattr(hbspawn, "propose", refuse)
     st, stats = W._walk_step_impl(st, tables, cfg,
                                   torch.Generator().manual_seed(1))
     assert int(st.step) == 1 and float(stats["n_spawn"]) > 0
+    assert entered == [9]
 
 
 def test_hb_spawn_wrapper_has_no_path_for_other_devices():
