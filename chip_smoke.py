@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sqmc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase (one card)
-    python3 chip_smoke.py --kernels   # phases 0-2 (2-2f, 2c), then exit 1
+    python3 chip_smoke.py --kernels   # phases 0-2 (2-2g, 2c), then exit 1
     python3 chip_smoke.py --hubbard   # phases 0, 1 and 7 only, then exit 1
     python3 chip_smoke.py --dense     # phases 0, 1 and 8 only, then exit 1
     python3 chip_smoke.py --legacy    # phases 0, 1 and 9 only, then exit 1
@@ -23,9 +23,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      back to the CPU); prints the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them, and the torch / CUDA versions;
-  1. build the six kernels from sqmc_tpu_torch/csrc (segscan.cu,
-     spmv.cu, hbselect.cu, slotpar.cu, seqinit.cu, spawnhist.cu), one
-     nvcc each, started together;
+  1. build the seven kernels from sqmc_tpu_torch/csrc (segscan.cu,
+     spmv.cu, hbselect.cu, slotpar.cu, seqinit.cu, spawnhist.cu,
+     ctchain.cu), one nvcc each, started together;
   2. the seg-scan kernel vs its plain PyTorch version on the card, at the
      walk's merge shape (720,896 rows x 6 fields), an f64 variant, one
      segment spanning everything, all segment starts, n = 1 and n = 127;
@@ -67,8 +67,13 @@ Phases, each reported on its own line; any failure exits nonzero:
      CAP (5,242,880 slots, ~94% counting nowhere) and c2.walk-pop2e6's
      (2,621,440), float32: its time beside its bound (5 B a slot over
      3.35 TB/s) and the plain chain's time;
+  2g. the CT chain of ct_mode "hubbardk" (K7) vs its plain version (the
+     torch moves it replaced): words, flags and counters equal, the factor
+     within 1e-12, on tests/torch_ctchain_cases.py's chains and at
+     hubbardk4x4.walk-ct's shape (262,144 slots, 40% drawn, 12 moves):
+     its time beside its bound (41 B a drawn slot) and the plain chain's;
   2c. the kernels' own time per call (kernel_us) at the walk and C2
-     shapes, from one torch.profiler session (after 2d-2f, whose
+     shapes, from one torch.profiler session (after 2d-2g, whose
      cases it profiles too);
   3. the walk's main path on the 14-electron electron gas (3D HEG,
      r_s = 0.5, 19 plane waves): HCI at eps_var = 1e-3 against its golden
@@ -105,8 +110,9 @@ Phases, each reported on its own line; any failure exits nonzero:
      Davidson (K2) on the same system within 1e-6 of it, then in f32 state
      at population 2e5 the linear semistochastic heat-bath walk (tau 5e-4)
      and the continuous-time projector (tau 5e-3, semistochastic off),
-     each gated on capacity, population within 10% and |e_mixed - (E_var +
-     PT)| < max(5 sigma, 2 mHa);
+     each gated on capacity, population within 10%, |e_mixed - (E_var +
+     PT)| < max(5 sigma, 2 mHa) and its proposal kernel launched (K3b for
+     the linear walk, K7 for the CT walk);
      7b real-space Hubbard on the same cluster (one Hamiltonian, another
      basis): fixed_node1 with importance sampling by a Gutzwiller
      function (g = 0.6; orbitals of the hopping matrix plus a small random
@@ -303,16 +309,16 @@ def nvidia_smi_line():
 
 
 KERNELS = ("seg_scan", "spmv", "hb_spawn", "slot_parents", "seq_init",
-           "spawn_hist")
+           "spawn_hist", "ct_chain")
 # an f64 heat-bath walk's kernels
 F64_WALK = ("seg_scan", "spmv", "hb_spawn", "slot_parents")
 
 
 def _kernel_modules():
-    from sqmc_tpu_torch.ops import (hbspawn, segscan, seqinit, slotpar,
-                                    spawnhist, spmv)
+    from sqmc_tpu_torch.ops import (ctchain, hbspawn, segscan, seqinit,
+                                    slotpar, spawnhist, spmv)
     return dict(zip(KERNELS, (segscan, spmv, hbspawn, slotpar, seqinit,
-                              spawnhist)))
+                              spawnhist, ctchain)))
 
 
 def _reset_counts():
@@ -483,7 +489,7 @@ def phase_kernel_rows(calls=20):
 def _own_kernel(name):
     return any(k in name for k in ("k_seg_scan", "k_spmv", "k_hb_spawn",
                                    "k_slot_parents", "k_seq_init",
-                                   "k_spawn_hist"))
+                                   "k_spawn_hist", "k_ct_chain"))
 
 
 HBM_BYTES_PER_S = 3.35e12              # NVIDIA H100 SXM data sheet
@@ -1106,6 +1112,87 @@ def phase_spawn_hist_vs_plain(dev):
                          bound_by=bound_by, library_ms=None)
     log(f"phase 2f seconds={time.time() - t_start:.2f}")
     return out["heg54_walk"]
+
+
+def phase_ct_chain_vs_plain(dev):
+    """Phase 2g: K7 (ops/ctchain.py) against its plain version on the card
+    (tests/torch_ctchain_cases.py's chains and hubbardk4x4.walk-ct's shape:
+    262,144 slots, 40% drawn, 12 moves): words, flags and counters equal,
+    the factor within 1e-12.  After ptxas's report and each launch's
+    shape, the cell's case prints wrapper_ms, device_us (a graph of 50
+    calls), bound_us (each drawn slot's parent words in, child words,
+    factor and flag out, kmap3 once, over 3.35 TB/s), its share, plain_ms
+    and plain_device_us (the plain chain in a graph).  Returns the cell's
+    summary."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_ctchain_cases as cases
+    from types import SimpleNamespace
+    from sqmc_tpu_torch.ops import ctchain, cudabuild
+    t_start = time.time()
+    for line in cudabuild.ptxas_summary(ctchain._SOURCE):
+        log(f"phase 2g ptxas {ctchain._SOURCE}: {line}")
+    out = None
+    for name in cases.CASES + ("cell",):
+        c = cases.make_case(name)
+        g = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+             for k, v in c.items()}
+        tb = c["table"]
+        g["table"] = SimpleNamespace(
+            norb=tb.norb, core_energy=tb.core_energy, h=tb.h.to(dev),
+            direct=tb.direct.to(dev), exchange=tb.exchange.to(dev))
+        args = [g[k] for k in ("u", "up_w", "dn_w", "slot_valid", "table",
+                               "kmap3", "rate", "tau", "e_trial", "norb",
+                               "nup", "ndn")]
+        move = ctchain.hubbardk_move(g["kmap3"], g["norb"], g["nup"],
+                                     g["ndn"])
+        fn = (lambda a=args: ctchain.chain(*a))
+        plain = (lambda a=args, m=move: ctchain.chain_plain(
+            *a[:5], *a[6:10], m))
+        before = ctchain.launches
+        got = fn()
+        want = plain()
+        torch.cuda.synchronize()
+        if ctchain.launches != before + 1:
+            raise AssertionError(f"2g ct_chain {name}: launches "
+                                 f"{ctchain.launches - before}")
+        f, f_ref = got[2], want[2]
+        rel = float(((f - f_ref).abs() / f_ref.abs().clamp(min=1e-300))
+                    .max())
+        same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[3], want[3])
+                and float(got[4]) == float(want[4])
+                and float(got[5]) == float(want[5])
+                and torch.equal(f != 0, f_ref != 0) and rel < 1e-12)
+        if not same:
+            raise AssertionError(f"2g ct_chain {name}: differs from the plain "
+                                 f"version (factor rel {rel:.3e})")
+        S, W = g["up_w"].shape
+        log(f"phase 2g ct_chain {name} launch: " + " ".join(
+            f"{k}={v}" for k, v in
+            ctchain.launch_shape(S, W, g["norb"], dev).items()))
+        drawn = int(g["slot_valid"].sum())
+        log(f"phase 2g ct_chain {name}: S={S} drawn={drawn} "
+            f"moves={g['u'].shape[0]} jumps={float(got[4]):.0f} "
+            f"cut={float(got[5]):.0f} ok={int(got[3].sum())} match "
+            f"(factor rel {rel:.2e})")
+        if name != "cell":
+            continue
+        ms, dev_us = _median_ms(fn), _device_us(fn)
+        plain_ms, plain_us = _median_ms(plain), _device_us(plain, calls=5)
+        nbytes = drawn * (4 * 8 * W + 9) + g["kmap3"].numel() * 8
+        bound_us, bound_by = _bound_us(nbytes)
+        log(f"phase 2g ct_chain {name}: wrapper_ms={ms:.4f} "
+            f"device_us={dev_us:.2f} bound_us={bound_us:.3f} "
+            f"bound_by={bound_by} bound_MB={nbytes / 1e6:.2f} "
+            f"share={bound_us / dev_us:.4f} plain_ms={plain_ms:.4f} "
+            f"plain_device_us={plain_us:.1f}")
+        PROFILED.append((f"ct_chain {name}", fn))
+        out = dict(max_abs_err=rel, ms=ms, plain_ms=plain_ms,
+                   device_us=dev_us, bound_us=bound_us, bound_by=bound_by,
+                   library_ms=None)
+    log(f"phase 2g seconds={time.time() - t_start:.2f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1812,7 +1899,7 @@ def phase_hubbard_k(dev, workdir, smi):
             f"gate_mHa={1e3 * gate:.4f} launches={c} "
             f"seconds={time.time() - t0:.1f} [{smi}]")
         _need(f"7a {name}", c, "seg_scan", "slot_parents",
-              *(("hb_spawn",) if name == "linear" else ()))
+              "hb_spawn" if name == "linear" else "ct_chain")
     HUB_RESULTS.update(e_var=e_var, e_tot=e_tot)
     return e_tot
 
@@ -4096,6 +4183,7 @@ def main():
     spawn, slot = phase_spawn_vs_plain(dev)
     seq = phase_seq_init_vs_plain(dev)
     hist = phase_spawn_hist_vs_plain(dev)
+    ct = phase_ct_chain_vs_plain(dev)
     kernel_us = phase_kernel_rows()
     seg["kernel_us"] = kernel_us["seg_scan walk_merge_6field_f32"]
     sp["kernel_us"] = kernel_us["spmv c2_synthetic blockell float32 m=1"]
@@ -4103,6 +4191,7 @@ def main():
     slot["kernel_us"] = kernel_us["slot_parents walk"]
     seq["kernel_us"] = kernel_us["seq_init merge_f32"]
     hist["kernel_us"] = kernel_us["spawn_hist heg54_walk"]
+    ct["kernel_us"] = kernel_us["ct_chain cell"]
     PROFILED.clear()
     if "--kernels" in sys.argv[1:]:
         raise SystemExit("chip_smoke: --kernels ran phases 0-2 only; no "
@@ -4144,7 +4233,9 @@ def main():
         entry("seq_init", "sqmc_tpu_torch/csrc/seqinit.cu",
               "sqmc_tpu/algo/walk.py:2090", launches["seq_init"], seq),
         entry("spawn_hist", "sqmc_tpu_torch/csrc/spawnhist.cu",
-              "sqmc_tpu/algo/walk.py:2642", launches["spawn_hist"], hist)]}))
+              "sqmc_tpu/algo/walk.py:2642", launches["spawn_hist"], hist),
+        entry("ct_chain", "sqmc_tpu_torch/csrc/ctchain.cu",
+              "sqmc_tpu/algo/walk.py:1089", launches["ct_chain"], ct)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

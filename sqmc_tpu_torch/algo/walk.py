@@ -77,10 +77,8 @@ import torch
 
 from .. import dets
 from ..dets import flip
-from ..ops import (hbselect, hbspawn, segscan, seqinit, setalg, slotpar,
-                   spawnhist, spmv)
-from ..ops.hbspawn import in_window as _in_window
-from ..ops.hbspawn import parity_sign as _sign
+from ..ops import (ctchain, hbselect, hbspawn, segscan, seqinit, setalg,
+                   slotpar, spawnhist, spmv)
 from ..ops.alias import setup_alias_np
 from ..ops.mark import Marks
 from ..systems.chem import slater
@@ -898,69 +896,27 @@ def _ct_chain(cfg, tables, up_w, dn_w, slot_valid, gen, tau, e_trial):
     contributes -H_ij / (rate p(j|i)) (thinning: exact in expectation for
     any rate > 0 and any proposal that covers the connected space).
     hubbardk mode: uniform (e_up, e_dn, r) with s by momentum conservation,
-    where |H_ij| = U/N everywhere and the factor is -sign(H_ij).  Invalid
-    proposals zero the chain: variance, never bias.  cfg.ct_max_jumps
-    vectorized moves run over all slots; a chain still running after them
-    is zeroed.
+    where |H_ij| = U/N everywhere and the factor is -sign(H_ij)
+    (ops/ctchain.py: one kernel launch, K7, on the card; its plain version
+    on the CPU).  Invalid proposals zero the chain: variance, never bias.
+    A chain still running after cfg.ct_max_jumps moves is zeroed.  Every
+    mode reads the same cfg.ct_max_jumps x 6 rows of uniforms, drawn
+    first; the heg / generic modes run their moves (_ct_jump_move) as
+    vectorized torch rows over all slots on every device.
 
     Returns (up [S, W], dn [S, W], f [S] f64 chain factor, ok [S] bool,
     n_jumps, n_cut): the jumps taken over all chains and the chains
     zeroed for still running after cfg.ct_max_jumps moves, 0-d float64
-    device tensors (two reductions, no host sync)."""
-    S = up_w.shape[0]
-    dev = up_w.device
-    norb, nup, ndn = cfg.norb, cfg.nup, cfg.ndn
-    rate = tables.ct_rate
-    cu, cd = up_w, dn_w
-    one = torch.ones((), dtype=F64, device=dev)
-    zero = torch.zeros((), dtype=F64, device=dev)
-    f = torch.where(slot_valid, one, zero)
-    t = torch.zeros(S, dtype=F64, device=dev)
-    done = ~slot_valid
-    n_jumps = torch.zeros(S, dtype=I32, device=dev)
-    sl = torch.arange(S, device=dev)
-    for i in range(cfg.ct_max_jumps):
-        u6 = torch.rand((6, S), dtype=F64, device=dev, generator=gen)
-        t_inc = -torch.log(u6[0].clamp(min=TINY)) / rate
-        if i == 0:
-            t_inc = torch.remainder(t_inc, tau)     # conditioned on >= 1 jump
-        t_new = t + t_inc
-        cross = t_new > tau
-        bits_cu = dets.to_bits(cu, norb)
-        bits_cd = dets.to_bits(cd, norb)
-        diag_cur = slater.diag_elements(tables.table, bits_cu, bits_cd)
-        seg = torch.where(cross, tau - t, t_inc)
-        seg_f = torch.exp(seg * (e_trial - diag_cur + rate))
-        if cfg.ct_mode == "hubbardk":
-            occ_u = dets.occ_orbitals(bits_cu, nup)
-            occ_d = dets.occ_orbitals(bits_cd, ndn)
-            unocc_u = dets.occ_orbitals(1 - bits_cu, norb - nup)
-            p = occ_u[sl, (u6[1] * nup).to(I64).clamp(max=nup - 1)]
-            q = occ_d[sl, (u6[2] * ndn).to(I64).clamp(max=ndn - 1)]
-            r = unocc_u[sl, (u6[3] * (norb - nup)).to(I64).clamp(
-                max=norb - nup - 1)]
-            s_ = tables.kmap3[(p * norb + q) * norb + r]
-            s_occ = dets.get_orb(cd, s_)
-            cu_cnt = dets.count_below(cu, p, r) - _in_window(p, p, r)
-            cd_cnt = dets.count_below(cd, q, s_) - _in_window(q, q, s_)
-            jump_f = torch.where(s_occ, zero, -_sign(cu_cnt + cd_cnt))
-            nxt_up = dets.set_orb(dets.clear_orb(cu, p), r)
-            nxt_dn = dets.set_orb(dets.clear_orb(cd, q), s_)
-        else:
-            jump_f, nxt_up, nxt_dn = _ct_jump_move(
-                cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl)
-        act = ~done
-        dead = jump_f == 0.0
-        f = torch.where(act, f * seg_f * torch.where(cross, one, jump_f), f)
-        jumped = act & ~cross & ~dead
-        n_jumps += jumped
-        cu = torch.where(jumped[:, None], nxt_up, cu)
-        cd = torch.where(jumped[:, None], nxt_dn, cd)
-        t = torch.where(act, t_new, t)
-        done = done | (act & (cross | dead))
-    f = torch.where(done, f, zero)
-    return (cu, cd, f, slot_valid & (f != 0.0), n_jumps.sum(dtype=F64),
-            (~done).sum(dtype=F64))
+    device tensors (no host sync)."""
+    u = ctchain.draw_uniforms(gen, cfg.ct_max_jumps, up_w.shape[0],
+                              up_w.device)
+    if cfg.ct_mode == "hubbardk":
+        return ctchain.chain(u, up_w, dn_w, slot_valid, tables.table,
+                             tables.kmap3, tables.ct_rate, tau, e_trial,
+                             cfg.norb, cfg.nup, cfg.ndn)
+    return ctchain.chain_plain(
+        u, up_w, dn_w, slot_valid, tables.table, tables.ct_rate, tau, e_trial,
+        cfg.norb, lambda *a: _ct_jump_move(cfg, tables, *a))
 
 
 def _ct_jump_move(cfg, tables, cu, cd, bits_cu, bits_cd, u6, sl):
@@ -1846,7 +1802,7 @@ def _step_graph(state: WalkState, tables: WalkTables, cfg: WalkConfig,
                 state._replace(rng_state=None), gen, _TRACE_KEYS,
                 ("spawn_hist",),
                 counters=(segscan, spmv, hbspawn, slotpar, seqinit,
-                          spawnhist),
+                          spawnhist, ctchain),
                 rows=max(nstep, 128), marks=N_MARKS)
         _GRAPH[key] = g
     return g

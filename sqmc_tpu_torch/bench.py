@@ -136,10 +136,10 @@ def system_and_trial(dev, workdir: str, eps_var: float, n_psi_t: int,
 
 
 def _launches():
-    from .ops import hbspawn, segscan, slotpar, spawnhist, spmv
+    from .ops import ctchain, hbspawn, segscan, slotpar, spawnhist, spmv
     return {"seg_scan": segscan.launches, "spmv": spmv.launches,
             "hb_spawn": hbspawn.launches, "slot_parents": slotpar.launches,
-            "spawn_hist": spawnhist.launches}
+            "spawn_hist": spawnhist.launches, "ct_chain": ctchain.launches}
 
 
 def spawn_weight_below(hist) -> float:

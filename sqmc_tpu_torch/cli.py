@@ -27,7 +27,7 @@ correction to the 1-RDM), &greens_function and &active_space run as in
 the JAX package.  ``hubbarddm`` has no card path in either package (its
 API is systems/hubbard/dmbasis.py).  The last line is the kernels'
 launch counts (``Kernel launches: seg_scan=... spmv=... hb_spawn=...
-slot_parents=... seq_init=... spawn_hist=...``); a walk prints, before
+slot_parents=... seq_init=... spawn_hist=... ct_chain=...``); a walk prints, before
 it, its last block's device time a generation by piece (``Generation
 pieces ...``, algo/walk.py block_report).  ``--profile DIR`` writes a
 torch.profiler Chrome trace in which the program's spans (utils/timers:
@@ -472,10 +472,11 @@ def run_from_config(cfg, fcidump: str | None = None, verbose: bool = True,
 
 def main(argv=None):
     import torch
-    from .ops import hbspawn, segscan, seqinit, slotpar, spawnhist, spmv
+    from .ops import (ctchain, hbspawn, segscan, seqinit, slotpar, spawnhist,
+                      spmv)
     kernels = dict(seg_scan=segscan, spmv=spmv, hb_spawn=hbspawn,
                    slot_parents=slotpar, seq_init=seqinit,
-                   spawn_hist=spawnhist)
+                   spawn_hist=spawnhist, ct_chain=ctchain)
 
     p = argparse.ArgumentParser(prog="sqmc_tpu_torch")
     p.add_argument("-i", "--input", required=True)

@@ -1469,14 +1469,15 @@ def test_entry_runs_a_generation_on_card():
     shapes and dtypes, launching K1, K2 (the float64 projector), K3b, K4
     and K6 once a call."""
     from sqmc_tpu_torch.entry import entry
-    from sqmc_tpu_torch.ops import hbspawn, segscan, slotpar, spawnhist, spmv
-    mods = (segscan, spmv, hbspawn, slotpar, spawnhist)
+    from sqmc_tpu_torch.ops import (ctchain, hbspawn, segscan, slotpar,
+                                    spawnhist, spmv)
+    mods = (segscan, spmv, hbspawn, slotpar, spawnhist, ctchain)
     dev = _device()
     fn, (state, tables) = entry()
     before = [m.launches for m in mods]
     for _ in range(3):
         wt, e_num, w_abs = fn(state, tables)
-    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3, 3]
+    assert [m.launches - b for m, b in zip(mods, before)] == [3, 3, 3, 3, 3, 0]
     assert wt.device.type == "cuda" and wt.shape == (2048,)
     assert wt.dtype == e_num.dtype == w_abs.dtype == torch.float64
     assert e_num.shape == w_abs.shape == ()
@@ -1562,10 +1563,10 @@ def _assert_same_walk(a, b, sa, sb):
 
 
 def _kernel_counts():
-    from sqmc_tpu_torch.ops import (hbspawn, segscan, seqinit, slotpar,
-                                    spawnhist, spmv)
+    from sqmc_tpu_torch.ops import (ctchain, hbspawn, segscan, seqinit,
+                                    slotpar, spawnhist, spmv)
     return [m.launches for m in (segscan, spmv, slotpar, seqinit, hbspawn,
-                                 spawnhist)]
+                                 spawnhist, ctchain)]
 
 
 @pytest.mark.cuda
@@ -1579,8 +1580,8 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
     Philox stream), and the kernel launch counts of the graphed blocks
     equal the eager blocks' (K1, K3b, K4 in every cell but the CT chain and
     the two proposals, which run no K3b; K2 in entry()'s f64 walk; K5 under
-    the sequential rule; K6 in every cell): K3b and K6 once a generation,
-    n in a block of n."""
+    the sequential rule; K6 in every cell; K7 in the CT chain's): K3b, K6
+    and K7 once a generation, n in a block of n."""
     from sqmc_tpu_torch.algo import walk as TW
     dev = _device()
     s, trial, cfg, w0 = _graph_cell(name, dev)
@@ -1599,14 +1600,14 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
         assert torch.equal(g_e.get_state(), g_g.get_state())
         eager = [y - x for x, y in zip(c0, c1)]
         assert [y - x for x, y in zip(c1, c2)] == eager
-        assert eager[4] in (0, n) and eager[5] == n
+        assert eager[4] in (0, n) and eager[5] == n and eager[6] in (0, n)
     assert not bool(b.overflow) and int(b.nwalk) > 1000
-    want = {"bench": [1, 0, 1, 0, 1, 1], "heg14_f32": [1, 0, 1, 0, 1, 1],
-            "heg14_f32_sequential": [1, 0, 1, 1, 1, 1],
-            "entry_f64": [1, 1, 1, 0, 1, 1],
-            "ct_hubbardk": [1, 0, 1, 0, 0, 1],
-            "cauchy_schwarz": [1, 0, 1, 0, 0, 1],
-            "uniform": [1, 0, 1, 0, 0, 1]}[name]
+    want = {"bench": [1, 0, 1, 0, 1, 1, 0], "heg14_f32": [1, 0, 1, 0, 1, 1, 0],
+            "heg14_f32_sequential": [1, 0, 1, 1, 1, 1, 0],
+            "entry_f64": [1, 1, 1, 0, 1, 1, 0],
+            "ct_hubbardk": [1, 0, 1, 0, 0, 1, 1],
+            "cauchy_schwarz": [1, 0, 1, 0, 0, 1, 0],
+            "uniform": [1, 0, 1, 0, 0, 1, 0]}[name]
     assert [int(d > 0) for d in eager] == want, eager
     g = TW._GRAPH[next(iter(TW._GRAPH))]
     print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
@@ -2272,3 +2273,172 @@ def test_spawn_hist_wrapper_raises_on_bad_input():
         spawnhist.spawn_histogram(w[:0], f[:0])
     with pytest.raises(ValueError):               # flags on the CPU
         spawnhist.spawn_histogram(w, f.cpu())
+
+
+# ---------------------------------------------------------------------------
+# K7: the CT chain of the exponential projector, ct_mode "hubbardk"
+# (ops/ctchain.py)
+# ---------------------------------------------------------------------------
+
+def _ct_case_on(case, dev):
+    """tests/torch_ctchain_cases.py's case on the card: the kernel's inputs
+    and the same inputs as the plain version takes them."""
+    import torch_ctchain_cases as cases
+    from types import SimpleNamespace
+    c = cases.make_case(case)
+    g = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+         for k, v in c.items()}
+    tb = c["table"]
+    g["table"] = SimpleNamespace(
+        norb=tb.norb, core_energy=tb.core_energy, h=tb.h.to(dev),
+        direct=tb.direct.to(dev), exchange=tb.exchange.to(dev))
+    return c, g
+
+
+def _ct_kernel(g):
+    from sqmc_tpu_torch.ops import ctchain
+    return ctchain.chain(g["u"], g["up_w"], g["dn_w"], g["slot_valid"],
+                         g["table"], g["kmap3"], g["rate"], g["tau"],
+                         g["e_trial"], g["norb"], g["nup"], g["ndn"])
+
+
+def _assert_same_chains(got, want):
+    """Words, flags and both counters equal; the factor within 1e-12 of
+    its size (H_ii's sums in another order)."""
+    up, dn, f, ok, nj, nc = got
+    assert torch.equal(up, want[0]) and torch.equal(dn, want[1])
+    assert torch.equal(ok, want[3])
+    assert float(nj) == float(want[4]) and float(nc) == float(want[5])
+    assert nj.dtype == nc.dtype == torch.float64 and nj.shape == nc.shape == ()
+    assert torch.equal(f != 0, want[2] != 0)
+    err = ((f - want[2]).abs() / want[2].abs().clamp(min=1e-300))[f != 0]
+    assert float(err.max()) < 1e-12 if err.numel() else True
+
+
+CT_CHAIN_CASES = ("hubk2x2", "hubk2x4", "hubk4x4", "hubk4x4_cut",
+                  "hubk2x4_cut", "wide48", "two_word72", "cell")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CT_CHAIN_CASES)
+def test_ct_chain_kernel_matches_plain(case):
+    """K7 against its plain version on the card, one launch a call, on
+    tests/torch_ctchain_cases.py's chains (2x2, 2x4 and 4x4 Hubbard-k
+    clusters with undrawn slots, dead proposals, wrapped first moves and
+    chains cut at a small n_moves; 48 orbitals at one word a spin; two
+    words a spin) and at hubbardk4x4.walk-ct's shape (262,144
+    slots, 40% drawn, 12 moves): child words, flags and both counters
+    equal, the factor within 1e-12; a second call gives the same bits."""
+    from sqmc_tpu_torch.ops import ctchain
+    dev = _device()
+    c, g = _ct_case_on(case, dev)
+    before = ctchain.launches
+    got = _ct_kernel(g)
+    torch.cuda.synchronize()
+    assert ctchain.launches == before + 1
+    import torch_ctchain_cases as cases
+    _assert_same_chains(got, cases.plain(c, dev))
+    again = _ct_kernel(g)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    S, W = g["up_w"].shape
+    print(f"ct_chain {case}: S={S} W={W} norb={g['norb']} "
+          f"jumps={float(got[4]):.0f} cut={float(got[5]):.0f} "
+          f"ok={int(got[3].sum())} " + " ".join(
+              f"{k}={v}" for k, v in ctchain.launch_shape(
+                  S, W, g["norb"], dev).items()))
+
+
+@pytest.mark.cuda
+def test_ct_chain_in_captured_graph_equals_eager():
+    """K7 captured in a CUDA graph (the counters' zeroing and the launch),
+    replayed on new uniforms, drawn parents and E_T written into the same
+    buffers: each replay's chains equal the eager call's on those inputs
+    bit for bit (rate, tau and E_T are read on the device)."""
+    from sqmc_tpu_torch.ops import ctchain
+    dev = _device()
+    _, g = _ct_case_on("hubk4x4", dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _ct_kernel(g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _ct_kernel(g)
+    for k in range(3):
+        g["u"].copy_(ctchain.draw_uniforms(gen, g["u"].shape[0],
+                                           g["u"].shape[2], dev))
+        v = g["slot_valid"]                     # drawn slots: real dets
+        g["up_w"][v] = g["up_w"][v].roll(k + 1, 0)
+        g["e_trial"].fill_(float(g["e_trial"]) + 0.1 * k)
+        graph.replay()
+        eager = _ct_kernel(g)
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ct_walk_graphed_block_matches_the_plain_chain(monkeypatch):
+    """hubbardk4x4.walk-ct's walk (phase 7a): a graphed block (K7, one
+    launch a generation) against an eager block from one seed whose chain
+    is the plain version on the card: the walkers' dets, flags and the
+    counters of every generation (jumps, cut chains, accepted spawns,
+    fresh dets, walkers) equal, the weights within 1e-6 (the factors
+    differ in their last bits only)."""
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.ops import ctchain
+    dev = _device()
+    s, trial, cfg, w0 = _graph_cell("ct_hubbardk", dev)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, w0, trial.e_trial, tables)
+    n = 20
+    k0 = ctchain.launches
+    b, sb = TW.walk_block(st, tables, cfg, n,
+                          torch.Generator(device=dev).manual_seed(29))
+    torch.cuda.synchronize()
+    assert ctchain.launches == k0 + n
+
+    def plain(u, up_w, dn_w, slot_valid, table, kmap3, rate, tau, e_trial,
+              norb, nup, ndn):
+        return ctchain.chain_plain(u, up_w, dn_w, slot_valid, table, rate,
+                                   tau, e_trial, norb,
+                                   ctchain.hubbardk_move(kmap3, norb, nup,
+                                                         ndn))
+    monkeypatch.setattr(ctchain, "chain", plain)
+    a, sa = TW._walk_block_eager(st, tables, cfg, n,
+                                 torch.Generator(device=dev).manual_seed(29))
+    torch.cuda.synchronize()
+    assert ctchain.launches == k0 + n
+    for k in ("n_ct_jumps", "n_ct_cut", "n_spawn", "n_spawn_ok", "n_fresh",
+              "nwalk"):
+        assert torch.equal(sa[k], sb[k]), k
+    assert bool((sb["n_ct_jumps"] > 0).all())
+    for f in ("up", "dn", "imp", "init", "nwalk"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.allclose(a.wt.double(), b.wt.double(), rtol=1e-6, atol=0)
+    TW.release_graphs()
+
+
+@pytest.mark.cuda
+def test_ct_chain_wrapper_raises_on_bad_input():
+    from sqmc_tpu_torch.ops import ctchain
+    dev = _device()
+    _, g = _ct_case_on("hubk2x2", dev)
+    bad = [dict(up_w=g["up_w"].to(torch.int32)),              # int32 words
+           dict(dn_w=g["dn_w"][:-1]),                         # lengths differ
+           dict(slot_valid=g["slot_valid"].to(torch.uint8)),  # uint8 flags
+           dict(u=g["u"][:, :5]),                             # 5 uniforms
+           dict(u=g["u"].float()),                            # float32
+           dict(kmap3=g["kmap3"][:-1]),                       # short kmap3
+           dict(tau=g["tau"].cpu()),                          # tau on the CPU
+           dict(e_trial=g["e_trial"][None]),                  # not 0-d
+           dict(up_w=g["up_w"].repeat(1, 3),                  # three words
+                dn_w=g["dn_w"].repeat(1, 3))]
+    for change in bad:
+        with pytest.raises(ValueError):
+            _ct_kernel({**g, **change})
+    with pytest.raises(ValueError):                           # nup = norb
+        _ct_kernel({**g, "nup": g["norb"]})

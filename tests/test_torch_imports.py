@@ -36,6 +36,7 @@ def test_port_imports_without_jax():
                 "sqmc_tpu_torch.ops.hbselect",
                 "sqmc_tpu_torch.ops.slotpar",
                 "sqmc_tpu_torch.ops.spawnhist",
+                "sqmc_tpu_torch.ops.ctchain",
                 "sqmc_tpu_torch.bench",
                 "sqmc_tpu_torch.entry"):
         assert new in mods, new
