@@ -28,8 +28,9 @@ bounded (count -> cumsum -> fixed slots) and compactions are order-
 preserving scatters; ``overflow`` is read once per block by the driver.
 Each generation writes N_MARKS device timestamps (ops/mark.py) at the
 boundaries of its PIECES (projection, spawn, annihilation, fill,
-finalize) and at the heat-bath proposal's (or the CT chain's) end
-inside the spawn;
+finalize), at the heat-bath proposal's (or the CT chain's) end inside
+the spawn and at the full-sort merge's key sort's end inside the
+annihilation;
 :func:`block_report` reads them, and the per-generation counters, for
 the last block run.
 On the card the generation is captured once as a CUDA graph and a block
@@ -1149,7 +1150,9 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     0-d device tensors plus the [N_HIST_BINS] spawn histogram.  mark(k)
     writes device timestamp k (MARK_STARTS: each of PIECES' starts;
     MARK_PROPOSE: the heat-bath proposal's or the CT chain's end inside
-    the spawn piece; the caller writes the last after the finalize)."""
+    the spawn piece; MARK_SORT: the full-sort merge's key sort's end
+    inside the annihilation; the caller writes the last after the
+    finalize)."""
     mark(0)
     M, CAP, norb = cfg.mwalk, cfg.cap_spawn, cfg.norb
     dev = state.wt.device
@@ -1357,7 +1360,7 @@ def _walk_step_impl(state: WalkState, tables: WalkTables, cfg: WalkConfig,
     merge = _full_sort_merge if cfg.full_sort_merge else _two_level_merge
     out = merge(state, cfg, tables, gen, alive, wt_par, spawn_up, spawn_dn,
                 spawn_wt, spawn_ok, child_imp, child_init, overflow, mark)
-    mark(5)
+    mark(6)
     new_state, stats = _finalize_step(state, tables, cfg, gen, *out,
                                       total_spawn, spawn_wt, spawn_ok, ct_dots)
     zero = torch.zeros((), dtype=F64, device=dev)
@@ -1440,6 +1443,7 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     s_keys = [k[order] for k in keys]
     s_wt, s_flags = all_wt[order], flags[order]
     s_diag, s_ct = all_diag[order], all_ct[order].to(I32)
+    mark(MARK_SORT)     # the key sort and its gathers' end
 
     neq = torch.ones(N, dtype=torch.bool, device=dev)
     neq_t = s_keys[0][1:] != s_keys[0][:-1]
@@ -1470,7 +1474,7 @@ def _full_sort_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     kill = tiny & (u_rnd >= aw / cfg.min_wt)
     rounded = tiny & ~kill
     keep = keep & ~kill
-    mark(4)
+    mark(5)
 
     # ---------------- compact to [M] (order-preserving) --------------------
     nwalk_new = keep.sum().to(I32)
@@ -1611,7 +1615,7 @@ def _two_level_merge(state, cfg, tables, gen, alive, wt_par, spawn_up,
     # group values stand at each group's FIRST row
     keep_n = neq & keep_g[gid]
     n_wt_pos, n_init_pos, n_imp_pos = gn_wt[gid], gn_init[gid], gn_imp[gid]
-    mark(4)
+    mark(5)
 
     # ---- level 3: rank merge of the two sorted survivor lists -------------
     kw_i = torch.cumsum(keep_w.to(I64), 0)
@@ -1834,13 +1838,16 @@ _TRACE_KEYS = ("e_num_gen", "e_den_gen", "w_abs_gen", "nwalk", "n_spawn",
 # The generation's pieces, delimited by its N_MARKS device timestamps in
 # time order: mark MARK_STARTS[i] starts piece i, MARK_PROPOSE ends the
 # heat-bath proposal or the CT chain inside the spawn piece (a walk with
-# neither, such as the uniform proposal's, leaves it unwritten), and the
+# neither, such as the uniform proposal's, leaves it unwritten),
+# MARK_SORT ends the full-sort merge's key sort and its gathers inside
+# the annihilation (the two-level merge leaves it unwritten), and the
 # last mark ends the finalize, after the step graph's copy-back; and what
 # the last block run left to read
 PIECES = ("project", "spawn", "annihilate", "fill", "finalize")
-MARK_STARTS = (0, 1, 3, 4, 5)
+MARK_STARTS = (0, 1, 3, 5, 6)
 MARK_PROPOSE = 2
-N_MARKS = len(PIECES) + 2
+MARK_SORT = 4
+N_MARKS = len(PIECES) + 3
 _LAST_BLOCK: dict = {}
 
 
@@ -1866,7 +1873,11 @@ def block_report() -> dict | None:
                         (the slot allocation, K4, the parent gathers) to
                         the end of the heat-bath proposal (K3b) or of the
                         CT chain (absent in a walk with neither, such as
-                        the uniform proposal's)
+                        the uniform proposal's); "sort", the annihilation's
+                        start (the parents' diagonal move and D add, the
+                        merge's keys) to the end of the full-sort merge's
+                        key sort and its gathers (absent under the
+                        two-level merge)
       wall_ns_per_gen   first mark of the block to its last, a generation
       host_enqueue_ms_per_gen   host time spent enqueueing the block's
                         replays (the eager loop: running them), a
@@ -1885,8 +1896,10 @@ def block_report() -> dict | None:
           for p, a, b in zip(PIECES, MARK_STARTS, ends)}
     ns["replay_gap"] = float((m[1:, 0] - m[:-1, -1]).sum()) / n
     sub = {}
-    if (m[:, MARK_PROPOSE] > 0).all():
-        sub["propose"] = float((m[:, MARK_PROPOSE] - m[:, 1]).sum()) / n
+    for k, mk, start in (("propose", MARK_PROPOSE, 1),
+                         ("sort", MARK_SORT, 3)):
+        if (m[:, mk] > 0).all():
+            sub[k] = float((m[:, mk] - m[:, start]).sum()) / n
     stats = _LAST_BLOCK["stats"]
     return {"gens": n, "piece_ns": ns, "sub_ns": sub,
             "wall_ns_per_gen": float(m[-1, -1] - m[0, 0]) / n,

@@ -1333,6 +1333,62 @@ def test_hb_spawn_wide_kernel_takes_any_det(case, tmp_path):
         assert torch.equal(r, w)
 
 
+@pytest.mark.cuda
+def test_hb_spawn_two_words_at_the_pw81_cell_shape_graphed():
+    """K3b at the shape of the benchmark's heg54-pw81.walk cell: 54
+    electrons in 81 plane waves, two words a spin, float32, no singles,
+    262,144 slots.  It launches the NW = 0 instantiation (no register
+    path, no wide kernel: mu summed again each pass) with R2 in shared
+    memory; captured in a CUDA graph and replayed, its outputs equal the
+    eager launch's bit for bit and the plain version's
+    (torch_spawn_emulation.compare_with_plain) on exact-sum tables."""
+    import torch_spawn_emulation as se
+    from sqmc_tpu_torch.algo import walk as TW
+    from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
+    from sqmc_tpu_torch.ops import hbspawn
+    from sqmc_tpu_torch.systems.heg.system import make_heg_system
+    dev = _device()
+    s = make_heg_system(3, 0.5, 54, 27, 2.5, device=dev)
+    trial = build_trial_wavefunction(s, eps_var=5e-2, n_psi_t=5, n_imp=5)
+    cfg = TW.WalkConfig(mwalk=8192, cap_spawn=8192, norb=s.norb, nup=27,
+                        ndn=27, n_words=s.n_words, tau=2.155e-4,
+                        w_abs_target=1e3, has_singles=False, f32_state=True)
+    assert (s.norb, s.n_words) == (81, 2)
+    tables = TW.build_walk_tables(s, trial, cfg)
+    st = TW.init_walk_state(cfg, trial, 1e3, trial.e_trial, tables)
+    n, cap = int(st.nwalk), 262_144
+    up, dn, streams = se.slot_inputs(np.random.default_rng(31), cap, 81, 27,
+                                     27, (st.up[:n].cpu().numpy(),
+                                          st.dn[:n].cpu().numpy()))
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    args = (se.exact_sum_tables(tables), t(up), t(dn), 81, False, st.tau,
+            torch.float32, [t(u) for u in streams])
+    src = hbspawn.singles_source(args[0], False, torch.float32)
+    shape = hbspawn.launch_shape(cap, 2, 81, 54, False, src, dev)
+    assert shape["reg_ne"] == 0 and shape["wide_ne"] == 0
+    assert shape["r2_in_smem"] == 1 and shape["spill_bytes"] == 0
+    eager = hbspawn.propose(*args, 54)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        hbspawn.propose(*args, 54)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = hbspawn.propose(*args, 54)
+    before = hbspawn.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert hbspawn.launches == before
+    for g, e in zip(got, eager):
+        if g.dtype == torch.float64:
+            g, e = g.view(torch.int64), e.view(torch.int64)
+        assert torch.equal(g, e)
+    print("hb_spawn heg54pw81 graphed: " + " ".join(
+        f"{k}={v}" for k, v in shape.items()) + " "
+        + se.compare_with_plain(args, got, hbspawn.propose_plain(*args)))
+
+
 # ---------------------------------------------------------------------------
 # The rows the uniform / Cauchy-Schwarz proposals draw from
 # ---------------------------------------------------------------------------
@@ -1492,7 +1548,7 @@ def test_entry_runs_a_generation_on_card():
 # ---------------------------------------------------------------------------
 
 GRAPH_CELLS = ("bench", "heg14_f32", "heg14_f32_sequential", "entry_f64",
-               "ct_hubbardk", "cauchy_schwarz", "uniform")
+               "ct_hubbardk", "cauchy_schwarz", "uniform", "heg54pw81_f32")
 
 
 def _graph_cell(name, dev):
@@ -1501,9 +1557,13 @@ def _graph_cell(name, dev):
     heat-bath with singles, f32 state, bf16 dense projector), chip_smoke's
     HEG-14 f32 cell (also under the sequential initiator rule, K5 in the
     merge), entry()'s f64 walk (its D projection through K2),
-    phase 7a's continuous-time chain on the 4x4 Hubbard-k cluster and
+    phase 7a's continuous-time chain on the 4x4 Hubbard-k cluster,
     phase 11c's two proposals on the bench's file (twice its capacities:
-    these walks outgrow the bench's)."""
+    these walks outgrow the bench's) and the gas of the benchmark's
+    heg54-pw81.walk cell (54 electrons in 81 plane waves, two words a
+    spin: K3b's NW = 0 path, the merge on four key words) with a smaller
+    trial and population, at four times the capacities (its population
+    overshoots the start's ~4.7-fold in the first 60 generations)."""
     from sqmc_tpu_torch.algo.semistoch import build_trial_wavefunction
     from sqmc_tpu_torch.algo.walk import WalkConfig
     big = dict(mwalk=458_752, cap_spawn=262_144, w_abs_target=2e5,
@@ -1519,6 +1579,18 @@ def _graph_cell(name, dev):
         return s, trial, WalkConfig(norb=s.norb, nup=s.nup, ndn=s.ndn,
                                     n_words=s.n_words, **knobs), \
             bench.RUN["w_abs_begin"]
+    if name == "heg54pw81_f32":
+        from sqmc_tpu_torch.systems.heg.system import make_heg_system
+        s = make_heg_system(3, 0.5, 54, 27, 2.5, device=dev)
+        trial = build_trial_wavefunction(s, eps_var=1e-2, n_psi_t=500,
+                                         n_imp=2000)
+        assert s.n_words == 2
+        return s, trial, WalkConfig(norb=s.norb, nup=27, ndn=27, n_words=2,
+                                    tau=2.155e-4, spawn_granularity=2.0,
+                                    r_initiator=0.5, pop_ctrl_exponent=92.8,
+                                    **dict(big, mwalk=4 * big["mwalk"],
+                                           cap_spawn=4 * big["cap_spawn"])), \
+            1.4e5
     if name.startswith("heg14_f32"):
         from sqmc_tpu_torch.systems.heg.system import make_heg_system
         s = make_heg_system(3, 0.5, 14, 7, 1.49, device=dev)
@@ -1607,7 +1679,8 @@ def test_captured_walk_equals_eager_bit_for_bit(name):
             "entry_f64": [1, 1, 1, 0, 1, 1, 0],
             "ct_hubbardk": [1, 0, 1, 0, 0, 1, 1],
             "cauchy_schwarz": [1, 0, 1, 0, 0, 1, 0],
-            "uniform": [1, 0, 1, 0, 0, 1, 0]}[name]
+            "uniform": [1, 0, 1, 0, 0, 1, 0],
+            "heg54pw81_f32": [1, 0, 1, 0, 1, 1, 0]}[name]
     assert [int(d > 0) for d in eager] == want, eager
     g = TW._GRAPH[next(iter(TW._GRAPH))]
     print(f"captured {name}: capture_seconds={g.capture_seconds:.3f} "
